@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
-"""Drive glz_tpu_torch's main path on one CUDA card and check its kernels.
+"""Drive glz_tpu_torch's paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Phases (each prints one line; any failure exits non-zero before the last):
+Two paths: the byte-mode lockstep codec (THROUGHPUT) and the HuffWord
+lockstep codec.  Phases (each prints one line or more; any failure exits
+non-zero before the last):
   1. environment: torch, the card, nvidia-smi, nvcc;
   2. build: compile csrc/lockstep.cu for sm_90a, with ptxas register/spill
      figures per kernel;
-  3. kernels: K1 lane_totals, K2 encode_groups and K3 decode_groups against
-     their plain PyTorch versions on the card, bit-exact (integer data,
-     tolerance 0): rows 8/16/32/64 at S 64/512 and rows 8 at S 8192, each
-     with a ragged n_valid, a depth-26 codebook, and identical lanes (dense
-     refill steps);
-  4. main path: compress + decompress of a 512 MiB corpus under THROUGHPUT
-     with checksum, launch counts read just after;
-  5. kernel times at the main path's shapes (CUDA events), each kernel held
-     against its plain version on the same inputs;
-  6. pinned digests: the container of tests/fixtures/realtext.txt[:1 MiB]
-     under two configurations must have the SHA-256 that the JAX reference
-     writes (pinned by tests/test_torch_canonical_byte.py).
+  3. kernels against their plain PyTorch versions on the card, bit-exact
+     (integer data, tolerance 0):
+     - byte path: K1 lane_totals, K2 encode_groups and K3 decode_groups on
+       rows 8/16/32/64 at S 64/512 and rows 8 at S 8192, each with a ragged
+       n_valid, a depth-26 codebook, and identical lanes (dense refill
+       steps);
+     - HuffWord path: K6 lut_gather at both call sites (gather_entries,
+       map_ranks), the entry-word lane totals, K4 encode_entries and K5
+       decode_dual on rows 8/16/32 at S 64/512 and rows 64 at S 64 (ragged
+       token counts), nonword-first text, single-symbol dictionaries, one
+       token (an empty dictionary) and a >64K-word vocabulary (u32 ids);
+       each case also round-trips its tokens;
+  4. byte main path: compress + decompress of a 512 MiB corpus under
+     THROUGHPUT with checksum, launch counts read just after;
+  4b. HuffWord main path: compress + decompress of 100 MiB of English-like
+     text (20,000 Zipf words) at S 512, rows 32, with checksum, launch
+     counts read just after, and the host steps re-run alone;
+  5. kernel times at each main path's shapes (CUDA events), each kernel
+     held against its plain version on the same inputs;
+  6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
+     under five configurations must have the SHA-256 that the JAX reference
+     writes (pinned by tests/test_torch_canonical_byte.py and
+     tests/test_torch_huffword.py).
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -39,20 +52,26 @@ import torch
 
 import glz_tpu_torch as gt
 from glz_tpu_torch import config as cfg
+from glz_tpu_torch.core import container
 from glz_tpu_torch.core.codebook import build_codebook, histogram_bytes, sampled_histogram
 from glz_tpu_torch.core.lockstep import LANES
-from glz_tpu_torch.models.canonical_byte import decode_tables, entry_table, group_tables
+from glz_tpu_torch.models.canonical_byte import (_i32_tensor, decode_tables, entry_table,
+                                                 group_tables)
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops import lockstep_decode as kd
 from glz_tpu_torch.ops import lockstep_encode as ke
+from glz_tpu_torch.ops import lut
+from glz_tpu_torch.utils import tokenizer as tok
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MAIN_BYTES = 512 << 20
+HUFFWORD_BYTES = 100 << 20
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 # 32-bit integer operations the algorithms need per valid symbol (counted
 # from the plain versions: table lookup, masks, shifts, compares, selects)
-OPS_PER_SYMBOL = {"lane_totals": 2, "encode_groups": 16}
+OPS_PER_SYMBOL = {"lane_totals": 2, "encode_groups": 16, "lane_totals_entries": 2,
+                  "encode_entries": 15, "lut_gather": 5}
 DECODE_OPS_BASE = 12        # + 2 per canonical-scan level (compare, select)
 
 # SHA-256 of the containers of realtext.txt[:1 MiB] written by glz_tpu.
@@ -60,12 +79,23 @@ PINNED = {
     "throughput": "55f3d4a23d26dda8b1117a8d6016718ee20181ab3da2ee7f85ff4b682dd44422",
     "rows8_s256": "57892cd61186c775eb338aa2c212ed076db4727386beef3e0604f5642b5b1e24",
 }
+HUFFWORD_PINNED = {
+    "hw_s512_r32": "5fc26488cd8b36f480b7535b1c810f83a545512d26736f25ed2288ff98d0c7f4",
+    "hw_s64_r8": "8ae343d0d7b51e4f6b15c8e68c07d54c63a92a0ea7676620cada47ed5e9b3573",
+    "hw_ratio": "9a3d1efc739b17791d7010cff6be7c8a473e1243723b4c0574c28b42bd680116",
+}
 
 REPLACES = {
     "lane_totals": "glz_tpu/ops/pallas_encode.py:449",
     "encode_groups": "glz_tpu/ops/pallas_encode.py:96",
     "decode_groups": "glz_tpu/ops/pallas_decode.py:205",
+    "lane_totals_entries": "glz_tpu/ops/pallas_encode.py:591",
+    "encode_entries": "glz_tpu/ops/pallas_encode.py:96",
+    "decode_dual": "glz_tpu/ops/pallas_decode.py:471",
+    "lut_gather": "glz_tpu/ops/pallas_lut.py:47",
 }
+BYTE_KERNELS = ("lane_totals", "encode_groups", "decode_groups")
+HUFFWORD_KERNELS = ("lut_gather", "lane_totals_entries", "encode_entries", "decode_dual")
 
 
 def require(cond, msg: str) -> None:
@@ -77,6 +107,56 @@ def pinned_configs() -> dict[str, cfg.GlzConfig]:
     base = dataclasses.replace(cfg.THROUGHPUT, checksum=True)
     return {"throughput": base,
             "rows8_s256": dataclasses.replace(base, group_rows=8, stream_symbols=256)}
+
+
+def huffword_conf(S: int = 512, rows: int = 32, base: cfg.GlzConfig | None = None
+                  ) -> cfg.GlzConfig:
+    """A HuffWord lockstep configuration with checksum; the default is the
+    HuffWord benchmark's (S 512, rows 32)."""
+    if base is not None:
+        return dataclasses.replace(base, layout=cfg.LAYOUT_LOCKSTEP, checksum=True)
+    return cfg.GlzConfig(stream_symbols=S, layout=cfg.LAYOUT_LOCKSTEP, group_rows=rows,
+                         checksum=True)
+
+
+def huffword_pinned_configs() -> dict[str, cfg.GlzConfig]:
+    """The main path's configuration, a narrow one, and RATIO's stream size
+    (a byte preset: HuffWord reads it as 512)."""
+    return {"hw_s512_r32": huffword_conf(),
+            "hw_s64_r8": huffword_conf(64, 8),
+            "hw_ratio": huffword_conf(base=cfg.RATIO)}
+
+
+def make_word_corpus(n_bytes: int, seed: int = 0x3AD) -> bytes:
+    """English-like text: Zipf(1.1) draws from 20,000 words, each followed
+    by one of six separators (the repository's HuffWord benchmark recipe,
+    bench_huffword.make_corpus)."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i:x}" for i in range(20000)]
+    probs = (1.0 / np.arange(1, len(vocab) + 1)) ** 1.1
+    probs /= probs.sum()
+    seps = np.array([" ", " ", " ", ". ", ", ", "\n"], dtype=object)
+    parts = []
+    size = 0
+    chunk = 1 << 16
+    while size < n_bytes:
+        ws = rng.choice(len(vocab), size=chunk, p=probs)
+        ss = rng.choice(len(seps), size=chunk)
+        s = "".join(vocab[w] + seps[k] for w, k in zip(ws, ss))
+        parts.append(s.encode())
+        size += len(parts[-1])
+    return b"".join(parts)[:n_bytes]
+
+
+def big_vocab_text(n_distinct: int = 70_000, n_repeats: int = 10_000,
+                   seed: int = 0xB16) -> bytes:
+    """Every one of 70K distinct words once, in random order, then random
+    repeats: more words than a u16 id holds (the u32 id and rank path)."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i:05d}".encode() for i in range(n_distinct)]
+    order = np.concatenate([rng.permutation(n_distinct),
+                            rng.choice(n_distinct, size=n_repeats)])
+    return b" ".join(words[int(i)] for i in order)
 
 
 def make_corpus(n_bytes: int, seed: int = 0xE58) -> np.ndarray:
@@ -199,6 +279,105 @@ def check_case(name: str, dev: torch.device) -> None:
             f"{name}: round trip")
 
 
+# name -> (S, rows); word-corpus cases hold about 1.5 groups of tokens
+HUFFWORD_CASES = {f"hw_r{r}_s{s}": (s, r) for r in (8, 16, 32) for s in (64, 512)}
+HUFFWORD_CASES["hw_r64_s64"] = (64, 64)
+HUFFWORD_CASES["hw_nonword_r8_s64"] = (64, 8)
+HUFFWORD_CASES["hw_single_r16_s64"] = (64, 16)
+HUFFWORD_CASES["hw_one_token_r8_s64"] = (64, 8)
+HUFFWORD_CASES["hw_bigvocab_r8_s64"] = (64, 8)
+
+
+def huffword_case_text(name: str) -> bytes:
+    S, rows = HUFFWORD_CASES[name]
+    if "nonword" in name:
+        return b"  ...  " + make_word_corpus(300_000, seed=0x3AE)
+    if "single" in name:
+        return b"word " * 20_000
+    if "one_token" in name:
+        return b"a"
+    if "bigvocab" in name:
+        return big_vocab_text()
+    # the word corpus has ~2.14 bytes per token
+    return make_word_corpus(int(rows * LANES * S * 1.5 * 2.14), seed=S * 100 + rows)
+
+
+class HuffwordInputs:
+    """Everything the HuffWord kernels take for one text, on one device.
+    The plain versions make each kernel's input from the one before, so
+    every kernel sees the inputs the path gives it."""
+
+    def __init__(self, data: bytes, S: int, rows: int, dev: torch.device, vocabs=None):
+        self.S, self.rows = S, rows
+        self.G = rows * LANES
+        _, _, wf, wv, nv, ids = vocabs if vocabs is not None else tok.build_vocabs(data)
+        self.T, self.word_first, self.ids = ids.size, bool(wf), ids
+        self.small = max(wv.n, nv.n) <= 0xFFFF
+        cbs = [build_codebook(v.counts, ke.MAX_FUSED_LEN) for v in (wv, nv)]
+        ents = [cb.left_justified_codes() | cb.lengths.astype(np.uint32) for cb in cbs]
+        self.n0 = max(wv.n, 1)
+        tbl = np.concatenate([ents[0] if wv.n else np.zeros(1, np.uint32),
+                              ents[1] if nv.n else np.zeros(1, np.uint32)])
+        group = self.G * S
+        ids_pad = np.zeros(-(-max(self.T, 1) // group) * group,
+                           np.uint16 if self.small else np.uint32)
+        ids_pad[: self.T] = ids
+        self.ids_d = torch.from_numpy(ids_pad.view(np.int16 if self.small else np.int32)).to(dev)
+        self.ent_tbl = torch.from_numpy(tbl.view(np.int32)).to(dev)
+        self.ent = self.gather(lut.gather_entries_ref)
+        self.ctot, self.gw = ke.lane_totals_entries_ref(self.ent, S, rows)
+        self.padded, grow = ke.group_layout(self.gw.cpu().numpy())
+        self.grow = torch.from_numpy(grow.astype(np.int32)).to(dev)
+        self.n_words = int(self.padded.sum())
+        even, odd = (cbs[0], cbs[1]) if wf else (cbs[1], cbs[0])
+        self.lens = ((even.min_len, odd.min_len), (even.max_len, odd.max_len))
+        self.scan_levels = (even.max_len - even.min_len, odd.max_len - odd.min_len)
+        self.fc = torch.from_numpy(np.stack([even.first_code_left_justified(),
+                                             odd.first_code_left_justified()]).view(np.int32)).to(dev)
+        self.off = torch.from_numpy(np.stack([even.decode_offsets(),
+                                              odd.decode_offsets()]).view(np.int32)).to(dev)
+        self.starts, self.counts = group_tables(self.padded, self.T, self.G, S, dev)
+        self.n_even = max(even.symbols.size, 1)
+        sym = np.concatenate([even.symbols if even.symbols.size else np.zeros(1, np.uint32),
+                              odd.symbols if odd.symbols.size else np.zeros(1, np.uint32)])
+        self.sym_tbl = torch.from_numpy(sym.astype(np.uint32).view(np.int32)).to(dev)
+        self.payload = self.encode(ke.encode_entries_ref)[0]
+        self.ranks = self.decode(kd.decode_groups_dual_ref)
+
+    def gather(self, fn):
+        return fn(self.ids_d, self.ent_tbl, 0, self.n0, self.T, self.word_first)
+
+    def totals(self, fn):
+        return fn(self.ent, self.S, self.rows)
+
+    def encode(self, fn):
+        return fn(self.ent, self.ctot, self.gw, self.grow, self.S, self.rows, self.n_words)
+
+    def decode(self, fn):
+        return fn(self.payload, self.starts, self.counts, self.fc, self.off, self.S,
+                  *self.lens, self.rows)
+
+    def map(self, fn):
+        return fn(self.ranks, self.sym_tbl, self.n_even, self.small)
+
+
+def check_huffword_case(name: str, dev: torch.device) -> None:
+    """The HuffWord kernels on the card against their plain versions for
+    one case, bit-exact, plus the token round trip."""
+    S, rows = HUFFWORD_CASES[name]
+    inp = HuffwordInputs(huffword_case_text(name), S, rows, dev)
+    require(max_abs_err(inp.gather(lut.gather_entries), inp.ent) == 0, f"{name}: K6 gather")
+    require(max_abs_err(inp.totals(ke.lane_totals_entries), (inp.ctot, inp.gw)) == 0,
+            f"{name}: entry totals")
+    pay, cend = inp.encode(ke.encode_entries)
+    require(max_abs_err((pay, cend), (inp.payload, torch.zeros_like(cend))) == 0, f"{name}: K4")
+    require(max_abs_err(inp.decode(kd.decode_groups_dual), inp.ranks) == 0, f"{name}: K5")
+    ids = inp.map(lut.map_ranks)
+    require(max_abs_err(ids, inp.map(lut.map_ranks_ref)) == 0, f"{name}: K6 map")
+    got = ids[: inp.T].cpu().numpy().view(np.uint16 if inp.small else np.uint32)
+    require(np.array_equal(got.astype(np.int64), inp.ids), f"{name}: token round trip")
+
+
 def host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
                dev: torch.device) -> dict[str, float]:
     """Milliseconds of the main path's host-side steps, each re-run alone
@@ -226,6 +405,36 @@ def host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
     clock("crc32", lambda: zlib.crc32(arr))
     clock("host copy (tobytes)", lambda: arr.tobytes())
     return out
+
+
+def huffword_host_steps(data: bytes, blob: bytes, group: int, dev: torch.device):
+    """Milliseconds of the HuffWord path's host-side steps and transfers,
+    each re-run alone at the main path's sizes (host clock; transfers end
+    in a synchronize), and the tokenizer's output for phase 5."""
+    out = {}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    vocabs = clock("tokenize+vocab", lambda: tok.build_vocabs(data))
+    _, _, wf, wv, nv, ids = vocabs
+    clock("codebooks", lambda: [build_codebook(v.counts, ke.MAX_FUSED_LEN) for v in (wv, nv)])
+    ids16 = clock("pad ids", lambda: np.concatenate(
+        [ids.astype(np.uint16), np.zeros(-ids.size % group, np.uint16)]))
+    ids_d = clock("H2D ids", lambda: torch.from_numpy(ids16.view(np.int16)).to(dev))
+    f = clock("read container", lambda: container.read_container(blob))
+    words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
+    pay_d = clock("H2D payload", lambda: _i32_tensor(words, dev))
+    clock("D2H payload", lambda: pay_d.cpu())
+    clock("D2H ids", lambda: ids_d[: ids.size].cpu())
+    clock("detokenize", lambda: tok.detokenize(ids, wf, wv, nv))
+    clock("crc32", lambda: zlib.crc32(data))
+    return out, vocabs
 
 
 def timed_once(fn):
@@ -257,6 +466,25 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_name(mangled: str) -> str:
+    """A readable name for a compiled kernel: the function and its template
+    arguments (lanes per thread, entry words, u16/u32 element types)."""
+    m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_kernel|"
+                  r"decode_dual_kernel|decode_kernel|lut_gather_kernel)(I.*E)?", mangled)
+    if not m:
+        return mangled
+    args = m.group(2) or ""
+    widths = {"t": "u16", "j": "u32"}
+    parts = re.findall(r"Li(\d+)E", args)
+    if "Lb1E" in args:
+        parts.append("entries")
+    elif "Lb0E" in args:
+        parts.append("bytes")
+    if m.group(1) == "lut_gather_kernel":
+        parts = [widths[c] for c in re.findall(r"[tj]", args[1:-1])]
+    return m.group(1) + (f"<{','.join(parts)}>" if parts else "")
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: registers and spill bytes (ptxas -v)."""
     out, name = [], None
@@ -264,11 +492,7 @@ def ptxas_summary(log: str) -> list[str]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
-            for k in ("lane_totals_kernel", "encode_kernel", "decode_kernel"):
-                if k in name:
-                    lpt = re.search(r"ILi(\d+)E", name)
-                    name = k + (f"<{lpt.group(1)}>" if lpt else "")
+            name = kernel_name(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -278,6 +502,93 @@ def ptxas_summary(log: str) -> list[str]:
         if m and name:
             out.append(f"{name}: {m.group(1)} registers, {spill}")
             name = None
+    return out
+
+
+def huffword_kernel_times(text: bytes, f, vocabs, launches: dict, dev: torch.device,
+                          card: str) -> list[dict]:
+    """Phase 5 for the HuffWord path: each kernel at the main path's shapes
+    against its plain version; K6 at both call sites (one JSON row, the two
+    launches summed) with torch.take on the same final indices as its
+    library yardstick."""
+    inp = HuffwordInputs(text, f.stream_symbols, f.group_rows, dev, vocabs=vocabs)
+    n_pad, T = inp.ids_d.numel(), inp.T
+    n_groups, lanes = inp.padded.size, inp.padded.size * inp.G
+    id_bytes = 2 if inp.small else 4
+    half = T // 2
+    n_first = T - half  # tokens at even positions
+    scan_ops = sum(n * (DECODE_OPS_BASE + 2 * lv)
+                   for n, lv in zip((n_first, half), inp.scan_levels))
+    sites = {  # name -> (kernel, plain, bytes, ops, library call or None)
+        "lut_gather/gather_entries": (
+            lambda: inp.gather(lut.gather_entries), lambda: inp.gather(lut.gather_entries_ref),
+            id_bytes * n_pad + 4 * n_pad + 4 * inp.ent_tbl.numel(),
+            OPS_PER_SYMBOL["lut_gather"] * n_pad, inp.ent_tbl),
+        "lane_totals_entries": (
+            lambda: inp.totals(ke.lane_totals_entries),
+            lambda: inp.totals(ke.lane_totals_entries_ref),
+            4 * n_pad + 4 * lanes + 4 * n_groups,
+            OPS_PER_SYMBOL["lane_totals_entries"] * n_pad, None),
+        "encode_entries": (
+            lambda: inp.encode(ke.encode_entries), lambda: inp.encode(ke.encode_entries_ref),
+            4 * n_pad + 4 * lanes + 12 * n_groups + 4 * inp.n_words,
+            OPS_PER_SYMBOL["encode_entries"] * T, None),
+        "decode_dual": (
+            lambda: inp.decode(kd.decode_groups_dual),
+            lambda: inp.decode(kd.decode_groups_dual_ref),
+            4 * inp.n_words + 12 * n_groups + 4 * 4 * 34 + 4 * n_pad, scan_ops, None),
+        "lut_gather/map_ranks": (
+            lambda: inp.map(lut.map_ranks), lambda: inp.map(lut.map_ranks_ref),
+            4 * n_pad + id_bytes * n_pad + 4 * inp.sym_tbl.numel(),
+            OPS_PER_SYMBOL["lut_gather"] * n_pad, inp.sym_tbl),
+    }
+    # the final indices of each K6 call site, for torch.take
+    pos = torch.arange(n_pad, device=dev)
+    take_idx = {
+        "lut_gather/gather_entries": (
+            (inp.ids_d.long() & 0xFFFFFFFF)
+            + torch.where((pos % 2 == 0) == inp.word_first, 0, inp.n0)
+        ).clamp(max=inp.ent_tbl.numel() - 1),
+        "lut_gather/map_ranks": (
+            (inp.ranks.long() & 0xFFFFFFFF) + torch.where(pos % 2 == 1, inp.n_even, 0)
+        ).clamp(max=inp.sym_tbl.numel() - 1),
+    }
+    del pos
+    out, k6 = [], None
+    for site, (kernel, plain_fn, nbytes, nops, table) in sites.items():
+        plain_ms, plain_out = timed_once(plain_fn)
+        got = kernel()
+        err = max_abs_err(got, plain_out)
+        require(err == 0, f"huffword main shape: {site} differs from its plain version by {err}")
+        if site == "encode_entries":
+            require(not bool(got[1].any()), "huffword main shape: encode cursor did not end at 0")
+        del got, plain_out
+        ms = cuda_ms(kernel, reps=5)
+        lib_ms = None
+        if table is not None:
+            idx = take_idx[site]
+            lib_ms = cuda_ms(lambda: torch.take(table, idx), reps=5)
+        b_ms, b_by = bound(nbytes, nops)
+        print(f"time: {site} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
+              f"{b_by}; {nbytes} B, {nops} ops"
+              + (f"; torch.take {lib_ms:.3f} ms" if lib_ms is not None else "")
+              + f") on {card}", flush=True)
+        kname = site.split("/")[0]
+        row = {"name": kname, "route": "cuda", "source": "glz_tpu_torch/csrc/lockstep.cu",
+               "replaces": REPLACES[kname], "launches": launches[kname], "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms, "_bytes": nbytes, "_ops": nops}
+        if kname == "lut_gather" and k6 is not None:
+            for key in ("ms", "plain_ms", "library_ms", "_bytes", "_ops"):
+                k6[key] += row[key]
+            k6["max_abs_err"] = max(k6["max_abs_err"], err)
+            k6["bound_ms"], k6["bound_by"] = bound(k6["_bytes"], k6["_ops"])
+            continue
+        if kname == "lut_gather":
+            k6 = row
+        out.append(row)
+    for row in out:
+        del row["_bytes"], row["_ops"]
     return out
 
 
@@ -311,6 +622,14 @@ def main() -> int:
     print(f"kernels: lane_totals, encode_groups, decode_groups bit-exact vs plain on "
           f"{len(CASES)}/{len(CASES)} cases ({', '.join(CASES)}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for case in HUFFWORD_CASES:
+        check_huffword_case(case, dev)
+    torch.cuda.synchronize()
+    print(f"kernels: lut_gather (gather_entries, map_ranks), lane_totals_entries, "
+          f"encode_entries, decode_dual bit-exact vs plain, tokens round-trip, on "
+          f"{len(HUFFWORD_CASES)}/{len(HUFFWORD_CASES)} cases "
+          f"({', '.join(HUFFWORD_CASES)}); {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 4. main path: 512 MiB under THROUGHPUT with checksum
     arr = make_corpus(MAIN_BYTES)
@@ -329,7 +648,8 @@ def main() -> int:
     t_d = time.perf_counter() - t0
     launches = _kernels.launch_counts()
     require(out == arr.tobytes(), "main path: round trip mismatch")
-    require(all(v > 0 for v in launches.values()), f"main path missed a kernel: {launches}")
+    require(all(launches[k] > 0 for k in BYTE_KERNELS),
+            f"main path missed a kernel: {launches}")
     n = arr.size
     print(f"main: {n >> 20} MiB THROUGHPUT+checksum on {name} ({smi}): compress "
           f"{t_c * 1e3:.1f} ms ({n / t_c / 1e9:.3f} GB/s), decompress {t_d * 1e3:.1f} ms "
@@ -340,6 +660,42 @@ def main() -> int:
     steps = host_steps(arr, blob, conf, dev)
     print("host: " + ", ".join(f"{k} {v:.1f} ms" for k, v in steps.items())
           + f" (each re-run alone at 512 MiB; container {len(blob)} B)", flush=True)
+
+    # ---- 4b. HuffWord main path: 100 MiB of word text, S 512, rows 32
+    t0 = time.perf_counter()
+    text = make_word_corpus(HUFFWORD_BYTES)
+    t_gen = time.perf_counter() - t0
+    hconf = huffword_conf()
+    mode = cfg.MODE_HUFFWORD
+    gt.decompress(gt.compress(text[: 1 << 20], mode=mode, conf=hconf))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hblob = gt.compress(text, mode=mode, conf=hconf)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hout = gt.decompress(hblob)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    hlaunches = _kernels.launch_counts()
+    require(hout == text, "huffword main path: round trip mismatch")
+    require(all(hlaunches[k] > 0 for k in HUFFWORD_KERNELS),
+            f"huffword main path missed a kernel: {hlaunches}")
+    del hout
+    hf = container.read_container(hblob)
+    hn = len(text)
+    print(f"main: HuffWord {hn >> 20} MiB S {hf.stream_symbols} rows {hf.group_rows} "
+          f"+checksum on {name} ({smi}): {hf.n_symbols} tokens in {hf.n_streams} groups; "
+          f"compress {t_c * 1e3:.1f} ms ({hn / t_c / 1e9:.3f} GB/s), decompress "
+          f"{t_d * 1e3:.1f} ms ({hn / t_d / 1e9:.3f} GB/s), ratio {len(hblob) / hn:.4f}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
+          f"launches {hlaunches}; corpus made in {t_gen * 1e3:.0f} ms", flush=True)
+    hsteps, vocabs = huffword_host_steps(
+        text, hblob, hf.group_rows * LANES * hf.stream_symbols, dev)
+    print("host: HuffWord " + ", ".join(f"{k} {v:.1f} ms" for k, v in hsteps.items())
+          + f" (each re-run alone at {hn >> 20} MiB; container {len(hblob)} B)", flush=True)
 
     # ---- 5. kernel times at the main path's shapes
     cb = build_codebook(sampled_histogram(arr, conf.histogram_budget), ke.MAX_FUSED_LEN)
@@ -382,6 +738,7 @@ def main() -> int:
         print(f"time: {k} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
               f"{b_by}; {traffic[k]} B, {ops[k]} ops) on {name} ({smi})", flush=True)
     del inp, payload
+    rows += huffword_kernel_times(text, hf, vocabs, hlaunches, dev, f"{name} ({smi})")
 
     # ---- 6. pinned digests
     text = (ROOT / "tests" / "fixtures" / "realtext.txt").read_bytes()[: 1 << 20]
@@ -390,7 +747,13 @@ def main() -> int:
         digest = hashlib.sha256(blob).hexdigest()
         require(digest == PINNED[key], f"pinned digest {key}: {digest}")
         require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")
-    print(f"digests: {', '.join(PINNED)} match the reference", flush=True)
+    for key, pconf in huffword_pinned_configs().items():
+        blob = gt.compress(text, mode=cfg.MODE_HUFFWORD, conf=pconf)
+        digest = hashlib.sha256(blob).hexdigest()
+        require(digest == HUFFWORD_PINNED[key], f"pinned digest {key}: {digest}")
+        require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")
+    print(f"digests: {', '.join([*PINNED, *HUFFWORD_PINNED])} match the reference",
+          flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -5,15 +5,20 @@ own copies of the host code and imports nothing of `glz_tpu`.  For the same
 input and configuration it writes byte-identical .glz containers, and each
 package decodes the other's.
 
-This slice carries the byte-mode lockstep layout (the THROUGHPUT preset):
-lane totals, the reverse-sweep encode and the lockstep decode run as
+The port carries the lockstep layout in byte mode (the THROUGHPUT preset)
+and in HuffWord mode (word and non-word dictionaries).  Lane totals, the
+reverse-sweep encode, the lockstep decodes and the vocabulary gather run as
 hand-written CUDA kernels (csrc/lockstep.cu).  Entry points run on the card
 unless the caller passes device='cpu', which runs the kernels' plain
 PyTorch versions.
 
 Public API:
-    compress(data, conf=THROUGHPUT, device=None) -> bytes (.glz container)
+    compress(data, mode=MODE_BYTE, conf=THROUGHPUT, device=None)
+                                                 -> bytes (.glz container)
     decompress(blob, device=None)                -> bytes
+    compress_huffword_shared(datas, conf=THROUGHPUT, device=None)
+                                                 -> list[bytes] (one shared
+                                                    dual codebook)
     codebook_from_lengths(lengths)               -> Codebook
 """
 
@@ -23,3 +28,4 @@ from glz_tpu_torch import config  # noqa: F401
 from glz_tpu_torch.config import GlzConfig  # noqa: F401
 from glz_tpu_torch.core.api import compress, decompress  # noqa: F401
 from glz_tpu_torch.core.codebook import codebook_from_lengths  # noqa: F401
+from glz_tpu_torch.models.huffword import compress_huffword_shared  # noqa: F401

@@ -60,6 +60,10 @@ class GlzConfig:
     group_rows: int = 8
 
 
+# Few streams, tiny header: the bitstream preset for the smallest container.
+# HuffWord reads its stream size as "no preference" (models/huffword.py).
+RATIO = GlzConfig(stream_symbols=1 << 19, max_streams=192)
+
 # Lockstep layout, 512-symbol streams in 64-row (8192-stream) groups,
 # sampled histogram: the main path of the codec.
 THROUGHPUT = GlzConfig(stream_symbols=1 << 9, layout=LAYOUT_LOCKSTEP,

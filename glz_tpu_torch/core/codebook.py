@@ -356,10 +356,11 @@ def build_codebook(freqs: np.ndarray, limit: int | None = MAX_CODE_LEN) -> Codeb
 
 
 def codebook_from_lengths(lengths: np.ndarray) -> Codebook:
-    """The codebook that 256 code lengths describe — the whole codec state a
-    container carries, so this turns any codebook's lengths (from either
-    package) into a codebook for this one."""
+    """The codebook that code lengths describe (256 in byte mode, one per
+    token of a HuffWord dictionary) — the whole codec state a container
+    carries, so this turns any codebook's lengths (from either package)
+    into a codebook for this one."""
     lengths = np.asarray(lengths)
-    if lengths.shape != (256,):
-        raise ValueError(f"expected 256 byte code lengths, got shape {lengths.shape}")
+    if lengths.ndim != 1:
+        raise ValueError(f"expected a flat array of code lengths, got shape {lengths.shape}")
     return canonical_codebook(lengths)

@@ -1,16 +1,23 @@
 // Lockstep (layout-2) codec kernels for Hopper (sm_90a).
 //
-// Three kernels carry the byte-mode lockstep codec; each replaces one TPU
-// kernel of the JAX package and computes the same function:
+// Each kernel replaces one TPU kernel of the JAX package and computes the
+// same function:
 //
-//   K1 lane_totals_kernel  <- glz_tpu/ops/pallas_encode.py:make_totals_kernel
-//   K2 encode_kernel       <- glz_tpu/ops/pallas_encode.py:make_encode_kernel
-//                             (byte-LUT mode)
-//   K3 decode_kernel       <- glz_tpu/ops/pallas_decode.py:make_decode_kernel
+//   K1 lane_totals_kernel          <- glz_tpu/ops/pallas_encode.py:make_totals_kernel
+//      lane_totals_entries_kernel  <- glz_tpu/ops/pallas_encode.py:prepare_entry_words
+//                                     (XLA code there; the HuffWord form of K1)
+//   K2 encode_kernel<LPT, false>   <- glz_tpu/ops/pallas_encode.py:make_encode_kernel
+//                                     (byte-LUT mode)
+//   K4 encode_kernel<LPT, true>    <- the same factory, u32-entry mode
+//   K3 decode_kernel               <- glz_tpu/ops/pallas_decode.py:make_decode_kernel
+//   K5 decode_dual_kernel          <- glz_tpu/ops/pallas_decode.py:make_decode_kernel_dual
+//   K6 lut_gather_kernel           <- glz_tpu/ops/pallas_lut.py:_lut_big_kernel_factory
+//                                     with its callers' index math (models/huffword.py)
 //
-// Symbols are read in file order (lane-major: lane l of group g owns bytes
-// [(g*G + l)*S, (g*G + l + 1)*S)); the TPU's step-major byte transpose is
-// folded into the indexing.  All byte and word offsets are 64-bit.
+// Symbols (bytes, or u32 lj|len entry words on the HuffWord path) are read
+// in file order (lane-major: lane l of group g owns symbols
+// [(g*G + l)*S, (g*G + l + 1)*S)); the TPU's step-major transpose is folded
+// into the indexing.  All symbol and word offsets are 64-bit.
 //
 // Group coupling.  All G = rows*128 lanes of a group share one payload
 // cursor, and every step's exclusive rank over the lanes that load (decode)
@@ -70,6 +77,18 @@ __device__ __forceinline__ int lane_count(int64_t limit, int64_t first, int S) {
   return r <= 0 ? 0 : (r >= S ? S : static_cast<int>(r));
 }
 
+// A lane's bit total, and its refill word count added to its group's: one
+// atomic per warp (gw must be zero on entry).  The lanes of a warp belong
+// to one group (G is a multiple of 256).
+__device__ __forceinline__ void store_lane_total(int tot, int last, int64_t flat_lane,
+                                                 int g, int32_t* __restrict__ ctot,
+                                                 int32_t* __restrict__ gw) {
+  ctot[flat_lane] = tot;
+  int words = tot > 0 ? (tot - last + 31) / 32 + 1 : 0;
+  words = __reduce_add_sync(0xffffffffu, words);
+  if ((threadIdx.x & 31) == 0) atomicAdd(gw + g, words);
+}
+
 // ---------------------------------------------------------------------------
 // K1: per-lane bit totals and per-group refill word counts.
 //   ctot[g, l] = sum_t len(sym_t), len = tbl[b] & 63, 0 where the flat index
@@ -104,10 +123,28 @@ __global__ void __launch_bounds__(256) lane_totals_kernel(
     }
   }
   const int last = (count == S) ? lens[sym[first + S - 1]] : 0;
-  ctot[flat_lane] = tot;
-  int words = tot > 0 ? (tot - last + 31) / 32 + 1 : 0;
-  words = __reduce_add_sync(0xffffffffu, words);
-  if ((threadIdx.x & 31) == 0) atomicAdd(gw + g, words);
+  store_lane_total(tot, last, flat_lane, g, ctot, gw);
+}
+
+// K1 on the HuffWord path: the symbols are u32 lj|len entry words, already
+// 0 past the valid token count, so the length is the entry's low 6 bits and
+// no n_valid term is needed.  Each thread reads its lane 16 bytes (4
+// entries) at a time; bound by reading the 4n entry bytes once.
+__global__ void __launch_bounds__(256) lane_totals_entries_kernel(
+    const uint32_t* __restrict__ ent, int S, int G, int32_t* __restrict__ ctot,
+    int32_t* __restrict__ gw) {
+  const int g = blockIdx.x;
+  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
+  const int64_t flat_lane = static_cast<int64_t>(g) * G + lane;
+  const uint4* src = reinterpret_cast<const uint4*>(ent + flat_lane * S);
+  int tot = 0;
+  for (int i = 0; i < S / 4; ++i) {
+    const uint4 q = src[i];
+    tot += static_cast<int>((q.x & kLenMask) + (q.y & kLenMask) + (q.z & kLenMask) +
+                            (q.w & kLenMask));
+  }
+  const int last = static_cast<int>(ent[flat_lane * S + S - 1] & kLenMask);
+  store_lane_total(tot, last, flat_lane, g, ctot, gw);
 }
 
 // ---------------------------------------------------------------------------
@@ -130,16 +167,22 @@ __global__ void __launch_bounds__(256) lane_totals_kernel(
 // only: lane state stays in registers, the entry table is in shared memory,
 // the input is read 4 steps at a time, and emitted words go straight to
 // their final payload slot.
+//
+// K4 (kEntries) is the same sweep on the HuffWord path, whose symbols are
+// u32 lj|len entry words gathered by K6 (0 past the valid token count, so
+// n_valid is not needed).  It reads one entry per lane per step into the
+// register K2 uses for 4 staged bytes, so both forms hold the same state.
+// Its bound is bytes as well (4n entry bytes in).
 // ---------------------------------------------------------------------------
-template <int LPT>
+template <int LPT, bool kEntries>
 __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
-    const uint8_t* __restrict__ sym, const uint32_t* __restrict__ tbl,
+    const void* __restrict__ sym, const uint32_t* __restrict__ tbl,
     int64_t n_valid, const int32_t* __restrict__ ctot,
     const int32_t* __restrict__ gw, const int32_t* __restrict__ grow, int S,
     uint32_t* __restrict__ out, int32_t* __restrict__ cursor_end) {
   __shared__ uint32_t ent[256];
   __shared__ int warp_tot[2][kWarps];
-  if (threadIdx.x < 256) ent[threadIdx.x] = tbl[threadIdx.x];
+  if (!kEntries && threadIdx.x < 256) ent[threadIdx.x] = tbl[threadIdx.x];
   __syncthreads();
 
   constexpr int G = LPT * kThreads;
@@ -147,9 +190,12 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
   const int64_t lane0 = static_cast<int64_t>(g) * G + threadIdx.x * LPT;
   const int64_t first = lane0 * S;
   // valid symbols of this thread's LPT lanes, lane j: clamp(rem - j*S, 0, S)
-  const int rem = lane_count(n_valid, first, LPT * S);
-  const int words_per_lane = S / 4;
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(sym + first);
+  const int rem = kEntries ? 0 : lane_count(n_valid, first, LPT * S);
+  // a lane's symbols as u32 words: 4 bytes each, or one entry each
+  const int words_per_lane = kEntries ? S : S / 4;
+  const uint32_t* src =
+      kEntries ? static_cast<const uint32_t*>(sym) + first
+               : reinterpret_cast<const uint32_t*>(static_cast<const uint8_t*>(sym) + first);
 
   uint32_t w0[LPT], w1[LPT], q[LPT];
   int cur[LPT];
@@ -168,13 +214,16 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
 
   for (int t = S - 1; t >= 0; --t) {
     const int sh = 8 * (t & 3);
-    if ((t & 3) == 3) {
+    if (kEntries || (t & 3) == 3) {
 #pragma unroll
-      for (int j = 0; j < LPT; ++j) q[j] = src[j * words_per_lane + (t >> 2)];
+      for (int j = 0; j < LPT; ++j)
+        q[j] = src[j * words_per_lane + (kEntries ? t : (t >> 2))];
     }
-    // entry of lane j's symbol t (0 past the lane's valid count); looked up
-    // twice per step rather than held, to keep registers for lane state
+    // entry of lane j's symbol t (0 past the lane's valid count); a byte is
+    // looked up twice per step rather than held, to keep registers for lane
+    // state
     auto entry = [&](int j) -> uint32_t {
+      if (kEntries) return q[j];
       return (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;
     };
     if (t != S - 1) {
@@ -336,11 +385,138 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5: the HuffWord lockstep decode.  K3 with two canonical codebooks that
+// alternate by step parity: S is even and lane starts are multiples of S,
+// so step parity is token parity, and step t scans codebook t & 1 (set 0 is
+// the even tokens' dictionary).  The output is the token's canonical rank
+// (v >> (32-len)) + off, unmasked, one u32 per token in file order; K6 maps
+// ranks to token ids.  Inactive tokens write rank 0.  A codebook of an
+// empty dictionary has min_len = max_len = 0 and is only ever scanned by
+// inactive tokens.  Like K3 it is operation-bound (the canonical scan) and
+// serial in t with a block barrier per step; both codebooks sit in shared
+// memory, where every lane reads the same entry (broadcast).
+// ---------------------------------------------------------------------------
+template <int LPT>
+__global__ void __launch_bounds__(kThreads, 1) decode_dual_kernel(
+    const uint32_t* __restrict__ payload, int64_t n_words,
+    const int64_t* __restrict__ gstart, const int32_t* __restrict__ gcount,
+    const uint32_t* __restrict__ fc_g, const uint32_t* __restrict__ off_g,
+    int min0, int max0, int min1, int max1, int S, uint32_t* __restrict__ out) {
+  __shared__ uint32_t fc[2][kCodeTable];
+  __shared__ uint32_t offs[2][kCodeTable];
+  __shared__ int warp_tot[2][kWarps];
+  if (threadIdx.x < 2 * kCodeTable) {
+    fc[threadIdx.x / kCodeTable][threadIdx.x % kCodeTable] = fc_g[threadIdx.x];
+    offs[threadIdx.x / kCodeTable][threadIdx.x % kCodeTable] = off_g[threadIdx.x];
+  }
+  __syncthreads();
+
+  constexpr int G = LPT * kThreads;
+  const int g = blockIdx.x;
+  const int lane_in_group = threadIdx.x * LPT;
+  const int rem = lane_count(gcount[g], static_cast<int64_t>(lane_in_group) * S, LPT * S);
+  uint32_t* dst = out + (static_cast<int64_t>(g) * G + lane_in_group) * S;
+
+  // per lane: window words a, b; pq = phase | qm << 8
+  uint32_t a[LPT], b[LPT], pq[LPT];
+  uint32_t need = 0u;
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    a[j] = 0u;
+    b[j] = 0u;
+    pq[j] = 31u << 8;
+    if (min(max(rem - j * S, 0), S) > 0) need |= 1u << j;
+  }
+  int64_t base = gstart[g];
+  int parity = 0;
+
+  for (int t = 0; t < S; ++t) {
+    const int p = t & 1;
+    const int min_len = p ? min1 : min0;
+    const int max_len = p ? max1 : max0;
+    const uint32_t* fcp = fc[p];
+    const uint32_t* offp = offs[p];
+    // ---- refill: refilling lanes take sequential words in lane order
+    int total;
+    const int pre = block_exclusive_scan(__popc(need), warp_tot[parity], &total);
+    parity ^= 1;
+    int64_t idx = base + pre;
+    base += total;
+    uint32_t next_need = 0u;
+#pragma unroll
+    for (int j = 0; j < LPT; ++j) {
+      const uint32_t phase = pq[j] & 31u;
+      const uint32_t qm = pq[j] >> 8;
+      if (need & (1u << j)) {
+        const uint32_t w = idx < n_words ? payload[idx] : 0u;
+        ++idx;
+        if (phase == 0u) a[j] = w; else b[j] = w;
+      }
+      // ---- 32-bit window, left-justified
+      const uint32_t v = phase ? ((a[j] << phase) | (b[j] >> (32u - phase))) : a[j];
+      // ---- canonical length scan + fused offset select
+      uint32_t ln = static_cast<uint32_t>(min_len);
+      uint32_t off = offp[min_len];
+      for (int l = min_len; l < max_len; ++l) {
+        const bool c = v < fcp[l];
+        ln += c ? 1u : 0u;
+        off = c ? offp[l + 1] : off;
+      }
+      const bool active = t < min(max(rem - j * S, 0), S);
+      if (!active) ln = 0u;
+      dst[j * S + t] = active ? (v >> ((32u - ln) & 31u)) + off : 0u;
+      // ---- advance
+      if (phase + ln >= 32u) a[j] = b[j];
+      if (qm + ln >= 32u) next_need |= 1u << j;
+      pq[j] = ((phase + ln) & 31u) | (((qm + ln) & 31u) << 8);
+    }
+    need = next_need;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: the vocabulary gather, with its callers' index math fused in:
+//   out[i] = (lo + i < T) ? tbl[min(idx[i] + (i odd ? add_odd : add_even), V-1)] : 0
+// gather_entries (token id -> lj|len entry word) adds the first
+// dictionary's size on the tokens of the second; map_ranks (canonical rank
+// -> token id) adds the even dictionary's size on odd tokens.  The index
+// and output are u16 or u32 (Out truncates the table's u32 value).  The
+// TPU kernel is a VMEM row-select chain capped at 64K entries; here one
+// grid-stride loop serves every table size, the table (80 KB on the main
+// path) is read through the read-only cache and stays in L2.  Bound by
+// bytes: the index read and the output written once.
+// ---------------------------------------------------------------------------
+template <typename In, typename Out>
+__global__ void __launch_bounds__(256) lut_gather_kernel(
+    const In* __restrict__ idx, int64_t n, const uint32_t* __restrict__ tbl,
+    int64_t v_last, int64_t lo, int64_t T, int64_t add_even, int64_t add_odd,
+    Out* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    int64_t x = static_cast<int64_t>(idx[i]) + ((i & 1) ? add_odd : add_even);
+    x = x < v_last ? x : v_last;
+    out[i] = static_cast<Out>(lo + i < T ? __ldg(tbl + x) : 0u);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
+
+int glz_lane_totals_entries(const void* ent, int n_groups, int S, int rows,
+                            void* ctot, void* gw, void* stream) {
+  const int G = rows * kLanes;
+  if (n_groups <= 0 || S % 4 != 0 || G % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_groups, G / 256);
+  lane_totals_entries_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ent), S, G, static_cast<int32_t*>(ctot),
+      static_cast<int32_t*>(gw));
+  return static_cast<int>(cudaGetLastError());
+}
 
 int glz_lane_totals(const void* sym, const void* tbl, long long n_valid,
                     int n_groups, int S, int rows, void* ctot, void* gw,
@@ -354,27 +530,51 @@ int glz_lane_totals(const void* sym, const void* tbl, long long n_valid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// entries != 0: `sym` holds u32 lj|len entry words (K4) and tbl/n_valid are
+// unused; else u8 symbols looked up in the 256-entry tbl (K2).
+static int encode_groups(const void* sym, const void* tbl, long long n_valid,
+                         const void* ctot, const void* gw, const void* grow,
+                         int n_groups, int S, int rows, void* out,
+                         void* cursor_end, void* stream, bool entries) {
+  if (n_groups <= 0 || S % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GLZ_ENCODE(LPT, E)                                                     \
+  encode_kernel<LPT, E><<<n_groups, kThreads, 0, st>>>(                       \
+      sym, static_cast<const uint32_t*>(tbl), n_valid,                         \
+      static_cast<const int32_t*>(ctot), static_cast<const int32_t*>(gw),      \
+      static_cast<const int32_t*>(grow), S, static_cast<uint32_t*>(out),       \
+      static_cast<int32_t*>(cursor_end))
+#define GLZ_ENCODE_ROWS(E)                                                     \
+  switch (rows) {                                                              \
+    case 8: GLZ_ENCODE(1, E); break;                                           \
+    case 16: GLZ_ENCODE(2, E); break;                                          \
+    case 32: GLZ_ENCODE(4, E); break;                                          \
+    case 64: GLZ_ENCODE(8, E); break;                                          \
+    default: return static_cast<int>(cudaErrorInvalidValue);                   \
+  }
+  if (entries) {
+    GLZ_ENCODE_ROWS(true)
+  } else {
+    GLZ_ENCODE_ROWS(false)
+  }
+#undef GLZ_ENCODE_ROWS
+#undef GLZ_ENCODE
+  return static_cast<int>(cudaGetLastError());
+}
+
 int glz_encode_groups(const void* sym, const void* tbl, long long n_valid,
                       const void* ctot, const void* gw, const void* grow,
                       int n_groups, int S, int rows, void* out,
                       void* cursor_end, void* stream) {
-  if (n_groups <= 0 || S % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GLZ_ENCODE(LPT)                                                        \
-  encode_kernel<LPT><<<n_groups, kThreads, 0, st>>>(                          \
-      static_cast<const uint8_t*>(sym), static_cast<const uint32_t*>(tbl),     \
-      n_valid, static_cast<const int32_t*>(ctot),                              \
-      static_cast<const int32_t*>(gw), static_cast<const int32_t*>(grow), S,   \
-      static_cast<uint32_t*>(out), static_cast<int32_t*>(cursor_end))
-  switch (rows) {
-    case 8: GLZ_ENCODE(1); break;
-    case 16: GLZ_ENCODE(2); break;
-    case 32: GLZ_ENCODE(4); break;
-    case 64: GLZ_ENCODE(8); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GLZ_ENCODE
-  return static_cast<int>(cudaGetLastError());
+  return encode_groups(sym, tbl, n_valid, ctot, gw, grow, n_groups, S, rows, out,
+                       cursor_end, stream, false);
+}
+
+int glz_encode_entries(const void* ent, const void* ctot, const void* gw,
+                       const void* grow, int n_groups, int S, int rows, void* out,
+                       void* cursor_end, void* stream) {
+  return encode_groups(ent, nullptr, 0, ctot, gw, grow, n_groups, S, rows, out,
+                       cursor_end, stream, true);
 }
 
 int glz_decode_groups(const void* payload, long long n_words,
@@ -400,6 +600,57 @@ int glz_decode_groups(const void* payload, long long n_words,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GLZ_DECODE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fc, offsets: [2][34] u32, set 0 for even tokens.  A codebook's length
+// range is [0, 0] (an empty dictionary) or within [1, 32].
+int glz_decode_dual(const void* payload, long long n_words, const void* gstart,
+                    const void* gcount, const void* fc, const void* offsets,
+                    int min0, int max0, int min1, int max1, int n_groups, int S,
+                    int rows, void* out, void* stream) {
+  auto bad_range = [](int lo, int hi) {
+    return !((lo == 0 && hi == 0) || (1 <= lo && lo <= hi && hi <= kCodeTable - 2));
+  };
+  if (n_groups <= 0 || S % 2 != 0 || bad_range(min0, max0) || bad_range(min1, max1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GLZ_DECODE_DUAL(LPT)                                                   \
+  decode_dual_kernel<LPT><<<n_groups, kThreads, 0, st>>>(                     \
+      static_cast<const uint32_t*>(payload), n_words,                          \
+      static_cast<const int64_t*>(gstart), static_cast<const int32_t*>(gcount), \
+      static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets), \
+      min0, max0, min1, max1, S, static_cast<uint32_t*>(out))
+  switch (rows) {
+    case 8: GLZ_DECODE_DUAL(1); break;
+    case 16: GLZ_DECODE_DUAL(2); break;
+    case 32: GLZ_DECODE_DUAL(4); break;
+    case 64: GLZ_DECODE_DUAL(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GLZ_DECODE_DUAL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// idx_bits, out_bits: 16 or 32 (u16 or u32 elements); n_table >= 1.
+int glz_lut_gather(const void* idx, int idx_bits, long long n, const void* tbl,
+                   long long n_table, long long lo, long long T, long long add_even,
+                   long long add_odd, void* out, int out_bits, void* stream) {
+  if (n <= 0 || n_table <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long want = (n + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
+  const uint32_t* t = static_cast<const uint32_t*>(tbl);
+#define GLZ_LUT(IN, OUT)                                                       \
+  lut_gather_kernel<IN, OUT><<<blocks, 256, 0, st>>>(                          \
+      static_cast<const IN*>(idx), n, t, n_table - 1, lo, T, add_even, add_odd, \
+      static_cast<OUT*>(out))
+  if (idx_bits == 16 && out_bits == 32) GLZ_LUT(uint16_t, uint32_t);
+  else if (idx_bits == 32 && out_bits == 32) GLZ_LUT(uint32_t, uint32_t);
+  else if (idx_bits == 32 && out_bits == 16) GLZ_LUT(uint32_t, uint16_t);
+  else if (idx_bits == 16 && out_bits == 16) GLZ_LUT(uint16_t, uint16_t);
+  else return static_cast<int>(cudaErrorInvalidValue);
+#undef GLZ_LUT
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -28,7 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches since the last reset_launch_counts(), by wrapper name.
-_LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0}
+_LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0,
+             "lane_totals_entries": 0, "encode_entries": 0, "decode_dual": 0,
+             "lut_gather": 0}
+_COUNT_LOCK = threading.Lock()  # the shared-codebook batch launches from two threads
 _LIB: ctypes.CDLL | None = None
 _BUILD_LOG = ""
 
@@ -37,9 +41,14 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "glz_lane_totals": [_P, _P, _LL, _I, _I, _I, _P, _P, _P],
+    "glz_lane_totals_entries": [_P, _I, _I, _I, _P, _P, _P],
     "glz_encode_groups": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "glz_encode_entries": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "glz_decode_groups": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P, _P],
+    "glz_decode_dual": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P],
+    "glz_lut_gather": [_P, _I, _LL, _P, _LL, _LL, _LL, _LL, _LL, _P, _I, _P],
 }
 
 
@@ -101,7 +110,8 @@ def launch(name: str, counter: str, *args) -> None:
     rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
-    _LAUNCHES[counter] += 1
+    with _COUNT_LOCK:
+        _LAUNCHES[counter] += 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -153,8 +153,13 @@ def test_pinned_digests(realtext):
 def test_imports_nothing_of_jax_or_glz_tpu():
     code = (
         "import sys, glz_tpu_torch\n"
+        "from glz_tpu_torch import config as cfg\n"
         "blob = glz_tpu_torch.compress(b'abracadabra' * 999, device='cpu')\n"
         "assert glz_tpu_torch.decompress(blob, device='cpu') == b'abracadabra' * 999\n"
+        "conf = cfg.GlzConfig(stream_symbols=64, layout=cfg.LAYOUT_LOCKSTEP)\n"
+        "text = b'the cat-sat on its mat, twice. ' * 999\n"
+        "blob = glz_tpu_torch.compress(text, mode=cfg.MODE_HUFFWORD, conf=conf, device='cpu')\n"
+        "assert glz_tpu_torch.decompress(blob, device='cpu') == text\n"
         "bad = [m for m in sys.modules if m.startswith('jax') or m == 'glz_tpu'\n"
         "       or m.startswith('glz_tpu.')]\n"
         "assert not bad, bad\n"
@@ -180,7 +185,13 @@ def test_default_device_needs_a_card(monkeypatch):
 def test_other_modes_and_layouts_are_later_slices(text_100kb):
     with pytest.raises(NotImplementedError, match="bitstream"):
         glz_tpu_torch.compress(text_100kb, conf=cfg.DEFAULT, device="cpu")
-    with pytest.raises(NotImplementedError, match="HuffWord"):
-        glz_tpu_torch.compress(text_100kb, mode=cfg.MODE_HUFFWORD, device="cpu")
     with pytest.raises(NotImplementedError, match="bitstream"):
         _port_decompress(glz_tpu.compress(text_100kb[:5000]))
+    # HuffWord runs in the lockstep layout; its bitstream layout is later
+    with pytest.raises(NotImplementedError, match="bitstream device slice"):
+        glz_tpu_torch.compress(text_100kb, mode=cfg.MODE_HUFFWORD, conf=cfg.DEFAULT,
+                               device="cpu")
+    with pytest.raises(NotImplementedError, match="bitstream device slice"):
+        _port_decompress(glz_tpu.compress(text_100kb[:5000], mode=tpu_cfg.MODE_HUFFWORD))
+    with pytest.raises(NotImplementedError, match="front-door slice"):
+        glz_tpu_torch.compress(text_100kb, mode=cfg.MODE_NORMAL_TREE, device="cpu")

@@ -1,5 +1,5 @@
-"""glz_tpu_torch's CUDA kernels against their plain PyTorch versions, on the
-card.  Skipped where torch.cuda.is_available() is false; run on a machine
+"""glz_tpu_torch's CUDA kernels against their plain PyTorch versions, and its
+entry points, on the card.  Skipped where torch.cuda.is_available() is false; run on a machine
 with a card (no JAX needed there) with
 
     GLZ_TEST_TPU=1 python -m pytest -m gpu tests/test_torch_gpu.py
@@ -35,13 +35,34 @@ def test_kernels_match_plain_versions(cuda, case):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.HUFFWORD_CASES))
+def test_huffword_kernels_match_plain_versions(cuda, case):
+    """K6 (both call sites), the entry-word lane totals, K4 and K5
+    bit-exact against their plain versions on the same inputs, and the
+    tokens round-trip."""
+    chip_smoke.check_huffword_case(case, cuda)
+    torch.cuda.synchronize()
+
+
 def test_entry_points_launch_each_kernel_once(cuda):
     data = chip_smoke.make_corpus(3 << 20)
     _kernels.reset_launch_counts()
     blob = glz_tpu_torch.compress(data)
     assert glz_tpu_torch.decompress(blob) == data.tobytes()
-    assert _kernels.launch_counts() == {"lane_totals": 1, "encode_groups": 1,
-                                        "decode_groups": 1}
+    counts = _kernels.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "lane_totals": 1, "encode_groups": 1,
+                      "decode_groups": 1}
+
+
+def test_huffword_entry_points_launch_each_kernel(cuda):
+    text = chip_smoke.make_word_corpus(3 << 20)
+    _kernels.reset_launch_counts()
+    conf = chip_smoke.huffword_conf()
+    blob = glz_tpu_torch.compress(text, mode=glz_tpu_torch.config.MODE_HUFFWORD, conf=conf)
+    assert glz_tpu_torch.decompress(blob) == text
+    counts = _kernels.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "lut_gather": 2, "lane_totals_entries": 1,
+                      "encode_entries": 1, "decode_dual": 1}
 
 
 def test_pinned_digests_on_the_card(cuda, realtext):
@@ -50,6 +71,10 @@ def test_pinned_digests_on_the_card(cuda, realtext):
         blob = glz_tpu_torch.compress(text, conf=conf)
         assert hashlib.sha256(blob).hexdigest() == chip_smoke.PINNED[key]
         assert glz_tpu_torch.decompress(blob) == text
+    for key, conf in chip_smoke.huffword_pinned_configs().items():
+        blob = glz_tpu_torch.compress(text, mode=glz_tpu_torch.config.MODE_HUFFWORD, conf=conf)
+        assert hashlib.sha256(blob).hexdigest() == chip_smoke.HUFFWORD_PINNED[key]
+        assert glz_tpu_torch.decompress(blob) == text
 
 
 def test_cpu_and_card_write_the_same_bytes(cuda, text_100kb):
@@ -57,3 +82,14 @@ def test_cpu_and_card_write_the_same_bytes(cuda, text_100kb):
                                stream_symbols=128, checksum=True)
     assert (glz_tpu_torch.compress(text_100kb, conf=conf)
             == glz_tpu_torch.compress(text_100kb, conf=conf, device="cpu"))
+    hw = glz_tpu_torch.config.MODE_HUFFWORD
+    assert (glz_tpu_torch.compress(text_100kb, mode=hw, conf=conf)
+            == glz_tpu_torch.compress(text_100kb, mode=hw, conf=conf, device="cpu"))
+
+
+def test_huffword_shared_on_the_card(cuda, text_100kb, realtext):
+    conf = chip_smoke.huffword_conf(64, 8)
+    files = [text_100kb, realtext[:200_000], b""]
+    blobs = glz_tpu_torch.compress_huffword_shared(files, conf)
+    assert blobs == glz_tpu_torch.compress_huffword_shared(files, conf, device="cpu")
+    assert [glz_tpu_torch.decompress(b) for b in blobs] == files

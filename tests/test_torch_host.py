@@ -65,6 +65,14 @@ def test_container_matches_reference():
 
 
 def test_config_matches_reference():
-    for name in ("THROUGHPUT", "DEFAULT"):
+    """Every preset glz_tpu.config defines exists in the port with the same
+    fields: a missing one changes which stream size a HuffWord call picks."""
+    presets = [name for name, value in vars(tpu_cfg).items()
+               if isinstance(value, tpu_cfg.GlzConfig)]
+    assert {"THROUGHPUT", "DEFAULT", "RATIO"} <= set(presets)
+    for name in presets:
+        assert isinstance(getattr(cfg, name, None), cfg.GlzConfig), name
         assert (dataclasses.asdict(getattr(cfg, name))
-                == dataclasses.asdict(getattr(tpu_cfg, name)))
+                == dataclasses.asdict(getattr(tpu_cfg, name))), name
+    assert ([f.name for f in dataclasses.fields(cfg.GlzConfig)]
+            == [f.name for f in dataclasses.fields(tpu_cfg.GlzConfig)])

@@ -193,8 +193,9 @@ def test_cpu_wrappers_launch_nothing():
     out = kd.decode_groups(payload, starts, counts, *decode_tables(cb, CPU), S,
                            cb.min_len, cb.max_len, 8)
     assert np.array_equal(out.numpy(), arr)
-    assert _kernels.launch_counts() == {"lane_totals": 0, "encode_groups": 0,
-                                        "decode_groups": 0}
+    counts = _kernels.launch_counts()
+    assert {"lane_totals", "encode_groups", "decode_groups"} <= set(counts)
+    assert not any(counts.values()), counts
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "rows", "S", "device"])
