@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Two paths: the byte-mode lockstep codec (THROUGHPUT) and the HuffWord
-lockstep codec.  Phases (each prints one line or more; any failure exits
+Four paths: the byte-mode lockstep codec (THROUGHPUT), the HuffWord
+lockstep codec, and the bitstream (layout 0) codec in byte and HuffWord
+mode (DEFAULT).  Phases (each prints one line or more; any failure exits
 non-zero before the last):
   1. environment: torch, the card, nvidia-smi, nvcc;
-  2. build: compile csrc/lockstep.cu for sm_90a, with ptxas register/spill
-     figures per kernel;
+  2. build: compile csrc/lockstep.cu and csrc/bitstream.cu for sm_90a (one
+     nvcc each, in parallel), with ptxas register/spill figures per kernel;
   3. kernels against their plain PyTorch versions on the card, bit-exact
      (integer data, tolerance 0):
      - byte path: K1 lane_totals, K2 encode_groups and K3 decode_groups on
@@ -21,17 +22,30 @@ non-zero before the last):
        token counts), nonword-first text, single-symbol dictionaries, one
        token (an empty dictionary) and a >64K-word vocabulary (u32 ids);
        each case also round-trips its tokens;
+  3c. bitstream kernels: K7 lookup_lj_lens, pack_lj and decode_streams on
+     byte cases (ragged n_valid with garbage past it, S 1000 (not a power
+     of two), codes of 27-32 bits, one symbol, a one-code codebook, three
+     DEFAULT-sized streams), and K6 on the lj and length tables, pack_lj
+     and decode_streams_dual on HuffWord cases (S 16384, odd S, nonword-
+     first text, one token (an empty dictionary), a >64K-word vocabulary,
+     codes of 27-32 bits); each case also round-trips;
   4. byte main path: compress + decompress of a 512 MiB corpus under
      THROUGHPUT with checksum, launch counts read just after;
   4b. HuffWord main path: compress + decompress of 100 MiB of English-like
      text (20,000 Zipf words) at S 512, rows 32, with checksum, launch
      counts read just after, and the host steps re-run alone;
+  4c. byte bitstream path: the same 512 MiB under DEFAULT with checksum
+     (2,048 streams of 2^18 symbols in four dispatches of 2^27), launch
+     counts read just after, and the host steps re-run alone;
+  4d. HuffWord bitstream path: phase 4b's text under DEFAULT with checksum
+     (streams of 16,384 tokens), launch counts read just after;
   5. kernel times at each main path's shapes (CUDA events), each kernel
-     held against its plain version on the same inputs;
+     held against its plain version on the same inputs (the stream decodes
+     also against the input);
   6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
-     under five configurations must have the SHA-256 that the JAX reference
-     writes (pinned by tests/test_torch_canonical_byte.py and
-     tests/test_torch_huffword.py).
+     under eight configurations must have the SHA-256 that the JAX
+     reference writes (pinned by tests/test_torch_canonical_byte.py,
+     tests/test_torch_huffword.py and tests/test_torch_bitstream.py).
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -52,12 +66,17 @@ import torch
 
 import glz_tpu_torch as gt
 from glz_tpu_torch import config as cfg
-from glz_tpu_torch.core import container
-from glz_tpu_torch.core.codebook import build_codebook, histogram_bytes, sampled_histogram
+from glz_tpu_torch.core import bitio, container
+from glz_tpu_torch.core.codebook import (build_codebook, codebook_from_lengths,
+                                         histogram_bytes, sampled_histogram)
 from glz_tpu_torch.core.lockstep import LANES
-from glz_tpu_torch.models.canonical_byte import (_i32_tensor, decode_tables, entry_table,
-                                                 group_tables)
+from glz_tpu_torch.models import huffword as hw_model
+from glz_tpu_torch.models import canonical_byte as cb_model
+from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, decode_tables,
+                                                 entry_table, group_tables)
 from glz_tpu_torch.ops import _kernels
+from glz_tpu_torch.ops import decode as bd
+from glz_tpu_torch.ops import encode as be
 from glz_tpu_torch.ops import lockstep_decode as kd
 from glz_tpu_torch.ops import lockstep_encode as ke
 from glz_tpu_torch.ops import lut
@@ -71,7 +90,8 @@ SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 # 32-bit integer operations the algorithms need per valid symbol (counted
 # from the plain versions: table lookup, masks, shifts, compares, selects)
 OPS_PER_SYMBOL = {"lane_totals": 2, "encode_groups": 16, "lane_totals_entries": 2,
-                  "encode_entries": 15, "lut_gather": 5}
+                  "encode_entries": 15, "lut_gather": 5, "lookup_lj_lens": 4,
+                  "pack_lj": 10}
 DECODE_OPS_BASE = 12        # + 2 per canonical-scan level (compare, select)
 
 # SHA-256 of the containers of realtext.txt[:1 MiB] written by glz_tpu.
@@ -84,6 +104,11 @@ HUFFWORD_PINNED = {
     "hw_s64_r8": "8ae343d0d7b51e4f6b15c8e68c07d54c63a92a0ea7676620cada47ed5e9b3573",
     "hw_ratio": "9a3d1efc739b17791d7010cff6be7c8a473e1243723b4c0574c28b42bd680116",
 }
+BITSTREAM_PINNED = {
+    "byte_default": "1e9bfdda8cebb3c622568ffb1595e42122acafd0354078bc3ab7a2dd445f1fc8",
+    "byte_ratio": "c5e2edb717109d38f77dfe1aa0da773a920b8074c3061e4299f5ca5524e2fcf3",
+    "hw_default": "718655c9744a36624676ef06248d30d69512a164236078559c35198cda45870a",
+}
 
 REPLACES = {
     "lane_totals": "glz_tpu/ops/pallas_encode.py:449",
@@ -93,9 +118,15 @@ REPLACES = {
     "encode_entries": "glz_tpu/ops/pallas_encode.py:96",
     "decode_dual": "glz_tpu/ops/pallas_decode.py:471",
     "lut_gather": "glz_tpu/ops/pallas_lut.py:47",
+    "lookup_lj_lens": "glz_tpu/ops/pallas_lut.py:32",
+    "pack_lj": "glz_tpu/ops/encode.py:75",
+    "decode_streams": "glz_tpu/ops/decode.py:37",
+    "decode_streams_dual": "glz_tpu/models/huffword.py:502",
 }
 BYTE_KERNELS = ("lane_totals", "encode_groups", "decode_groups")
 HUFFWORD_KERNELS = ("lut_gather", "lane_totals_entries", "encode_entries", "decode_dual")
+BITSTREAM_KERNELS = ("lookup_lj_lens", "pack_lj", "decode_streams")
+HUFFWORD_BITSTREAM_KERNELS = ("lut_gather", "pack_lj", "decode_streams_dual")
 
 
 def require(cond, msg: str) -> None:
@@ -125,6 +156,16 @@ def huffword_pinned_configs() -> dict[str, cfg.GlzConfig]:
     return {"hw_s512_r32": huffword_conf(),
             "hw_s64_r8": huffword_conf(64, 8),
             "hw_ratio": huffword_conf(base=cfg.RATIO)}
+
+
+def bitstream_pinned_configs() -> dict[str, tuple[cfg.GlzConfig, int]]:
+    """(configuration, mode) of the bitstream digests: byte DEFAULT and
+    RATIO (the container of glz_tpu's compress_bytes_device) and HuffWord
+    DEFAULT, each with checksum."""
+    default = dataclasses.replace(cfg.DEFAULT, checksum=True)
+    return {"byte_default": (default, cfg.MODE_BYTE),
+            "byte_ratio": (dataclasses.replace(cfg.RATIO, checksum=True), cfg.MODE_BYTE),
+            "hw_default": (default, cfg.MODE_HUFFWORD)}
 
 
 def make_word_corpus(n_bytes: int, seed: int = 0x3AD) -> bytes:
@@ -169,19 +210,18 @@ def make_corpus(n_bytes: int, seed: int = 0xE58) -> np.ndarray:
     return out
 
 
-def deep_case(n: int, seed: int = 0xDEEB):
+def deep_case(n: int, seed: int = 0xDEEB, limit: int = ke.MAX_FUSED_LEN):
     """Geometric corpus (the benchmark's deep-code recipe) and a codebook
-    capped at 26 bits from the corpus's own law, frequencies 2^(40-i),
+    capped at `limit` bits from the corpus's own law, frequencies 2^(40-i),
     carried past what a sample of this size sees (the unlimited tree is 40
-    deep), then a sprinkle of the 26-bit symbols so the payload carries the
+    deep), then a sprinkle of the deepest symbols so the payload carries the
     deepest codes.  Returns (symbols, codebook)."""
     rng = np.random.default_rng(seed)
     arr = (np.minimum(rng.geometric(0.5, size=n), 64) - 1).astype(np.uint8)
     freqs = np.left_shift(1, np.maximum(40 - np.arange(256), 0)).astype(np.int64)
-    cb = build_codebook(freqs, ke.MAX_FUSED_LEN)
-    deepest = np.flatnonzero(cb.lengths == ke.MAX_FUSED_LEN)
-    require(cb.max_len == ke.MAX_FUSED_LEN and deepest.size,
-            f"deep codebook max_len {cb.max_len}")
+    cb = build_codebook(freqs, limit)
+    deepest = np.flatnonzero(cb.lengths == limit)
+    require(cb.max_len == limit and deepest.size, f"deep codebook max_len {cb.max_len}")
     pos = rng.choice(n, size=max(1, n // 997), replace=False)
     arr[pos] = rng.choice(deepest, size=pos.size).astype(np.uint8)
     return arr, cb
@@ -332,10 +372,7 @@ class HuffwordInputs:
         even, odd = (cbs[0], cbs[1]) if wf else (cbs[1], cbs[0])
         self.lens = ((even.min_len, odd.min_len), (even.max_len, odd.max_len))
         self.scan_levels = (even.max_len - even.min_len, odd.max_len - odd.min_len)
-        self.fc = torch.from_numpy(np.stack([even.first_code_left_justified(),
-                                             odd.first_code_left_justified()]).view(np.int32)).to(dev)
-        self.off = torch.from_numpy(np.stack([even.decode_offsets(),
-                                              odd.decode_offsets()]).view(np.int32)).to(dev)
+        self.fc, self.off = hw_model._dual_tables(even, odd, dev)
         self.starts, self.counts = group_tables(self.padded, self.T, self.G, S, dev)
         self.n_even = max(even.symbols.size, 1)
         sym = np.concatenate([even.symbols if even.symbols.size else np.zeros(1, np.uint32),
@@ -378,6 +415,187 @@ def check_huffword_case(name: str, dev: torch.device) -> None:
     require(np.array_equal(got.astype(np.int64), inp.ids), f"{name}: token round trip")
 
 
+# ---- bitstream (layout 0) kernel cases ------------------------------------------
+
+# name -> S; byte cases of K7, pack_lj and decode_streams
+BITSTREAM_CASES = {"ragged_s4096": 4096, "s1000": 1000, "deep32_s16384": 1 << 14,
+                   "one_symbol": 1 << 18, "one_code_s4096": 4096,
+                   "default_3streams": 1 << 18}
+
+
+def bitstream_case_data(name: str):
+    """(symbols u8 padded to whole streams with random bytes past n_valid,
+    n_valid, S, codebook) of a byte bitstream kernel case."""
+    S = BITSTREAM_CASES[name]
+    if name.startswith("deep32"):
+        arr, cb = deep_case(5 * S + 4321, limit=32)
+    elif name == "one_symbol":
+        arr = np.array([77], np.uint8)
+        cb = build_codebook(histogram_bytes(arr), 32)
+    elif name.startswith("one_code"):  # a one-symbol alphabet: one 1-bit code
+        arr = np.full(3 * S + 5, 9, np.uint8)
+        cb = build_codebook(histogram_bytes(arr), 32)
+    else:
+        n = {"ragged_s4096": 10 * S - 777, "s1000": 50 * S + 7, "default_3streams": 3 * S - 5}
+        arr = make_corpus(n[name], seed=S + 3)
+        cb = build_codebook(histogram_bytes(arr), 32)
+    sym = np.random.default_rng(S).integers(0, 256, -(-arr.size // S) * S, dtype=np.uint8)
+    sym[: arr.size] = arr
+    return sym, arr.size, S, cb
+
+
+def _packed(lj: torch.Tensor, lens: torch.Tensor, S: int):
+    """(offsets, n_words, starts) of codes and lengths: the int64 exclusive
+    cumsum, the payload's word count and each stream's start bit."""
+    offsets = torch.cumsum(lens, 0, dtype=torch.int64)
+    n_words = (int(offsets[-1]) + 31) >> 5
+    offsets -= lens
+    sb = lens.view(-1, S).sum(dim=1, dtype=torch.int64)
+    return offsets, n_words, torch.cumsum(sb, 0) - sb
+
+
+class BitstreamInputs:
+    """Everything the byte bitstream kernels take for one input, on one
+    device.  Each plain version makes the next kernel's input, so every
+    kernel sees the inputs the path gives it."""
+
+    def __init__(self, sym: np.ndarray, n_valid: int, S: int, cb, dev: torch.device):
+        self.n_valid, self.S, self.cb = n_valid, S, cb
+        self.arr = sym[:n_valid]
+        self.sym = torch.from_numpy(sym).to(dev)
+        self.lj_tbl = _i32_tensor(cb.left_justified_codes(), dev)
+        self.len_tbl = _i32_tensor(cb.lengths.astype(np.uint32), dev)
+        self.lj, self.lens = self.lookup(be.lookup_lj_lens_ref)
+        self.offsets, self.n_words, self.starts = _packed(self.lj, self.lens, S)
+        self.words = self.pack(be.pack_lj_ref)
+        self.tables = decode_tables(cb, dev)
+
+    def lookup(self, fn):
+        return fn(self.sym, self.n_valid, self.lj_tbl, self.len_tbl)
+
+    def pack(self, fn):
+        return fn(self.lj, self.offsets, self.n_words)
+
+    def decode(self, fn):
+        return fn(self.words, self.starts, self.n_valid, self.S, *self.tables,
+                  self.cb.min_len, self.cb.max_len)
+
+
+def check_bitstream_case(name: str, dev: torch.device) -> None:
+    """K7, pack_lj and decode_streams on the card against their plain
+    versions for one case, bit-exact, plus the decode against the input."""
+    inp = BitstreamInputs(*bitstream_case_data(name), dev)
+    require(max_abs_err(inp.lookup(be.lookup_lj_lens), (inp.lj, inp.lens)) == 0, f"{name}: K7")
+    require(max_abs_err(inp.pack(be.pack_lj), inp.words) == 0, f"{name}: pack_lj")
+    out = inp.decode(bd.decode_streams)
+    require(max_abs_err(out, inp.decode(bd.decode_streams_ref)) == 0, f"{name}: decode_streams")
+    require(np.array_equal(out.cpu().numpy(), inp.arr), f"{name}: round trip")
+
+
+# name -> tokens per stream; HuffWord cases of K6 (lj and length tables),
+# pack_lj and decode_streams_dual
+HUFFWORD_BITSTREAM_CASES = {"hw_s16384": 1 << 14, "hw_odd_s1001": 1001,
+                            "hw_nonword_s777": 777, "hw_one_token": 1 << 14,
+                            "hw_bigvocab_s4097": 4097, "hw_deep32_s999": 999}
+
+
+def huffword_bitstream_case(name: str):
+    """(class-local token ids, word_first, [word, nonword] codebooks,
+    n_word, n_nonword, S) of a HuffWord bitstream kernel case.  The deep32
+    case draws tokens from made-up dictionaries whose word codes reach 32
+    bits (no text has such a vocabulary at a test's size)."""
+    S = HUFFWORD_BITSTREAM_CASES[name]
+    if "deep32" in name:
+        rng = np.random.default_rng(0xD32)
+        cb_w = build_codebook(np.left_shift(1, np.maximum(40 - np.arange(200), 0)), 32)
+        cb_n = build_codebook(np.array([50, 30, 10, 5, 1]), 32)
+        deepest = np.flatnonzero(cb_w.lengths == 32)
+        require(cb_w.max_len == 32 and deepest.size, f"{name}: max_len {cb_w.max_len}")
+        ids = rng.integers(0, 5, 30_001)
+        ids[::2] = np.minimum(rng.geometric(0.5, ids[::2].size) - 1, 199)
+        ids[rng.choice(ids.size // 2, 300, replace=False) * 2] = rng.choice(deepest, 300)
+        return ids, True, [cb_w, cb_n], 200, 5, S
+    if "nonword" in name:
+        text = b"  ...  " + make_word_corpus(100_000, seed=0x3AF)
+    elif "one_token" in name:
+        text = b"a"
+    elif "bigvocab" in name:
+        text = big_vocab_text()
+    else:  # ~2.5 streams of the word corpus (~2.14 bytes per token)
+        text = make_word_corpus(int(2.5 * S * 2.14), seed=S)
+    _, _, wf, wv, nv, ids = tok.build_vocabs(text)
+    cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), 32) for v in (wv, nv)]
+    return ids, bool(wf), cbs, wv.n, nv.n, S
+
+
+class HuffwordBitstreamInputs:
+    """Everything the HuffWord bitstream kernels take for one token
+    sequence, on one device; each plain version makes the next kernel's
+    input."""
+
+    def __init__(self, ids: np.ndarray, word_first: bool, cbs, n_word: int, n_nonword: int,
+                 S: int, dev: torch.device):
+        self.T, self.S, self.ids, self.word_first = ids.size, S, ids, word_first
+        self.small = max(n_word, n_nonword) <= 0xFFFF
+        ids_pad = np.zeros(max(1, -(-self.T // S)) * S, np.uint16 if self.small else np.uint32)
+        ids_pad[: self.T] = ids
+        self.ids_d = torch.from_numpy(ids_pad.view(np.int16 if self.small else np.int32)).to(dev)
+        self.n0 = max(n_word, 1)
+        self.lj_tbl, self.len_tbl = hw_model.bitstream_tables(cbs, n_word, n_nonword, dev)
+        self.lj = self.gather(lut.gather_entries_ref, self.lj_tbl)
+        self.lens = self.gather(lut.gather_entries_ref, self.len_tbl)
+        self.offsets, self.n_words, self.starts = _packed(self.lj, self.lens, S)
+        self.words = self.pack(be.pack_lj_ref)
+        # the decoders' codebooks: those of the lengths a container stores
+        cb_w, cb_n = (codebook_from_lengths(cb.lengths if k else np.zeros(0, np.int32))
+                      for cb, k in zip(cbs, (n_word, n_nonword)))
+        self.even, self.odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
+        self.fc, self.off = hw_model._dual_tables(self.even, self.odd, dev)
+        self.len_range = ((self.even.min_len, self.odd.min_len),
+                          (self.even.max_len, self.odd.max_len))
+        self.scan_levels = (self.even.max_len - self.even.min_len,
+                            self.odd.max_len - self.odd.min_len)
+
+    def gather(self, fn, tbl: torch.Tensor):
+        return fn(self.ids_d, tbl, 0, self.n0, self.T, self.word_first)
+
+    def pack(self, fn):
+        return fn(self.lj, self.offsets, self.n_words)
+
+    def decode(self, fn):
+        return fn(self.words, self.starts, self.T, self.S, self.fc, self.off, *self.len_range)
+
+    def token_ids(self, ranks: torch.Tensor) -> np.ndarray:
+        return hw_model._ranks_to_ids(ranks, self.even, self.odd, self.small, self.T,
+                                      ranks.device)
+
+
+def check_huffword_bitstream_case(name: str, dev: torch.device) -> None:
+    """K6 with the lj and the length tables, pack_lj and decode_streams_dual
+    on the card against their plain versions for one case, bit-exact, plus
+    the token round trip."""
+    inp = HuffwordBitstreamInputs(*huffword_bitstream_case(name), dev)
+    for tbl, want, what in ((inp.lj_tbl, inp.lj, "lj"), (inp.len_tbl, inp.lens, "lengths")):
+        require(max_abs_err(inp.gather(lut.gather_entries, tbl), want) == 0,
+                f"{name}: K6 {what}")
+    require(max_abs_err(inp.pack(be.pack_lj), inp.words) == 0, f"{name}: pack_lj")
+    ranks = inp.decode(bd.decode_streams_dual)
+    require(max_abs_err(ranks, inp.decode(bd.decode_streams_dual_ref)) == 0,
+            f"{name}: decode_streams_dual")
+    require(np.array_equal(inp.token_ids(ranks), inp.ids), f"{name}: token round trip")
+
+
+def clock(out: dict, key: str, fn):
+    """fn() on the host clock, ending in a synchronize; its milliseconds go
+    to out[key] and its result is returned."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    out[key] = (time.perf_counter() - t0) * 1e3
+    return r
+
+
 def host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
                dev: torch.device) -> dict[str, float]:
     """Milliseconds of the main path's host-side steps, each re-run alone
@@ -385,25 +603,16 @@ def host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
     n = arr.size
     group = conf.group_rows * LANES * conf.stream_symbols
     out = {}
-
-    def clock(key, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        out[key] = (time.perf_counter() - t0) * 1e3
-        return r
-
-    clock("histogram+codebook", lambda: build_codebook(
+    clock(out, "histogram+codebook", lambda: build_codebook(
         sampled_histogram(arr, conf.histogram_budget), ke.MAX_FUSED_LEN))
-    host = clock("pad copy", lambda: np.concatenate(
+    host = clock(out, "pad copy", lambda: np.concatenate(
         [arr, np.zeros(-n % group, np.uint8)]))
-    sym = clock("H2D symbols", lambda: torch.from_numpy(host).to(dev))
+    sym = clock(out, "H2D symbols", lambda: torch.from_numpy(host).to(dev))
     words = torch.empty(len(blob) // 4, dtype=torch.int32, device=dev)
-    clock("D2H payload", lambda: words.cpu())
-    clock("D2H symbols", lambda: sym.cpu())
-    clock("crc32", lambda: zlib.crc32(arr))
-    clock("host copy (tobytes)", lambda: arr.tobytes())
+    clock(out, "D2H payload", lambda: words.cpu())
+    clock(out, "D2H symbols", lambda: sym.cpu())
+    clock(out, "crc32", lambda: zlib.crc32(arr))
+    clock(out, "host copy (tobytes)", lambda: arr.tobytes())
     return out
 
 
@@ -412,28 +621,20 @@ def huffword_host_steps(data: bytes, blob: bytes, group: int, dev: torch.device)
     each re-run alone at the main path's sizes (host clock; transfers end
     in a synchronize), and the tokenizer's output for phase 5."""
     out = {}
-
-    def clock(key, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        out[key] = (time.perf_counter() - t0) * 1e3
-        return r
-
-    vocabs = clock("tokenize+vocab", lambda: tok.build_vocabs(data))
+    vocabs = clock(out, "tokenize+vocab", lambda: tok.build_vocabs(data))
     _, _, wf, wv, nv, ids = vocabs
-    clock("codebooks", lambda: [build_codebook(v.counts, ke.MAX_FUSED_LEN) for v in (wv, nv)])
-    ids16 = clock("pad ids", lambda: np.concatenate(
+    clock(out, "codebooks",
+          lambda: [build_codebook(v.counts, ke.MAX_FUSED_LEN) for v in (wv, nv)])
+    ids16 = clock(out, "pad ids", lambda: np.concatenate(
         [ids.astype(np.uint16), np.zeros(-ids.size % group, np.uint16)]))
-    ids_d = clock("H2D ids", lambda: torch.from_numpy(ids16.view(np.int16)).to(dev))
-    f = clock("read container", lambda: container.read_container(blob))
+    ids_d = clock(out, "H2D ids", lambda: torch.from_numpy(ids16.view(np.int16)).to(dev))
+    f = clock(out, "read container", lambda: container.read_container(blob))
     words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
-    pay_d = clock("H2D payload", lambda: _i32_tensor(words, dev))
-    clock("D2H payload", lambda: pay_d.cpu())
-    clock("D2H ids", lambda: ids_d[: ids.size].cpu())
-    clock("detokenize", lambda: tok.detokenize(ids, wf, wv, nv))
-    clock("crc32", lambda: zlib.crc32(data))
+    pay_d = clock(out, "H2D payload", lambda: _i32_tensor(words, dev))
+    clock(out, "D2H payload", lambda: pay_d.cpu())
+    clock(out, "D2H ids", lambda: ids_d[: ids.size].cpu())
+    clock(out, "detokenize", lambda: tok.detokenize(ids, wf, wv, nv))
+    clock(out, "crc32", lambda: zlib.crc32(data))
     return out, vocabs
 
 
@@ -470,16 +671,16 @@ def kernel_name(mangled: str) -> str:
     """A readable name for a compiled kernel: the function and its template
     arguments (lanes per thread, entry words, u16/u32 element types)."""
     m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_kernel|"
-                  r"decode_dual_kernel|decode_kernel|lut_gather_kernel)(I.*E)?", mangled)
+                  r"decode_dual_kernel|decode_kernel|lut_gather_kernel|lookup_lj_lens_kernel|"
+                  r"pack_lj_kernel|decode_streams_kernel)(I.*E)?", mangled)
     if not m:
         return mangled
     args = m.group(2) or ""
     widths = {"t": "u16", "j": "u32"}
     parts = re.findall(r"Li(\d+)E", args)
-    if "Lb1E" in args:
-        parts.append("entries")
-    elif "Lb0E" in args:
-        parts.append("bytes")
+    flag = {"Lb1E": "dual", "Lb0E": "bytes"} if m.group(1) == "decode_streams_kernel" else \
+        {"Lb1E": "entries", "Lb0E": "bytes"}
+    parts += [v for k, v in flag.items() if k in args]
     if m.group(1) == "lut_gather_kernel":
         parts = [widths[c] for c in re.findall(r"[tj]", args[1:-1])]
     return m.group(1) + (f"<{','.join(parts)}>" if parts else "")
@@ -592,6 +793,163 @@ def huffword_kernel_times(text: bytes, f, vocabs, launches: dict, dev: torch.dev
     return out
 
 
+def bitstream_host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
+                         dev: torch.device) -> dict[str, float]:
+    """Milliseconds of the byte bitstream path's host-side steps, each re-run
+    alone at the main path's sizes (host clock; transfers end in a
+    synchronize); a dispatch's steps are summed over the dispatches."""
+    out = {}
+    clock(out, "histogram+codebook", lambda: build_codebook(
+        sampled_histogram(arr, conf.histogram_budget), conf.length_limit))
+    f = clock(out, "read container", lambda: container.read_container(blob))
+    S = f.stream_symbols
+    h2d = {}
+    for lo in range(0, arr.size, (cb_model.MAX_DISPATCH_SYMBOLS // S) * S):
+        chunk = arr[lo : lo + (cb_model.MAX_DISPATCH_SYMBOLS // S) * S]
+        clock(h2d, "one", lambda: cb_model._symbols_on(chunk, _round_up(chunk.size, S), dev))
+        out["pad + H2D symbols"] = out.get("pad + H2D symbols", 0.0) + h2d["one"]
+    words_d = torch.empty(len(f.payload) // 4, dtype=torch.int32, device=dev)
+    words = clock(out, "D2H payload", lambda: words_d.cpu().numpy().view(np.uint32))
+    clock(out, "big-endian payload bytes", lambda: words.astype(">u4").tobytes())
+    clock(out, "bytes_to_words + H2D payload",
+          lambda: _i32_tensor(bitio.bytes_to_words(f.payload), dev))
+    sym = torch.empty(arr.size, dtype=torch.uint8, device=dev)
+    clock(out, "D2H symbols", lambda: sym.cpu())
+    clock(out, "crc32", lambda: zlib.crc32(arr))
+    clock(out, "host copy (tobytes)", lambda: arr.tobytes())
+    return out
+
+
+def measure(kname: str, kernel, plain_fn, nbytes: int, nops: int, launches: dict,
+            card: str, library=None, check=None, reps: int = 5) -> dict:
+    """One bitstream kernel's row of the kernels line: its output against
+    its plain version's on the same inputs (bit-exact) and `check`, then
+    the times (CUDA events) of the kernel, the plain version and, where
+    given, one PyTorch call computing the same function."""
+    plain_ms, want = timed_once(plain_fn)
+    got = kernel()
+    err = max_abs_err(got, want)
+    require(err == 0, f"main shape: {kname} differs from its plain version by {err}")
+    if check is not None:
+        check(got)
+    del got, want
+    ms = cuda_ms(kernel, reps)
+    lib_ms = cuda_ms(library, reps) if library is not None else None
+    b_ms, b_by = bound(nbytes, nops)
+    print(f"time: {kname} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
+          f"{b_by}; {nbytes} B, {nops} ops"
+          + (f"; torch.take {lib_ms:.3f} ms" if lib_ms is not None else "")
+          + f") on {card}", flush=True)
+    return {"name": kname, "route": "cuda", "source": "glz_tpu_torch/csrc/bitstream.cu",
+            "replaces": REPLACES[kname], "launches": launches[kname], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def bitstream_kernel_times(arr: np.ndarray, blob: bytes, launches: dict,
+                           dev: torch.device, card: str) -> list[dict]:
+    """Phase 5 for the byte bitstream path: K7 and the pack on the main
+    path's first dispatch (2^27 symbols) with its codebook, the stream
+    decode on the whole container; each against its plain version, the
+    decode also against the input.  K7's library yardstick is torch.take of
+    one table holding both values (lj | length << 32) on the same symbols."""
+    f = container.read_container(blob)
+    S, n = f.stream_symbols, f.n_symbols
+    cb = codebook_from_lengths(container.decode_byte_codebook(f.codebook_blob))
+    dispatch = (cb_model.MAX_DISPATCH_SYMBOLS // S) * S
+    inp = BitstreamInputs(arr[:dispatch], dispatch, S, cb, dev)
+    m = inp.sym.numel()
+    both = (inp.lj_tbl.long() & 0xFFFFFFFF) | (inp.len_tbl.long() << 32)
+    idx = inp.sym.long()
+    rows = [measure("lookup_lj_lens", lambda: inp.lookup(be.lookup_lj_lens),
+                    lambda: inp.lookup(be.lookup_lj_lens_ref), m + 8 * m + 2 * 1024,
+                    OPS_PER_SYMBOL["lookup_lj_lens"] * m, launches, card,
+                    library=lambda: torch.take(both, idx))]
+    del both, idx
+    rows.append(measure("pack_lj", lambda: inp.pack(be.pack_lj), lambda: inp.pack(be.pack_lj_ref),
+                        12 * m + 4 * inp.n_words, OPS_PER_SYMBOL["pack_lj"] * m, launches, card))
+    del inp
+    words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
+    sb = f.stream_bits.astype(np.int64)
+    starts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
+    tables = decode_tables(cb, dev)
+
+    def decode(fn):
+        return fn(words, starts, n, S, *tables, cb.min_len, cb.max_len)
+
+    def same_as_input(out):
+        require(np.array_equal(out.cpu().numpy(), arr), "main shape: decode_streams != input")
+
+    rows.append(measure("decode_streams", lambda: decode(bd.decode_streams),
+                        lambda: decode(bd.decode_streams_ref),
+                        4 * words.numel() + 8 * starts.numel() + n + 4 * (2 * 34 + 256),
+                        (DECODE_OPS_BASE + 2 * (cb.max_len - cb.min_len)) * n, launches, card,
+                        check=same_as_input))
+    return rows
+
+
+def huffword_bitstream_kernel_times(blob: bytes, vocabs, launches: dict,
+                                    dev: torch.device, card: str) -> list[dict]:
+    """Phase 5 for the HuffWord bitstream path, on the whole of phase 4d's
+    tokens: K6 with the lj and the length tables and the pack (times
+    printed; their rows are the other paths'), then the dual stream decode,
+    each against its plain version; the pack's payload must be the
+    container's and the decode must give back the tokens."""
+    f = container.read_container(blob)
+    _, _, wf, wv, nv, ids = vocabs
+    cbs = [build_codebook(v.counts, cfg.DEFAULT.length_limit) for v in (wv, nv)]
+    inp = HuffwordBitstreamInputs(ids, bool(wf), cbs, wv.n, nv.n, f.stream_symbols, dev)
+    total_bits = int(inp.offsets[-1] + inp.lens[-1].long())
+    require(bitio.words_to_bytes(inp.words.cpu().numpy().view(np.uint32), total_bits)
+            == f.payload, "huffword bitstream main shape: payload differs from the container's")
+    T, n_pad = inp.T, inp.ids_d.numel()
+    id_bytes = 2 if inp.small else 4
+    for what, tbl, want in (("lj", inp.lj_tbl, inp.lj), ("lengths", inp.len_tbl, inp.lens)):
+        err = max_abs_err(inp.gather(lut.gather_entries, tbl), want)
+        require(err == 0, f"huffword bitstream main shape: K6 {what} differs by {err}")
+        ms = cuda_ms(lambda: inp.gather(lut.gather_entries, tbl), reps=5)
+        b_ms, b_by = bound(id_bytes * n_pad + 4 * n_pad + 4 * tbl.numel(),
+                           OPS_PER_SYMBOL["lut_gather"] * n_pad)
+        print(f"time: lut_gather/bitstream {what} {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}) "
+              f"on {card}", flush=True)
+    err = max_abs_err(inp.pack(be.pack_lj), inp.words)
+    require(err == 0, f"huffword bitstream main shape: pack_lj differs by {err}")
+    ms = cuda_ms(lambda: inp.pack(be.pack_lj), reps=5)
+    b_ms, b_by = bound(12 * n_pad + 4 * inp.n_words, OPS_PER_SYMBOL["pack_lj"] * n_pad)
+    print(f"time: pack_lj/huffword {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; {T} tokens) "
+          f"on {card}", flush=True)
+    half = T // 2
+    scan_ops = sum(k * (DECODE_OPS_BASE + 2 * lv)
+                   for k, lv in zip((T - half, half), inp.scan_levels))
+
+    def same_as_tokens(ranks):
+        require(np.array_equal(inp.token_ids(ranks), ids),
+                "huffword bitstream main shape: decode_streams_dual != tokens")
+
+    return [measure("decode_streams_dual", lambda: inp.decode(bd.decode_streams_dual),
+                    lambda: inp.decode(bd.decode_streams_dual_ref),
+                    4 * inp.n_words + 8 * inp.starts.numel() + 4 * T + 4 * 4 * 34,
+                    scan_ops, launches, card, check=same_as_tokens)]
+
+
+def round_trip(data, mode: int, conf: cfg.GlzConfig):
+    """(blob, output, compress s, decompress s, launches) of one timed
+    round trip through the entry points, the launch counts zeroed just
+    before and read just after; peak device memory is reset before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    blob = gt.compress(data, mode=mode, conf=conf)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = gt.decompress(blob)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    return blob, out, t_c, t_d, _kernels.launch_counts()
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -631,27 +989,30 @@ def main() -> int:
           f"{len(HUFFWORD_CASES)}/{len(HUFFWORD_CASES)} cases "
           f"({', '.join(HUFFWORD_CASES)}); {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    for case in BITSTREAM_CASES:
+        check_bitstream_case(case, dev)
+    for case in HUFFWORD_BITSTREAM_CASES:
+        check_huffword_bitstream_case(case, dev)
+    torch.cuda.synchronize()
+    print(f"kernels: lookup_lj_lens, pack_lj, decode_streams bit-exact vs plain, round trip, "
+          f"on {len(BITSTREAM_CASES)}/{len(BITSTREAM_CASES)} cases "
+          f"({', '.join(BITSTREAM_CASES)}); lut_gather (lj, lengths), pack_lj, "
+          f"decode_streams_dual on {len(HUFFWORD_BITSTREAM_CASES)}/"
+          f"{len(HUFFWORD_BITSTREAM_CASES)} cases ({', '.join(HUFFWORD_BITSTREAM_CASES)}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    card = f"{name} ({smi})"
+
     # ---- 4. main path: 512 MiB under THROUGHPUT with checksum
     arr = make_corpus(MAIN_BYTES)
+    n = arr.size
     conf = dataclasses.replace(cfg.THROUGHPUT, checksum=True)
     gt.decompress(gt.compress(arr[: 1 << 20], conf=conf))  # CUDA context, warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    blob = gt.compress(arr, conf=conf)
-    torch.cuda.synchronize()
-    t_c = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = gt.decompress(blob)
-    torch.cuda.synchronize()
-    t_d = time.perf_counter() - t0
-    launches = _kernels.launch_counts()
+    blob, out, t_c, t_d, launches = round_trip(arr, cfg.MODE_BYTE, conf)
     require(out == arr.tobytes(), "main path: round trip mismatch")
     require(all(launches[k] > 0 for k in BYTE_KERNELS),
             f"main path missed a kernel: {launches}")
-    n = arr.size
-    print(f"main: {n >> 20} MiB THROUGHPUT+checksum on {name} ({smi}): compress "
+    print(f"main: {n >> 20} MiB THROUGHPUT+checksum on {card}: compress "
           f"{t_c * 1e3:.1f} ms ({n / t_c / 1e9:.3f} GB/s), decompress {t_d * 1e3:.1f} ms "
           f"({n / t_d / 1e9:.3f} GB/s), ratio {len(blob) / n:.4f}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, launches {launches}",
@@ -659,7 +1020,7 @@ def main() -> int:
     del out
     steps = host_steps(arr, blob, conf, dev)
     print("host: " + ", ".join(f"{k} {v:.1f} ms" for k, v in steps.items())
-          + f" (each re-run alone at 512 MiB; container {len(blob)} B)", flush=True)
+          + f" (each re-run alone at {n >> 20} MiB; container {len(blob)} B)", flush=True)
 
     # ---- 4b. HuffWord main path: 100 MiB of word text, S 512, rows 32
     t0 = time.perf_counter()
@@ -668,18 +1029,7 @@ def main() -> int:
     hconf = huffword_conf()
     mode = cfg.MODE_HUFFWORD
     gt.decompress(gt.compress(text[: 1 << 20], mode=mode, conf=hconf))  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    hblob = gt.compress(text, mode=mode, conf=hconf)
-    torch.cuda.synchronize()
-    t_c = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hout = gt.decompress(hblob)
-    torch.cuda.synchronize()
-    t_d = time.perf_counter() - t0
-    hlaunches = _kernels.launch_counts()
+    hblob, hout, t_c, t_d, hlaunches = round_trip(text, mode, hconf)
     require(hout == text, "huffword main path: round trip mismatch")
     require(all(hlaunches[k] > 0 for k in HUFFWORD_KERNELS),
             f"huffword main path missed a kernel: {hlaunches}")
@@ -687,7 +1037,7 @@ def main() -> int:
     hf = container.read_container(hblob)
     hn = len(text)
     print(f"main: HuffWord {hn >> 20} MiB S {hf.stream_symbols} rows {hf.group_rows} "
-          f"+checksum on {name} ({smi}): {hf.n_symbols} tokens in {hf.n_streams} groups; "
+          f"+checksum on {card}: {hf.n_symbols} tokens in {hf.n_streams} groups; "
           f"compress {t_c * 1e3:.1f} ms ({hn / t_c / 1e9:.3f} GB/s), decompress "
           f"{t_d * 1e3:.1f} ms ({hn / t_d / 1e9:.3f} GB/s), ratio {len(hblob) / hn:.4f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
@@ -696,6 +1046,41 @@ def main() -> int:
         text, hblob, hf.group_rows * LANES * hf.stream_symbols, dev)
     print("host: HuffWord " + ", ".join(f"{k} {v:.1f} ms" for k, v in hsteps.items())
           + f" (each re-run alone at {hn >> 20} MiB; container {len(hblob)} B)", flush=True)
+
+    # ---- 4c. byte bitstream path: the same 512 MiB under DEFAULT with checksum
+    bconf = dataclasses.replace(cfg.DEFAULT, checksum=True)
+    gt.decompress(gt.compress(arr[: 1 << 20], conf=bconf))  # warm-up
+    bblob, out, t_c, t_d, blaunches = round_trip(arr, cfg.MODE_BYTE, bconf)
+    require(out == arr.tobytes(), "bitstream path: round trip mismatch")
+    require(all(blaunches[k] > 0 for k in BITSTREAM_KERNELS),
+            f"bitstream path missed a kernel: {blaunches}")
+    del out
+    bf = container.read_container(bblob)
+    dispatch = (cb_model.MAX_DISPATCH_SYMBOLS // bf.stream_symbols) * bf.stream_symbols
+    print(f"main: bitstream {n >> 20} MiB DEFAULT+checksum on {card}: {bf.n_streams} streams "
+          f"of {bf.stream_symbols} symbols in {-(-n // dispatch)} dispatches; compress "
+          f"{t_c * 1e3:.1f} ms ({n / t_c / 1e9:.3f} GB/s), decompress {t_d * 1e3:.1f} ms "
+          f"({n / t_d / 1e9:.3f} GB/s), ratio {len(bblob) / n:.4f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, launches {blaunches}",
+          flush=True)
+    bsteps = bitstream_host_steps(arr, bblob, bconf, dev)
+    print("host: bitstream " + ", ".join(f"{k} {v:.1f} ms" for k, v in bsteps.items())
+          + f" (each re-run alone at {n >> 20} MiB; container {len(bblob)} B)", flush=True)
+
+    # ---- 4d. HuffWord bitstream path: phase 4b's text under DEFAULT with checksum
+    gt.decompress(gt.compress(text[: 1 << 20], mode=mode, conf=bconf))  # warm-up
+    hbblob, hout, t_c, t_d, hblaunches = round_trip(text, mode, bconf)
+    require(hout == text, "huffword bitstream path: round trip mismatch")
+    require(all(hblaunches[k] > 0 for k in HUFFWORD_BITSTREAM_KERNELS),
+            f"huffword bitstream path missed a kernel: {hblaunches}")
+    del hout
+    hbf = container.read_container(hbblob)
+    print(f"main: HuffWord bitstream {hn >> 20} MiB DEFAULT+checksum on {card}: "
+          f"{hbf.n_symbols} tokens in {hbf.n_streams} streams of {hbf.stream_symbols}; "
+          f"compress {t_c * 1e3:.1f} ms ({hn / t_c / 1e9:.3f} GB/s), decompress "
+          f"{t_d * 1e3:.1f} ms ({hn / t_d / 1e9:.3f} GB/s), ratio {len(hbblob) / hn:.4f}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
+          f"launches {hblaunches}", flush=True)
 
     # ---- 5. kernel times at the main path's shapes
     cb = build_codebook(sampled_histogram(arr, conf.histogram_budget), ke.MAX_FUSED_LEN)
@@ -736,9 +1121,11 @@ def main() -> int:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
         print(f"time: {k} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
-              f"{b_by}; {traffic[k]} B, {ops[k]} ops) on {name} ({smi})", flush=True)
+              f"{b_by}; {traffic[k]} B, {ops[k]} ops) on {card}", flush=True)
     del inp, payload
-    rows += huffword_kernel_times(text, hf, vocabs, hlaunches, dev, f"{name} ({smi})")
+    rows += huffword_kernel_times(text, hf, vocabs, hlaunches, dev, card)
+    rows += bitstream_kernel_times(arr, bblob, blaunches, dev, card)
+    rows += huffword_bitstream_kernel_times(hbblob, vocabs, hblaunches, dev, card)
 
     # ---- 6. pinned digests
     text = (ROOT / "tests" / "fixtures" / "realtext.txt").read_bytes()[: 1 << 20]
@@ -752,8 +1139,13 @@ def main() -> int:
         digest = hashlib.sha256(blob).hexdigest()
         require(digest == HUFFWORD_PINNED[key], f"pinned digest {key}: {digest}")
         require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")
-    print(f"digests: {', '.join([*PINNED, *HUFFWORD_PINNED])} match the reference",
-          flush=True)
+    for key, (pconf, pmode) in bitstream_pinned_configs().items():
+        blob = gt.compress(text, mode=pmode, conf=pconf)
+        digest = hashlib.sha256(blob).hexdigest()
+        require(digest == BITSTREAM_PINNED[key], f"pinned digest {key}: {digest}")
+        require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")
+    print(f"digests: {', '.join([*PINNED, *HUFFWORD_PINNED, *BITSTREAM_PINNED])} match "
+          f"the reference", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -5,12 +5,13 @@ own copies of the host code and imports nothing of `glz_tpu`.  For the same
 input and configuration it writes byte-identical .glz containers, and each
 package decodes the other's.
 
-The port carries the lockstep layout in byte mode (the THROUGHPUT preset)
-and in HuffWord mode (word and non-word dictionaries).  Lane totals, the
-reverse-sweep encode, the lockstep decodes and the vocabulary gather run as
-hand-written CUDA kernels (csrc/lockstep.cu).  Entry points run on the card
-unless the caller passes device='cpu', which runs the kernels' plain
-PyTorch versions.
+The port carries byte mode and HuffWord mode (word and non-word
+dictionaries) in both payload layouts: lockstep (the THROUGHPUT preset) and
+bitstream (DEFAULT, RATIO).  Lane totals, the reverse-sweep encode, the
+lockstep decodes and the vocabulary gather (csrc/lockstep.cu), and the byte
+lookup, the bit pack and the stream decodes (csrc/bitstream.cu) run as
+hand-written CUDA kernels.  Entry points run on the card unless the caller
+passes device='cpu', which runs the kernels' plain PyTorch versions.
 
 Public API:
     compress(data, mode=MODE_BYTE, conf=THROUGHPUT, device=None)

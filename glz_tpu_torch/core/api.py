@@ -1,8 +1,8 @@
 """compress()/decompress(): the front door.
 
-This slice of the port carries the lockstep layout in byte mode and in
-HuffWord mode, and the empty-input container.  Every other mode and layout
-raises NotImplementedError naming the slice that brings it.
+The port carries byte mode and HuffWord mode in both payload layouts:
+bitstream (layout 0) and lockstep (layout 2).  The normal-tree mode raises
+NotImplementedError naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -16,7 +16,18 @@ from glz_tpu_torch.core import container
 _LATER_MODES = {
     cfg.MODE_NORMAL_TREE: "the front-door slice (ROADMAP A5)",
 }
-_BITSTREAM_SLICE = "the bitstream device slice (ROADMAP A8)"
+
+
+def _plan_streams(n_symbols: int, conf: cfg.GlzConfig) -> int:
+    """Pick symbols-per-stream: honor conf.stream_symbols but cap stream
+    count (size budget) and guarantee at least one stream."""
+    if n_symbols == 0:
+        return conf.stream_symbols
+    s = conf.stream_symbols
+    n_streams = -(-n_symbols // s)
+    if n_streams > conf.max_streams:
+        s = -(-n_symbols // conf.max_streams)
+    return s
 
 
 def _verify(data: bytes, f: container.GlzFile) -> bytes:
@@ -41,12 +52,10 @@ def _pipelined(fn, datas, pipeline: bool) -> list:
 
 def compress(data: bytes, mode: int = cfg.MODE_BYTE,
              conf: cfg.GlzConfig = cfg.THROUGHPUT, device=None) -> bytes:
-    """Compress `data` into a .glz container (byte or HuffWord mode,
-    lockstep layout).
+    """Compress `data` into a .glz container (byte or HuffWord mode; the
+    layout is conf.layout).
 
     device: None runs on the card; 'cpu' runs the kernels' plain versions."""
-    from glz_tpu_torch.models.canonical_byte import compress_bytes_lockstep
-
     if mode == cfg.MODE_HUFFWORD:
         from glz_tpu_torch.models.huffword import compress_huffword
         return compress_huffword(data, conf, device=device)
@@ -54,30 +63,22 @@ def compress(data: bytes, mode: int = cfg.MODE_BYTE,
         if mode in _LATER_MODES:
             raise NotImplementedError(f"mode {mode} comes with {_LATER_MODES[mode]}")
         raise ValueError(f"unsupported mode {mode}")
-    if conf.layout != cfg.LAYOUT_LOCKSTEP:
-        raise NotImplementedError(
-            f"layout {conf.layout!r} comes with {_BITSTREAM_SLICE}; "
-            f"use layout {cfg.LAYOUT_LOCKSTEP!r} (cfg.THROUGHPUT)")
-    return compress_bytes_lockstep(data, conf, device=device)
+    from glz_tpu_torch.models.canonical_byte import compress_bytes_device
+    return compress_bytes_device(data, conf, device=device)
 
 
 def decompress(blob: bytes, device=None) -> bytes:
     """Decompress a .glz container (mode and layout are self-describing)."""
-    from glz_tpu_torch.models.canonical_byte import (decompress_bytes_lockstep,
-                                                     resolve_device)
+    from glz_tpu_torch.models.canonical_byte import decompress_bytes_device, resolve_device
     from glz_tpu_torch.models.huffword import decompress_huffword
 
     resolve_device(device)
     f = container.read_container(blob)
-    if f.mode not in (cfg.MODE_BYTE, cfg.MODE_HUFFWORD):
-        if f.mode in _LATER_MODES:
-            raise NotImplementedError(
-                f"container mode {f.mode} comes with {_LATER_MODES[f.mode]}")
-        raise ValueError(f"unsupported container mode {f.mode}")
-    if f.layout == container.LAYOUT_LOCKSTEP:
-        if f.mode == cfg.MODE_HUFFWORD:
-            return decompress_huffword(blob, device=device)
-        return decompress_bytes_lockstep(blob, device=device)
-    if f.n_symbols == 0:
-        return _verify(b"", f)
-    raise NotImplementedError(f"bitstream-layout containers come with {_BITSTREAM_SLICE}")
+    if f.mode == cfg.MODE_HUFFWORD:
+        return decompress_huffword(blob, device=device)
+    if f.mode == cfg.MODE_BYTE:
+        return decompress_bytes_device(blob, device=device)
+    if f.mode in _LATER_MODES:
+        raise NotImplementedError(
+            f"container mode {f.mode} comes with {_LATER_MODES[f.mode]}")
+    raise ValueError(f"unsupported container mode {f.mode}")

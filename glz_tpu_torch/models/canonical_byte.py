@@ -1,30 +1,48 @@
-"""Canonical byte-symbol codec, lockstep layout (layout 2).
+"""Canonical byte-symbol codec: the bitstream layout (layout 0) and the
+lockstep layout (layout 2).
 
-Histogram and codebook on the host (256 symbols, microseconds); lane totals,
-the reverse-sweep encode and the lockstep decode on the card.  Containers
-are byte-identical to the JAX package's for the same input, configuration
-and (stream_symbols, group_rows).
+Histogram and codebook on the host (256 symbols, microseconds); the kernels
+on the card.  Containers are byte-identical to the JAX package's for the
+same input, configuration and (stream_symbols, group_rows).
 
+Lockstep: lane totals, the reverse-sweep encode and the lockstep decode.
 The whole input is encoded in one launch per kernel.  The container does
 not depend on how the input is split into launches, because every split is
 a whole number of groups; all kernel index math is 64-bit.
+
+Bitstream: the byte lookup (K7), an int64 cumsum and the bit pack per
+dispatch, and the stream decode.  Here the dispatch split is part of the
+container: the input is encoded in dispatches of MAX_DISPATCH_SYMBOLS
+rounded down to whole streams, each dispatch's payload is padded to whole
+u32 words (stored big-endian), and the pad bits are added to the recorded
+bit count of the dispatch's last stream.  Decode never reads past a
+stream's symbol count, so the pads are invisible to it.
 """
 
 from __future__ import annotations
 
+import warnings
 import zlib
 
 import numpy as np
 import torch
 
 from glz_tpu_torch import config as cfg
-from glz_tpu_torch.core import container
+from glz_tpu_torch.core import bitio, container
+from glz_tpu_torch.core.api import _plan_streams, _verify
 from glz_tpu_torch.core.codebook import (Codebook, build_codebook,
                                          canonical_codebook, sampled_histogram)
 from glz_tpu_torch.core.lockstep import LANES
+from glz_tpu_torch.ops.decode import decode_streams
+from glz_tpu_torch.ops.encode import encode_block_fast
 from glz_tpu_torch.ops.lockstep_decode import decode_groups
 from glz_tpu_torch.ops.lockstep_encode import (MAX_FUSED_LEN,
                                                encode_payload_from_symbols)
+
+# Symbols per bitstream dispatch (rounded down to whole streams).  Not a
+# knob: it decides where the word-alignment pads go, so it is the JAX
+# package's value.
+MAX_DISPATCH_SYMBOLS = 1 << 27
 
 
 def resolve_device(device) -> torch.device:
@@ -159,8 +177,6 @@ def compress_bytes_lockstep(data: bytes | np.ndarray,
 
 def decompress_bytes_lockstep(blob: bytes, device=None) -> bytes:
     """Decode a layout-2 container with the lockstep decode kernel."""
-    from glz_tpu_torch.core.api import _verify
-
     dev = resolve_device(device)
     f = container.read_container(blob)
     if f.layout != container.LAYOUT_LOCKSTEP:
@@ -180,3 +196,90 @@ def decompress_bytes_lockstep(blob: bytes, device=None) -> bytes:
                         *decode_tables(cb, dev), S, cb.min_len, cb.max_len,
                         f.group_rows)
     return _verify(out[: f.n_symbols].cpu().numpy().tobytes(), f)
+
+
+# ---- bitstream layout (layout 0) ---------------------------------------------
+
+def _symbols_on(chunk: np.ndarray, padded: int, dev: torch.device) -> torch.Tensor:
+    """A u8 chunk on `dev`, zero-padded to `padded` symbols (read-only input
+    buffers are only read)."""
+    out = torch.zeros(padded, dtype=torch.uint8, device=dev)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        out[: chunk.size].copy_(torch.from_numpy(chunk))
+    return out
+
+
+def compress_bytes_device(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAULT,
+                          codebook: Codebook | None = None, device=None) -> bytes:
+    """Layout-0 (bitstream) compression on the card (device=None) or, with
+    device='cpu', through the kernels' plain versions; a lockstep conf goes
+    to compress_bytes_lockstep.  The container equals the JAX package's
+    compress_bytes_device (its backend='device' path) byte for byte.
+
+    codebook: optional pre-built shared Codebook (every file of a shared
+    batch encodes with the same code)."""
+    if conf.layout == cfg.LAYOUT_LOCKSTEP:
+        return compress_bytes_lockstep(data, conf, codebook=codebook, device=device)
+    dev = resolve_device(device)
+    arr = _as_array(data)
+    n = arr.size
+    if n == 0:
+        return empty_container(conf)
+    S = _plan_streams(n, conf)
+    dispatch = max((MAX_DISPATCH_SYMBOLS // S) * S, S)
+    cb = codebook if codebook is not None else build_codebook(
+        sampled_histogram(arr, conf.histogram_budget), conf.length_limit)
+    lj_tbl = _i32_tensor(cb.left_justified_codes(), dev)
+    len_tbl = _i32_tensor(cb.lengths, dev)
+
+    payload_parts: list[bytes] = []
+    stream_bits_parts: list[np.ndarray] = []
+    for lo in range(0, n, dispatch):
+        n_valid = min(n, lo + dispatch) - lo
+        sym = _symbols_on(arr[lo : lo + n_valid], _round_up(n_valid, S), dev)
+        words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl, len_tbl, S)
+        del sym
+        sb = stream_bits[: -(-n_valid // S)].cpu().numpy()
+        # word-align this dispatch: inflate its last stream's recorded advance
+        sb[-1] += 32 * words.numel() - total_bits
+        payload_parts.append(words.cpu().numpy().view(np.uint32).astype(">u4").tobytes())
+        stream_bits_parts.append(sb)
+        del words
+
+    f = container.GlzFile(
+        mode=cfg.MODE_BYTE,
+        n_symbols=n,
+        stream_symbols=S,
+        stream_bits=np.concatenate(stream_bits_parts),
+        codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
+        payload=b"".join(payload_parts),
+        checksum=_crc(arr, conf),
+    )
+    return container.write_container(f)
+
+
+def decompress_bytes_device(blob: bytes, device=None) -> bytes:
+    """Decode a byte-mode container: layout 0 (written by either package,
+    word-aligned dispatches or the host encoder's byte-aligned payload) with
+    the stream decode kernel, layout 2 with decompress_bytes_lockstep."""
+    f = container.read_container(blob)
+    if f.mode != cfg.MODE_BYTE:
+        raise ValueError("not a byte-mode container")
+    if f.layout == container.LAYOUT_LOCKSTEP:
+        return decompress_bytes_lockstep(blob, device=device)
+    dev = resolve_device(device)
+    if f.n_symbols == 0:
+        return _verify(b"", f)
+    cb = canonical_codebook(container.decode_byte_codebook(f.codebook_blob))
+    if cb.max_len == 0:
+        raise ValueError("corrupt .glz container: no byte has a code")
+    S = f.stream_symbols
+    if S < 1 or f.n_streams * S < f.n_symbols:
+        raise ValueError("corrupt .glz container: stream table too short")
+    sbits = f.stream_bits.astype(np.int64)
+    starts = np.cumsum(sbits) - sbits
+    out = decode_streams(_i32_tensor(bitio.bytes_to_words(f.payload), dev),
+                         torch.from_numpy(starts).to(dev), f.n_symbols, S,
+                         *decode_tables(cb, dev), cb.min_len, cb.max_len)
+    return _verify(out.cpu().numpy().tobytes(), f)

@@ -1,24 +1,30 @@
-"""HuffWord codec, lockstep layout (layout 2): word-based canonical Huffman
-with dual dictionaries.
+"""HuffWord codec: word-based canonical Huffman with dual dictionaries, in
+the bitstream layout (layout 0) and the lockstep layout (layout 2).
 
 Tokens strictly alternate between a word and a non-word dictionary; each
 dictionary gets its own canonical code, ids are (length, content) ranks,
 and the container stores both dictionaries' code lengths and token text
-(the codebook section, huffword_cb_blob).  A lockstep stream holds S tokens
-with S even, so token parity is step parity and the decoder swaps
-dictionaries per step.
+(the codebook section, huffword_cb_blob).  Token parity selects the
+dictionary.  Containers are byte-identical to the JAX package's for the
+same input and configuration.
 
-Compress: tokenize and build the vocabularies on the host; on the card,
-gather each token's lj|len entry word (K6), the entry-word lane totals and
-the reverse-sweep encode (K4).  Decompress: on the card, the dual-codebook
-decode (K5) and the rank -> id gather (K6); detokenize on the host.
-Containers are byte-identical to the JAX package's for the same input and
-configuration.
+Lockstep: a stream holds S tokens with S even, so token parity is step
+parity and the decoder swaps dictionaries per step.  Compress: tokenize and
+build the vocabularies on the host; on the card, gather each token's lj|len
+entry word (K6), the entry-word lane totals and the reverse-sweep encode
+(K4).  Decompress: on the card, the dual-codebook decode (K5) and the rank
+-> id gather (K6); detokenize on the host.  The whole input is encoded in
+one launch per kernel: the container does not depend on how the input is
+split into launches, because every split is a whole number of groups.
 
-The whole input is encoded in one launch per kernel.  The container does not
-depend on how the input is split into launches, because every split is a
-whole number of groups; all kernel index math is 64-bit.  The bitstream
-layout (layout 0) comes with a later slice of the port.
+Bitstream: streams of up to 2^14 tokens, one MSB-first bit stream whose
+last partial byte is padded with 1s.  Compress: on the card, K6 gathers
+each token's left-justified code and then its length (two launches: codes
+of 27-32 bits rule out the fused lj|len word), an int64 cumsum and the bit
+pack.  Decompress: the dual stream decode (a stream starts at the parity of
+its first token, odd when S is odd) and K6's rank -> id gather.  The JAX
+package writes this layout on the host; the port runs the same codec on the
+card.  All kernel index math is 64-bit.
 """
 
 from __future__ import annotations
@@ -30,12 +36,14 @@ import numpy as np
 import torch
 
 from glz_tpu_torch import config as cfg
-from glz_tpu_torch.core import container
-from glz_tpu_torch.core.api import _BITSTREAM_SLICE, _pipelined, _verify
+from glz_tpu_torch.core import bitio, container
+from glz_tpu_torch.core.api import _pipelined, _verify
 from glz_tpu_torch.core.codebook import Codebook, build_codebook, canonical_codebook
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, group_tables,
                                                  resolve_device)
+from glz_tpu_torch.ops.decode import decode_streams_dual
+from glz_tpu_torch.ops.encode import pack_codes
 from glz_tpu_torch.ops.lockstep_decode import decode_groups_dual
 from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN, encode_payload_from_entries
 from glz_tpu_torch.ops.lut import gather_entries, map_ranks
@@ -153,13 +161,8 @@ def _huffword_stream_tokens(conf: cfg.GlzConfig) -> int:
         f"[64, 1024], got {S}")
 
 
-def _check_lockstep(conf: cfg.GlzConfig) -> int:
-    """conf.group_rows, after checking that conf asks for the lockstep
-    layout with a supported group width."""
-    if conf.layout != cfg.LAYOUT_LOCKSTEP:
-        raise NotImplementedError(
-            f"HuffWord layout {conf.layout!r} comes with {_BITSTREAM_SLICE}; "
-            f"use layout {cfg.LAYOUT_LOCKSTEP!r}")
+def _check_rows(conf: cfg.GlzConfig) -> int:
+    """conf.group_rows, after checking that it is a supported group width."""
     rows = conf.group_rows
     if rows not in (8, 16, 32, 64):
         raise ValueError(f"group_rows must be 8, 16, 32 or 64, got {rows}")
@@ -218,7 +221,7 @@ def _lockstep_container(data, conf: cfg.GlzConfig, T: int, S: int, rows: int,
 def _compress_huffword_device(data, conf: cfg.GlzConfig, word_first: bool,
                               wv, nv, ids, device=None) -> bytes:
     """The HuffWord lockstep container of tokenized data (conf checked by
-    _check_lockstep)."""
+    _check_rows)."""
     T = ids.size
     S = _huffword_stream_tokens(conf)
     small = max(wv.n, nv.n) <= 0xFFFF
@@ -231,17 +234,90 @@ def _compress_huffword_device(data, conf: cfg.GlzConfig, word_first: bool,
                                huffword_cb_blob(word_first, wv, nv, cbs), payload)
 
 
+def bitstream_tables(cbs: list[Codebook], n_word: int, n_nonword: int,
+                     dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lj, length) int32 tables of the two dictionaries concatenated, the
+    word dictionary's first (one zero entry for an empty dictionary)."""
+    def table(column) -> torch.Tensor:
+        return _i32_tensor(np.concatenate(
+            [column(cbs[0]) if n_word else np.zeros(1, np.uint32),
+             column(cbs[1]) if n_nonword else np.zeros(1, np.uint32)]), dev)
+
+    return (table(Codebook.left_justified_codes),
+            table(lambda cb: cb.lengths.astype(np.uint32)))
+
+
+def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
+                            cbs: list[Codebook], n_word: int, n_nonword: int,
+                            stream_tokens: int, n_streams: int, device=None
+                            ) -> tuple[bytes, np.ndarray]:
+    """Class-local token ids (T >= 1) -> (payload bytes, stream_bits np.int64
+    [n_streams]) of a layout-0 container.
+
+    On the card: K6 gathers each token's left-justified code, then its
+    length, from its parity dictionary (0 past T); the int64 cumsum of the
+    lengths and the bit pack follow.  The payload is the words' big-endian
+    bytes up to the last code bit, the last partial byte padded with 1s."""
+    dev = resolve_device(device)
+    small = max(n_word, n_nonword) <= 0xFFFF
+    ids_pad = np.zeros(n_streams * stream_tokens, np.uint16 if small else np.uint32)
+    ids_pad[:T] = ids.astype(ids_pad.dtype)
+    ids_d = torch.from_numpy(ids_pad.view(np.int16 if small else np.int32)).to(dev)
+    n0 = max(n_word, 1)
+    lj_tbl, len_tbl = bitstream_tables(cbs, n_word, n_nonword, dev)
+    lj = gather_entries(ids_d, lj_tbl, 0, n0, T, bool(word_first))
+    lens = gather_entries(ids_d, len_tbl, 0, n0, T, bool(word_first))
+    del ids_d
+    words, total_bits, stream_bits = pack_codes(lj, lens, stream_tokens)
+    payload = bitio.words_to_bytes(words.cpu().numpy().view(np.uint32), total_bits)
+    return payload, stream_bits.cpu().numpy()
+
+
+def _bitstream_container(data, conf: cfg.GlzConfig, T: int, word_first: bool, wv, nv,
+                         ids: np.ndarray, cbs: list[Codebook], device=None) -> bytes:
+    """The layout-0 HuffWord container of class-local token ids, vocabularies
+    and codebooks (shared by compress_huffword and the shared-codebook
+    batch).  Streams hold min(stream_symbols, 2^14) tokens, more when
+    conf.max_streams would be exceeded."""
+    stream_tokens = min(conf.stream_symbols, 1 << 14)
+    n_streams = max(1, -(-T // stream_tokens)) if T else 1
+    if n_streams > conf.max_streams:
+        stream_tokens = -(-T // conf.max_streams)
+        n_streams = -(-T // stream_tokens)
+    if T:
+        payload, stream_bits = encode_bitstream_tokens(
+            ids, T, word_first, cbs, wv.n, nv.n, stream_tokens, n_streams, device)
+    else:
+        payload, stream_bits = b"", np.zeros(1, np.int64)
+    return container.write_container(container.GlzFile(
+        mode=cfg.MODE_HUFFWORD,
+        n_symbols=T,
+        stream_symbols=stream_tokens,
+        stream_bits=stream_bits.astype(np.uint64),
+        codebook_blob=huffword_cb_blob(word_first, wv, nv, cbs),
+        payload=payload,
+        checksum=zlib.crc32(data) if conf.checksum else None,
+    ))
+
+
 def compress_huffword(data: bytes | np.ndarray,
                       conf: cfg.GlzConfig = cfg.THROUGHPUT, device=None) -> bytes:
-    """HuffWord compression into a lockstep container, on the card
-    (device=None) or, with device='cpu', through the kernels' plain
-    versions.  Code lengths are capped at 26 (the fused lj|len entry word);
+    """HuffWord compression on the card (device=None) or, with
+    device='cpu', through the kernels' plain versions, in conf.layout.
+
+    Lockstep: code lengths are capped at 26 (the fused lj|len entry word);
     conf.stream_symbols of a byte preset selects 512 tokens per stream, and
-    group_rows is capped by huffword_rows_cap with a warning."""
-    _check_lockstep(conf)
+    group_rows is capped by huffword_rows_cap with a warning.  Bitstream:
+    code lengths are capped at conf.length_limit (up to 32)."""
+    if conf.layout == cfg.LAYOUT_LOCKSTEP:
+        _check_rows(conf)
     dev = resolve_device(device)
     _, _, word_first, wv, nv, ids = tok.build_vocabs(data)
-    return _compress_huffword_device(data, conf, word_first, wv, nv, ids, dev)
+    if conf.layout == cfg.LAYOUT_LOCKSTEP:
+        return _compress_huffword_device(data, conf, word_first, wv, nv, ids, dev)
+    cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), conf.length_limit)
+           for v in (wv, nv)]
+    return _bitstream_container(data, conf, ids.size, word_first, wv, nv, ids, cbs, dev)
 
 
 def compress_huffword_shared(datas: list[bytes],
@@ -253,8 +329,10 @@ def compress_huffword_shared(datas: list[bytes],
     tokenizer.merge_vocab_parts, and every file's token ids are remapped
     into the union before encoding.  Every returned container embeds the
     full shared codebook and decodes independently.  With pipeline=True two
-    files are in flight at once on a thread pool."""
-    rows = _check_lockstep(conf)
+    files are in flight at once on a thread pool.  conf.layout selects the
+    container as in compress_huffword."""
+    rows = _check_rows(conf)
+    lockstep = conf.layout == cfg.LAYOUT_LOCKSTEP
     dev = resolve_device(device)
     per = [tok.build_vocabs(d) for d in datas]
 
@@ -271,9 +349,12 @@ def compress_huffword_shared(datas: list[bytes],
     uwv, unv = union_vocabs
 
     small = max(uwv.n, unv.n) <= 0xFFFF
-    S = _huffword_stream_tokens(conf)
-    rows = _capped_rows(rows, S, small)
-    limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+    if lockstep:
+        S = _huffword_stream_tokens(conf)
+        rows = _capped_rows(rows, S, small)
+        limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+    else:
+        limit = conf.length_limit
     cbs = [build_codebook(uwv.counts, limit), build_codebook(unv.counts, limit)]
 
     def one(args):
@@ -287,6 +368,8 @@ def compress_huffword_shared(datas: list[bytes],
                 id_maps[1][k][np.minimum(ids, max(nv.n - 1, 0))] if nv.n else 0)
         else:
             gids = np.zeros(0, np.int64)
+        if not lockstep:
+            return _bitstream_container(data, conf, T, word_first, uwv, unv, gids, cbs, dev)
         payload, group_counts = encode_lockstep_tokens(
             gids, T, word_first, cbs, uwv.n, unv.n, S, rows=rows, device=dev)
         return _lockstep_container(data, conf, T, S, rows, group_counts,
@@ -298,34 +381,11 @@ def compress_huffword_shared(datas: list[bytes],
 
 # ---- decompress -------------------------------------------------------------
 
-def _decompress_huffword_device(f: container.GlzFile, device=None):
-    """Decode a lockstep HuffWord container's tokens on the card.  Returns
-    (ids np.int64 [T], word_first, word_vocab, nonword_vocab); detokenizing
-    happens upstream."""
-    dev = resolve_device(device)
-    word_first, cb_w, cb_n, wv, nv = huffword_state_from_blob(f.codebook_blob)
-    cb_even, cb_odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
-
-    T = f.n_symbols
-    S = f.stream_symbols
-    rows = f.group_rows
-    if S & (S - 1) or not 64 <= S <= 8192:
-        raise ValueError(f"corrupt .glz container: lockstep stream_symbols {S}")
-    G = rows * LANES
-    if f.n_streams * G * S < T:
-        raise ValueError("corrupt .glz container: group table too short")
-    starts, counts = group_tables(f.stream_bits, T, G, S, dev)
-    words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
-    fc = np.stack([cb_even.first_code_left_justified(), cb_odd.first_code_left_justified()])
-    offsets = np.stack([cb_even.decode_offsets(), cb_odd.decode_offsets()])
-    ranks = decode_groups_dual(
-        _i32_tensor(words, dev), starts, counts, _i32_tensor(fc, dev),
-        _i32_tensor(offsets, dev), S, (cb_even.min_len, cb_odd.min_len),
-        (cb_even.max_len, cb_odd.max_len), rows)
-
-    # rank -> token id on the card, then D2H as u16 when the vocabularies
-    # fit (2 bytes per token instead of 4)
-    small = max(wv.n, nv.n) <= 0xFFFF
+def _ranks_to_ids(ranks: torch.Tensor, cb_even: Codebook, cb_odd: Codebook, small: bool,
+                  T: int, dev: torch.device) -> np.ndarray:
+    """Canonical ranks in file order -> token ids np.int64 [T]: K6 on the
+    card, then D2H as u16 when the vocabularies fit (`small`: 2 bytes per
+    token instead of 4)."""
     n_even = max(cb_even.symbols.size, 1)
     sym_cat = np.concatenate(
         [cb_even.symbols if cb_even.symbols.size else np.zeros(1, np.uint32),
@@ -333,20 +393,61 @@ def _decompress_huffword_device(f: container.GlzFile, device=None):
     ids = map_ranks(ranks, _i32_tensor(sym_cat, dev), n_even, small)
     del ranks
     ids = ids[:T].cpu().numpy().view(np.uint16 if small else np.uint32)
-    return ids.astype(np.int64), word_first, wv, nv
+    return ids.astype(np.int64)
+
+
+def _dual_tables(cb_even: Codebook, cb_odd: Codebook, dev: torch.device):
+    """(fc_lj, offsets) int32 [2, 34] tensors of the dual decodes, row 0 the
+    even tokens' codebook."""
+    fc = np.stack([cb_even.first_code_left_justified(), cb_odd.first_code_left_justified()])
+    offsets = np.stack([cb_even.decode_offsets(), cb_odd.decode_offsets()])
+    return _i32_tensor(fc, dev), _i32_tensor(offsets, dev)
+
+
+def _decompress_huffword_device(f: container.GlzFile, device=None):
+    """Decode a HuffWord container's tokens on the card: the lockstep dual
+    decode (K5) or the bitstream dual stream decode, then K6.  Returns (ids
+    np.int64 [T], word_first, word_vocab, nonword_vocab); detokenizing
+    happens upstream."""
+    dev = resolve_device(device)
+    word_first, cb_w, cb_n, wv, nv = huffword_state_from_blob(f.codebook_blob)
+    # dictionary of token i: the first one when (i even) == word_first
+    cb_even, cb_odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
+    fc, offsets = _dual_tables(cb_even, cb_odd, dev)
+    lens = (cb_even.min_len, cb_odd.min_len), (cb_even.max_len, cb_odd.max_len)
+
+    T = f.n_symbols
+    S = f.stream_symbols
+    if f.layout == container.LAYOUT_LOCKSTEP:
+        rows = f.group_rows
+        if S & (S - 1) or not 64 <= S <= 8192:
+            raise ValueError(f"corrupt .glz container: lockstep stream_symbols {S}")
+        G = rows * LANES
+        if f.n_streams * G * S < T:
+            raise ValueError("corrupt .glz container: group table too short")
+        starts, counts = group_tables(f.stream_bits, T, G, S, dev)
+        words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
+        ranks = decode_groups_dual(_i32_tensor(words, dev), starts, counts, fc, offsets, S,
+                                   *lens, rows)
+    else:
+        if S < 1 or f.n_streams * S < T:
+            raise ValueError("corrupt .glz container: stream table too short")
+        sbits = f.stream_bits.astype(np.int64)
+        starts = torch.from_numpy(np.cumsum(sbits) - sbits).to(dev)
+        ranks = decode_streams_dual(_i32_tensor(bitio.bytes_to_words(f.payload), dev),
+                                    starts, T, S, fc, offsets, *lens)
+    small = max(wv.n, nv.n) <= 0xFFFF
+    return _ranks_to_ids(ranks, cb_even, cb_odd, small, T, dev), word_first, wv, nv
 
 
 def decompress_huffword(blob: bytes, device=None) -> bytes:
-    """Decode a lockstep HuffWord container (K5 and K6 on the card, then
+    """Decode a HuffWord container of either layout (on the card, then
     detokenize on the host)."""
     f = container.read_container(blob)
     if f.mode != cfg.MODE_HUFFWORD:
         raise ValueError("not a huffword container")
-    if f.layout != container.LAYOUT_LOCKSTEP:
-        raise NotImplementedError(
-            f"bitstream-layout HuffWord containers come with {_BITSTREAM_SLICE}")
     dev = resolve_device(device)
     if f.n_symbols == 0:
-        return b""
+        return b"" if f.layout == container.LAYOUT_LOCKSTEP else _verify(b"", f)
     ids, word_first, wv, nv = _decompress_huffword_device(f, dev)
     return _verify(tok.detokenize(ids, word_first, wv, nv), f)

@@ -1,9 +1,11 @@
-"""Build, bind and count the hand-written Hopper kernels (csrc/lockstep.cu).
+"""Build, bind and count the hand-written Hopper kernels (csrc/lockstep.cu,
+csrc/bitstream.cu).
 
-The CUDA source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface, on first use, into `build/` at the repository root (named
-by the source's hash, so an edited source is rebuilt), and loaded with
-ctypes.  Each C entry launches on the current PyTorch stream and returns
+The CUDA sources are compiled with nvcc for sm_90a, one nvcc per source, all
+started together, and linked into one shared library with a plain C
+interface, on first use, into `build/` at the repository root (named by the
+sources' hash, so an edited source is rebuilt), and loaded with ctypes.
+Each C entry launches on the current PyTorch stream and returns
 cudaGetLastError(); a non-zero code raises here.
 
 Nothing is compiled or loaded at import time: CPU-only machines import this
@@ -23,15 +25,17 @@ import threading
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "lockstep.cu"
+SOURCES = [pathlib.Path(__file__).resolve().parents[1] / "csrc" / name
+           for name in ("lockstep.cu", "bitstream.cu")]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches since the last reset_launch_counts(), by wrapper name.
 _LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0,
              "lane_totals_entries": 0, "encode_entries": 0, "decode_dual": 0,
-             "lut_gather": 0}
+             "lut_gather": 0, "lookup_lj_lens": 0, "pack_lj": 0, "decode_streams": 0,
+             "decode_streams_dual": 0}
 _COUNT_LOCK = threading.Lock()  # the shared-codebook batch launches from two threads
 _LIB: ctypes.CDLL | None = None
 _BUILD_LOG = ""
@@ -49,6 +53,11 @@ _SIGNATURES = {
     "glz_decode_dual": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P],
     "glz_lut_gather": [_P, _I, _LL, _P, _LL, _LL, _LL, _LL, _LL, _P, _I, _P],
+    "glz_lookup_lj_lens": [_P, _LL, _LL, _P, _P, _P, _P, _P],
+    "glz_pack_lj": [_P, _P, _LL, _P, _LL, _P],
+    "glz_decode_streams": [_P, _LL, _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _P, _P],
+    "glz_decode_streams_dual": [_P, _LL, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _P,
+                                _P],
 }
 
 
@@ -63,25 +72,34 @@ def nvcc_path() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/lockstep.cu (if its hashed library is missing) and
-    return the library path.  The compiler's -Xptxas -v report (registers,
-    spills per kernel) is kept in build_log()."""
+    """Compile the CUDA sources (if their hashed library is missing), one
+    nvcc per source in parallel, link them into one library and return its
+    path.  The compilers' -Xptxas -v reports (registers, spills per kernel)
+    are kept in build_log()."""
     global _BUILD_LOG
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libglz_lockstep_{tag}.so"
+    tag = hashlib.sha256(b"".join(src.read_bytes() for src in SOURCES)
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libglz_kernels_{tag}.so"
     log = lib.with_suffix(".ptxas.txt")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+            procs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                       str(src)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for src, obj in zip(SOURCES, objs)]
+            outs = [proc.communicate() for proc in procs]
+            for src, proc, (out, err) in zip(SOURCES, procs, outs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+            so = pathlib.Path(tmp) / "lib.so"
+            link = subprocess.run([nvcc_path(), "-shared", "-o", str(so), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            log.write_text("".join(out + err for out, err in outs))
+            os.replace(so, lib)
     _BUILD_LOG = log.read_text() if log.exists() else ""
     return lib
 

@@ -1,0 +1,225 @@
+"""Bitstream (layout-0) decode: one thread per stream, one codebook (byte
+mode) or two alternating by token parity (HuffWord).
+
+Counterpart of glz_tpu/ops/decode.py:decode_block and assemble, and of the
+host HuffWord decoders (glz_tpu/models/huffword.py:_decode_tokens_host, the
+native decode_tokens).  Stream k holds symbols [k*S, min((k+1)*S, n)) and
+starts at bit starts[k] of the payload, whose u32 words are big-endian
+(bitio.bytes_to_words).  Each symbol is decoded from the 32-bit window v at
+the stream's bit cursor (0 past the payload's end) by the canonical scan
+
+    len  = min_len + sum_{l in [min_len, max_len)} [v < fc_lj[l]]
+    off  = offsets[len]     (selected by the same scan)
+    rank = (v >> (32 - len)) + off          (mod 2^32; no shift when len = 32)
+
+and the cursor advances by len.  Byte mode emits symtab[rank & 255]; the
+dual form emits the rank and scans codebook (k*S + j) & 1 for token j of
+stream k.  The 2^16-entry LUT of decode_block is a speed device of the TPU
+path and has no counterpart.  The output is in file order, so assemble's
+transpose has none either.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from glz_tpu_torch.ops import _kernels
+from glz_tpu_torch.ops.lockstep_decode import CODE_TABLE
+from glz_tpu_torch.ops.lockstep_encode import U32, as_u32, to_i32
+
+
+# Bit positions a plain decode holds tables for at once (several int64
+# arrays of this length are live).
+_CHUNK_POSITIONS = 1 << 26
+
+
+def _position_tables(P: torch.Tensor, lo: int, n_pos: int, fc: torch.Tensor,
+                     offs: torch.Tensor, min_len: int, max_len: int):
+    """(length, rank) int64 [n_pos] of a code starting at each bit position
+    lo + i of the zero-extended payload P (u32 values in int64)."""
+    p = torch.arange(lo, lo + n_pos, device=P.device)
+    phase = p & 31
+    hi = P[p >> 5]
+    lo_w = P[(p >> 5) + 1]
+    v = torch.where(phase > 0, ((hi << phase) & U32) | (lo_w >> ((32 - phase) & 31)), hi)
+    del hi, lo_w, phase, p
+    fc_l, off_l = as_u32(fc).tolist(), as_u32(offs).tolist()
+    ln = torch.full_like(v, min_len)
+    off = torch.full_like(v, off_l[min_len])
+    for l in range(min_len, max_len):
+        c = v < fc_l[l]
+        ln += c
+        off = torch.where(c, off_l[l + 1], off)
+    rank = ((v >> ((32 - ln) & 31)) + off) & U32
+    return ln, rank
+
+
+def _chains(P: torch.Tensor, B: int, starts: torch.Tensor, first: torch.Tensor,
+            M: int, codebooks) -> torch.Tensor:
+    """Ranks int64 [len(starts), M]: M steps of each stream's walk from bit
+    starts[i] (in [0, B]), its first token of parity class first[i] %
+    len(codebooks).
+
+    The code length and rank are tabled for every bit position a walk can
+    reach (M steps of at most 32 bits from a start; positions at or past the
+    payload's last bit B see an all-zero window, so they fold into B), then
+    the walks follow the table by pointer doubling: log2(M) rounds."""
+    dev = P.device
+    lo = int(starts.min())
+    top = min(int(starts.max()) + 32 * M, B)
+    n_pos = top - lo + 1
+    n_cls = len(codebooks)
+    jumps, ranks = [], []
+    for c, (fc, offs, min_len, max_len) in enumerate(codebooks):
+        ln, rank = _position_tables(P, lo, n_pos, fc, offs, min_len, max_len)
+        to = (torch.arange(n_pos, device=dev) + ln).clamp_(max=n_pos - 1)
+        jumps.append(to + ((c + 1) % n_cls) * n_pos)  # the next token's class
+        ranks.append(rank)
+        del ln
+    jump = torch.cat(jumps)
+    rank_at = torch.cat(ranks)
+    del jumps, ranks
+    pos = torch.empty((starts.numel(), M), dtype=torch.int64, device=dev)
+    pos[:, 0] = starts - lo + (first % n_cls) * n_pos
+    width = 1
+    while width < M:
+        take = min(width, M - width)
+        pos[:, width : width + take] = jump[pos[:, :take]]
+        width += take
+        if width < M:
+            jump = jump[jump]
+    return rank_at[pos]
+
+
+def _decode_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: int,
+                codebooks) -> torch.Tensor:
+    """Canonical ranks int64 [n_symbols] in file order; codebooks: one
+    (fc_lj, offsets, min_len, max_len) per token parity class.
+
+    A loop of S Python steps is far too slow at S = 2^18, so the plain
+    version splits each stream's serial walk into two vectorised halves with
+    the same result (_chains), over groups of streams whose reachable bit
+    positions fit _CHUNK_POSITIONS."""
+    dev = words.device
+    B = 32 * words.numel()
+    P = torch.cat([as_u32(words), words.new_zeros(2, dtype=torch.int64)])
+    L = starts.numel()
+    M = S if L > 1 else n_symbols  # steps to follow per stream
+    st = starts.clamp(0, B)
+    st_host = st.tolist()
+    out = torch.empty(n_symbols, dtype=torch.int64, device=dev)
+    k0 = 0
+    while k0 * S < n_symbols:
+        k1, lo, hi = k0 + 1, st_host[k0], st_host[k0]
+        while (k1 < L and k1 * S < n_symbols
+               and max(hi, st_host[k1]) - min(lo, st_host[k1]) + 32 * M <= _CHUNK_POSITIONS):
+            lo, hi = min(lo, st_host[k1]), max(hi, st_host[k1])
+            k1 += 1
+        k = torch.arange(k0, k1, device=dev)
+        ranks = _chains(P, B, st[k0:k1], k * S, M, codebooks)
+        end = min(k1 * S, n_symbols) if L > 1 else n_symbols
+        out[k0 * S : end] = ranks.view(-1)[: end - k0 * S]
+        k0 = k1
+    return out
+
+
+def _check_decode(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
+                  S: int) -> None:
+    dev = words.device
+    _kernels.check(words, "words", torch.int32, (words.numel(),), dev)
+    _kernels.check(starts, "starts", torch.int64, (starts.numel(),), dev)
+    if S < 1 or n_symbols < 0:
+        raise ValueError(f"bad geometry: S {S}, n_symbols {n_symbols}")
+    if starts.numel() * S < n_symbols or (n_symbols and starts.numel() == 0):
+        raise ValueError("corrupt .glz container: stream table too short")
+    if starts.numel() and int(starts.min()) < 0:
+        raise ValueError("corrupt .glz container: negative stream start")
+
+
+def _check_range(lo: int, hi: int, empty_ok: bool) -> None:
+    if not ((empty_ok and (lo, hi) == (0, 0)) or 1 <= lo <= hi <= 32):
+        raise ValueError(f"bad code length range [{lo}, {hi}]")
+
+
+# ---- byte mode ---------------------------------------------------------------
+
+def decode_streams_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
+                       S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
+                       symtab: torch.Tensor, min_len: int, max_len: int) -> torch.Tensor:
+    """Plain version of the stream decode: u8 [n_symbols] in file order,
+    symtab[rank & 255] per symbol (see the module docstring)."""
+    if n_symbols == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=words.device)
+    rank = _decode_ref(words, starts, n_symbols, S, [(fc_lj, offsets, min_len, max_len)])
+    return as_u32(symtab)[rank & 255].to(torch.uint8)
+
+
+def decode_streams(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: int,
+                   fc_lj: torch.Tensor, offsets: torch.Tensor, symtab: torch.Tensor,
+                   min_len: int, max_len: int) -> torch.Tensor:
+    """The byte-mode stream decode (replaces glz_tpu/ops/decode.py:
+    decode_block with assemble).  See decode_streams_ref for the function;
+    CUDA tensors launch the kernel.
+
+    words: int32 [W] (u32 big-endian-order words); starts: int64 [L] bit
+    offsets, each >= 0; fc_lj/offsets: int32 [34]; symtab: int32 [256]."""
+    _check_range(min_len, max_len, empty_ok=False)
+    dev = words.device
+    _check_decode(words, starts, n_symbols, S)
+    _kernels.check(fc_lj, "fc_lj", torch.int32, (CODE_TABLE,), dev)
+    _kernels.check(offsets, "offsets", torch.int32, (CODE_TABLE,), dev)
+    _kernels.check(symtab, "symtab", torch.int32, (256,), dev)
+    if _kernels.runs_plain(words):
+        return decode_streams_ref(words, starts, n_symbols, S, fc_lj, offsets, symtab,
+                                  min_len, max_len)
+    out = torch.empty(n_symbols, dtype=torch.uint8, device=dev)
+    if n_symbols:
+        _kernels.launch("glz_decode_streams", "decode_streams", _kernels.ptr(words),
+                        words.numel(), _kernels.ptr(starts), starts.numel(), n_symbols, S,
+                        _kernels.ptr(fc_lj), _kernels.ptr(offsets), _kernels.ptr(symtab),
+                        min_len, max_len, _kernels.ptr(out))
+    return out
+
+
+# ---- HuffWord: two codebooks alternating by token parity ----------------------
+
+def decode_streams_dual_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
+                            S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
+                            min_lens, max_lens) -> torch.Tensor:
+    """Plain version of the dual stream decode: canonical ranks, int32 (u32
+    bit patterns) [n_symbols] in file order; token i scans codebook i & 1
+    (row 0 of fc_lj/offsets is the even tokens')."""
+    if n_symbols == 0:
+        return torch.zeros(0, dtype=torch.int32, device=words.device)
+    rank = _decode_ref(words, starts, n_symbols, S,
+                       [(fc_lj[p], offsets[p], min_lens[p], max_lens[p]) for p in (0, 1)])
+    return to_i32(rank)
+
+
+def decode_streams_dual(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
+                        S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
+                        min_lens, max_lens) -> torch.Tensor:
+    """The HuffWord stream decode (replaces the host dual-dictionary decode
+    of glz_tpu/models/huffword.py:decompress_huffword).  See
+    decode_streams_dual_ref for the function; CUDA tensors launch the
+    kernel.
+
+    fc_lj, offsets: int32 [2, 34]; min_lens, max_lens: (even, odd) code
+    length ranges, each [0, 0] for an empty dictionary or within [1, 32]."""
+    for lo, hi in zip(min_lens, max_lens):
+        _check_range(lo, hi, empty_ok=True)
+    dev = words.device
+    _check_decode(words, starts, n_symbols, S)
+    _kernels.check(fc_lj, "fc_lj", torch.int32, (2, CODE_TABLE), dev)
+    _kernels.check(offsets, "offsets", torch.int32, (2, CODE_TABLE), dev)
+    if _kernels.runs_plain(words):
+        return decode_streams_dual_ref(words, starts, n_symbols, S, fc_lj, offsets,
+                                       min_lens, max_lens)
+    out = torch.empty(n_symbols, dtype=torch.int32, device=dev)
+    if n_symbols:
+        _kernels.launch("glz_decode_streams_dual", "decode_streams_dual",
+                        _kernels.ptr(words), words.numel(), _kernels.ptr(starts),
+                        starts.numel(), n_symbols, S, _kernels.ptr(fc_lj),
+                        _kernels.ptr(offsets), min_lens[0], max_lens[0], min_lens[1],
+                        max_lens[1], _kernels.ptr(out))
+    return out

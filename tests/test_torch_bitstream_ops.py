@@ -1,0 +1,257 @@
+"""glz_tpu_torch's bitstream (layout 0) kernel modules against glz_tpu on
+the CPU.
+
+The same symbols, codebooks and payloads go through the JAX package (K7,
+its Pallas lut256, in interpret mode inside encode.lookup_lj_lens and
+encode_block_fast; the XLA pack_lj, encode_block and decode_block; the
+host HuffWord decode _decode_tokens_host) and through the port's plain
+PyTorch versions, which are what the port's wrappers run for CPU tensors.
+All data are integers, so every comparison is exact (tolerance 0).
+
+Cases: a text codebook (max_len <= 26, where the TPU path fuses its two
+lookups), a codebook with codes of 27-32 bits, a ragged n_valid with
+garbage past it, stream sizes that are and are not powers of two, one
+stream, one symbol; and for the dual decode odd stream sizes, nonword-first
+text, an empty dictionary and a >64K-word vocabulary.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from glz_tpu.core import bitio as tpu_bitio
+from glz_tpu.core.codebook import build_codebook as tpu_build_codebook
+from glz_tpu.core.codebook import canonical_codebook as tpu_canonical
+from glz_tpu.core.host_codec import encode_streams as tpu_encode_streams
+from glz_tpu.models import huffword as tpu_hw
+from glz_tpu.ops import decode as tpu_decode
+from glz_tpu.ops import encode as tpu_encode
+
+import chip_smoke
+from glz_tpu_torch.core.codebook import build_codebook, codebook_from_lengths, histogram_bytes
+from glz_tpu_torch.models import huffword as port_hw
+from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables
+from glz_tpu_torch.ops import decode as bd
+from glz_tpu_torch.ops import encode as be
+from glz_tpu_torch.utils import tokenizer as tok
+
+CPU = torch.device("cpu")
+N = 1 << 18  # symbols of a byte case: a multiple of lut256's 64 KiB tile
+
+
+def u32(t: torch.Tensor) -> np.ndarray:
+    """int32 bit patterns -> u32 numpy."""
+    return t.numpy().view(np.uint32)
+
+
+def byte_case(name: str, realtext: bytes):
+    """(symbols u8 [N] with garbage past n_valid, n_valid, codebook)."""
+    rng = np.random.default_rng(0xB175)
+    if name == "deep32":
+        arr, cb = chip_smoke.deep_case(N, limit=32)
+        assert cb.max_len == 32 and (cb.lengths[arr] >= 27).sum() > 100
+        return arr, N - 4321, cb
+    arr = np.frombuffer(realtext, np.uint8)[:N].copy()
+    n_valid = N - 12345
+    cb = build_codebook(histogram_bytes(arr[:n_valid]), 32)
+    arr[n_valid:] = rng.integers(0, 256, N - n_valid, dtype=np.uint8)
+    assert cb.max_len <= 26
+    return arr, n_valid, cb
+
+
+def tables(cb):
+    return (_i32_tensor(cb.left_justified_codes(), CPU),
+            _i32_tensor(cb.lengths.astype(np.uint32), CPU))
+
+
+@pytest.mark.parametrize("name", ["text", "deep32"])
+def test_lookup_matches_reference(realtext, name):
+    """K7's plain version against encode.lookup_lj_lens (lut256 in interpret
+    mode: one fused lj|len gather for text, two gathers for deep32)."""
+    arr, n_valid, cb = byte_case(name, realtext)
+    lj_tbl, len_tbl = tables(cb)
+    lj, lens = be.lookup_lj_lens(torch.from_numpy(arr), n_valid, lj_tbl, len_tbl)
+    want_lj, want_lens = tpu_encode.lookup_lj_lens(
+        jnp.asarray(arr), jnp.int32(n_valid), jnp.asarray(cb.left_justified_codes()),
+        jnp.asarray(cb.lengths.astype(np.uint32)), cb.max_len, interpret=True)
+    assert np.array_equal(u32(lj), np.asarray(want_lj))
+    assert np.array_equal(u32(lens), np.asarray(want_lens))
+    assert not lj[n_valid:].any() and not lens[n_valid:].any()
+
+
+@pytest.mark.parametrize("name,S", [("text", 4096), ("text", 1000), ("deep32", 1 << 16)])
+def test_pack_matches_reference(realtext, name, S):
+    """pack_codes (int64 cumsum + the pack's plain version) against the XLA
+    pack_lj and encode_block on the same codes; S = 1000 is not a power of
+    two (the TPU path takes encode_block, without K7, there)."""
+    arr, n_valid, cb = byte_case(name, realtext)
+    sym = np.zeros(-(-n_valid // S) * S, np.uint8)
+    sym[:n_valid] = arr[:n_valid]
+    lj, lens = be.lookup_lj_lens(torch.from_numpy(sym), n_valid, *tables(cb))
+    words, total_bits, stream_bits = be.pack_codes(lj, lens, S)
+    for want_words, want_total, want_sb in (
+            tpu_encode.pack_lj(jnp.asarray(u32(lj)), jnp.asarray(u32(lens)), S),
+            tpu_encode.encode_block(jnp.asarray(sym), jnp.int32(n_valid),
+                                    jnp.asarray(cb.codewords, dtype=jnp.uint32),
+                                    jnp.asarray(cb.lengths, dtype=jnp.int32), S)):
+        assert total_bits == int(want_total)
+        assert words.numel() == (total_bits + 31) >> 5
+        assert np.array_equal(u32(words), np.asarray(want_words)[: words.numel()])
+        assert not np.asarray(want_words)[words.numel():].any()
+        assert np.array_equal(stream_bits.numpy(), np.asarray(want_sb).astype(np.int64))
+
+
+def test_pack_ref_drops_words_past_the_end():
+    """A code's parts at or past n_words are dropped, as the XLA scatter's
+    mode='drop' does; zero codes write nothing."""
+    lj = torch.tensor([-(1 << 31), 0x7FFFFFFF, 0, -(1 << 31)], dtype=torch.int32)
+    offsets = torch.tensor([0, 33, 40, 95], dtype=torch.int64)
+    words = u32(be.pack_lj(lj, offsets, 3))
+    assert list(words) == [0x80000000, 0x3FFFFFFF, 0x80000001]
+
+
+def test_encode_block_fast_matches_reference(realtext):
+    """One byte dispatch: K7 then the pack, against encode_block_fast."""
+    arr, n_valid, cb = byte_case("deep32", realtext)
+    S = 1 << 14
+    got = be.encode_block_fast(torch.from_numpy(arr), n_valid, *tables(cb), S)
+    want = tpu_encode.encode_block_fast(
+        jnp.asarray(arr), jnp.int32(n_valid), jnp.asarray(cb.left_justified_codes()),
+        jnp.asarray(cb.lengths.astype(np.uint32)), S, interpret=True, max_len=cb.max_len)
+    assert got[1] == int(want[1])
+    assert np.array_equal(u32(got[0]), np.asarray(want[0])[: got[0].numel()])
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2]).astype(np.int64))
+
+
+def _decode_both(words: np.ndarray, sbits: np.ndarray, n: int, S: int, cb):
+    """The port's plain stream decode and the XLA decode_block (with
+    assemble) of one payload."""
+    starts = (np.cumsum(sbits) - sbits).astype(np.int64)
+    got = bd.decode_streams(_i32_tensor(words, CPU), torch.from_numpy(starts), n, S,
+                            *decode_tables(cb, CPU), cb.min_len, cb.max_len).numpy()
+    lut, fc_lj, sp, syms = tpu_canonical(cb.lengths).decode_luts(16)
+    out = tpu_decode.decode_block(
+        jnp.asarray(words), jnp.asarray(starts.astype(np.uint32)),
+        jnp.asarray(lut, dtype=jnp.uint32), jnp.asarray(fc_lj, dtype=jnp.uint32),
+        jnp.asarray(sp, dtype=jnp.uint32), jnp.asarray(syms, dtype=jnp.uint32), S, 16)
+    want = np.asarray(tpu_decode.assemble(out, n)).astype(np.uint8)
+    return got, want
+
+
+@pytest.mark.parametrize("name,S", [("text", 4096), ("text", 1000), ("deep32", 1 << 15),
+                                    ("deep32", N)])
+def test_decode_matches_reference(realtext, name, S):
+    """The plain stream decode against decode_block and the input, on the
+    host encoder's payload (byte-aligned, ones-padded); deep32 takes the
+    escape path of decode_block (codes longer than its 16-bit table) and
+    length-32 codes; S = N is one stream."""
+    arr, n_valid, cb = byte_case(name, realtext)
+    arr = arr[:n_valid]
+    words, total_bits, sbits = tpu_encode_streams(arr, tpu_canonical(cb.lengths), S)
+    words = tpu_bitio.bytes_to_words(tpu_bitio.words_to_bytes(words, total_bits))
+    got, want = _decode_both(words, sbits.astype(np.int64), n_valid, S, cb)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, arr)
+
+
+def test_decode_word_aligned_dispatches(realtext):
+    """The device container's stream table: each dispatch word-aligned by
+    inflating its last stream's recorded bits; the pads are never read."""
+    arr, n_valid, cb = byte_case("text", realtext)
+    arr, S = arr[:n_valid], 4096
+    dispatch = 16 * S
+    words, sbits = [], []
+    for lo in range(0, n_valid, dispatch):
+        chunk = arr[lo : lo + dispatch]
+        n = -(-chunk.size // S) * S
+        sym = torch.from_numpy(np.concatenate([chunk, np.zeros(n - chunk.size, np.uint8)]))
+        w, total, sb = be.encode_block_fast(sym, chunk.size, *tables(cb), S)
+        sb = sb.numpy()
+        sb[-1] += 32 * w.numel() - total
+        words.append(u32(w))
+        sbits.append(sb)
+    got, want = _decode_both(np.concatenate(words), np.concatenate(sbits), n_valid, S, cb)
+    assert np.array_equal(got, want) and np.array_equal(got, arr)
+
+
+def test_decode_one_symbol():
+    cb = build_codebook(histogram_bytes(np.frombuffer(b"ab", np.uint8)), 32)
+    words, total, sbits = tpu_encode_streams(np.frombuffer(b"b", np.uint8),
+                                             tpu_canonical(cb.lengths), 1 << 18)
+    got, want = _decode_both(words, sbits.astype(np.int64), 1, 1 << 18, cb)
+    assert bytes(got) == bytes(want) == b"b"
+
+
+def test_decode_rejects_corrupt_tables(realtext):
+    arr, n_valid, cb = byte_case("text", realtext)
+    tbl = decode_tables(cb, CPU)
+    words = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="stream table too short"):
+        bd.decode_streams(words, torch.zeros(2, dtype=torch.int64), 100, 40, *tbl,
+                          cb.min_len, cb.max_len)
+    with pytest.raises(ValueError, match="negative stream start"):
+        bd.decode_streams(words, torch.tensor([0, -5]), 80, 40, *tbl, cb.min_len, cb.max_len)
+    with pytest.raises(ValueError, match="code length range"):
+        bd.decode_streams(words, torch.zeros(2, dtype=torch.int64), 80, 40, *tbl, 0, 0)
+    # starts past the payload decode from zeros instead of reading out of bounds
+    out = bd.decode_streams(words, torch.tensor([0, 1 << 40]), 80, 40, *tbl,
+                            cb.min_len, cb.max_len)
+    assert out.shape == (80,)
+
+
+# ---- the dual (HuffWord) stream decode -------------------------------------
+
+def dual_case(name: str, realtext: bytes) -> bytes:
+    if name == "nonword_first":
+        return b"  ...  " + realtext[:60_000]
+    if name == "one_token":
+        return b"a"
+    if name == "big_vocab":
+        return chip_smoke.big_vocab_text(n_repeats=2_000)
+    return realtext[:80_000]
+
+
+@pytest.mark.parametrize("name,stream_tokens", [
+    ("text", 1001), ("text", 16384), ("nonword_first", 777), ("one_token", 16384),
+    ("big_vocab", 4097)])
+def test_decode_dual_matches_host(realtext, name, stream_tokens):
+    """The port's HuffWord bitstream encode (K6 twice, the pack) and its
+    plain dual decode against the JAX package's host decode of the same
+    payload; odd stream sizes start odd streams on the odd codebook."""
+    _, _, word_first, wv, nv, ids = tok.build_vocabs(dual_case(name, realtext))
+    T = ids.size
+    cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), 32) for v in (wv, nv)]
+    n_streams = -(-T // stream_tokens)
+    payload, sbits = port_hw.encode_bitstream_tokens(
+        ids, T, word_first, cbs, wv.n, nv.n, stream_tokens, n_streams, device="cpu")
+    # the JAX package's host encode of the same tokens writes the same bits
+    tpu_cbs = [tpu_build_codebook(v.counts if v.n else np.zeros(1, np.int64), 32)
+               for v in (wv, nv)]
+    is_word = (np.arange(T) % 2 == 0) == word_first
+    pick = lambda col, k, v: col(tpu_cbs[k])[np.minimum(ids, max(v.n - 1, 0))] if v.n else 0
+    codes = np.where(is_word, pick(lambda c: c.codewords, 0, wv),
+                     pick(lambda c: c.codewords, 1, nv))
+    lens = np.where(is_word, pick(lambda c: c.lengths, 0, wv), pick(lambda c: c.lengths, 1, nv))
+    w, total = tpu_bitio.pack_codes_msb(codes, lens)
+    assert payload == tpu_bitio.words_to_bytes(w, total)
+    assert sbits.sum() == total and sbits.size == n_streams
+
+    # the decoders' codebooks, from the lengths a container stores (none for
+    # an empty dictionary); row 0 of the dual tables is the even tokens'
+    lengths = [cb.lengths if v.n else np.zeros(0, np.int32) for cb, v in zip(cbs, (wv, nv))]
+    cb_w, cb_n = (codebook_from_lengths(l) for l in lengths)
+    even, odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
+    fc, offs = port_hw._dual_tables(even, odd, CPU)
+    starts = torch.from_numpy(np.cumsum(sbits) - sbits)
+    ranks = bd.decode_streams_dual(_i32_tensor(tpu_bitio.bytes_to_words(payload), CPU),
+                                   starts, T, stream_tokens, fc, offs,
+                                   (even.min_len, odd.min_len), (even.max_len, odd.max_len))
+    got = port_hw._ranks_to_ids(ranks, even, odd, max(wv.n, nv.n) <= 0xFFFF, T, CPU)
+    dicts = [tpu_canonical(l) if l.size else tpu_canonical(np.zeros(1, np.int32))
+             for l in lengths]
+    want = tpu_hw._decode_tokens_host(tpu_bitio.bytes_to_words(payload), sbits, T,
+                                      stream_tokens, dicts if word_first else dicts[::-1])
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, ids)

@@ -156,10 +156,11 @@ def test_imports_nothing_of_jax_or_glz_tpu():
         "from glz_tpu_torch import config as cfg\n"
         "blob = glz_tpu_torch.compress(b'abracadabra' * 999, device='cpu')\n"
         "assert glz_tpu_torch.decompress(blob, device='cpu') == b'abracadabra' * 999\n"
-        "conf = cfg.GlzConfig(stream_symbols=64, layout=cfg.LAYOUT_LOCKSTEP)\n"
         "text = b'the cat-sat on its mat, twice. ' * 999\n"
-        "blob = glz_tpu_torch.compress(text, mode=cfg.MODE_HUFFWORD, conf=conf, device='cpu')\n"
-        "assert glz_tpu_torch.decompress(blob, device='cpu') == text\n"
+        "for conf in (cfg.GlzConfig(stream_symbols=64, layout=cfg.LAYOUT_LOCKSTEP), cfg.DEFAULT):\n"
+        "    for mode in (cfg.MODE_BYTE, cfg.MODE_HUFFWORD):\n"
+        "        blob = glz_tpu_torch.compress(text, mode=mode, conf=conf, device='cpu')\n"
+        "        assert glz_tpu_torch.decompress(blob, device='cpu') == text\n"
         "bad = [m for m in sys.modules if m.startswith('jax') or m == 'glz_tpu'\n"
         "       or m.startswith('glz_tpu.')]\n"
         "assert not bad, bad\n"
@@ -183,15 +184,15 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_other_modes_and_layouts_are_later_slices(text_100kb):
-    with pytest.raises(NotImplementedError, match="bitstream"):
-        glz_tpu_torch.compress(text_100kb, conf=cfg.DEFAULT, device="cpu")
-    with pytest.raises(NotImplementedError, match="bitstream"):
-        _port_decompress(glz_tpu.compress(text_100kb[:5000]))
-    # HuffWord runs in the lockstep layout; its bitstream layout is later
-    with pytest.raises(NotImplementedError, match="bitstream device slice"):
-        glz_tpu_torch.compress(text_100kb, mode=cfg.MODE_HUFFWORD, conf=cfg.DEFAULT,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="bitstream device slice"):
-        _port_decompress(glz_tpu.compress(text_100kb[:5000], mode=tpu_cfg.MODE_HUFFWORD))
+    """The bitstream layout round-trips in both modes and both packages read
+    each other's default containers; only the normal-tree mode is a later
+    slice."""
+    for mode in (cfg.MODE_BYTE, cfg.MODE_HUFFWORD):
+        blob = glz_tpu_torch.compress(text_100kb, mode=mode, conf=cfg.DEFAULT, device="cpu")
+        assert port_container.read_container(blob).layout == port_container.LAYOUT_BITSTREAM
+        assert _port_decompress(blob) == text_100kb
+        assert glz_tpu.decompress(blob) == text_100kb
+        assert _port_decompress(glz_tpu.compress(text_100kb[:5000], mode=mode)) \
+            == text_100kb[:5000]
     with pytest.raises(NotImplementedError, match="front-door slice"):
         glz_tpu_torch.compress(text_100kb, mode=cfg.MODE_NORMAL_TREE, device="cpu")

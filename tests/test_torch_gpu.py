@@ -44,6 +44,22 @@ def test_huffword_kernels_match_plain_versions(cuda, case):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.BITSTREAM_CASES))
+def test_bitstream_kernels_match_plain_versions(cuda, case):
+    """K7, pack_lj and decode_streams bit-exact against their plain
+    versions on the same inputs, and the decode gives back the input."""
+    chip_smoke.check_bitstream_case(case, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.HUFFWORD_BITSTREAM_CASES))
+def test_huffword_bitstream_kernels_match_plain_versions(cuda, case):
+    """K6 with the lj and the length tables, pack_lj and decode_streams_dual
+    bit-exact against their plain versions, and the tokens round-trip."""
+    chip_smoke.check_huffword_bitstream_case(case, cuda)
+    torch.cuda.synchronize()
+
+
 def test_entry_points_launch_each_kernel_once(cuda):
     data = chip_smoke.make_corpus(3 << 20)
     _kernels.reset_launch_counts()
@@ -65,6 +81,26 @@ def test_huffword_entry_points_launch_each_kernel(cuda):
                       "encode_entries": 1, "decode_dual": 1}
 
 
+def test_bitstream_entry_points_launch_each_kernel(cuda):
+    """DEFAULT: one dispatch of K7 and the pack, one stream decode; HuffWord
+    DEFAULT: K6 for the codes and the lengths, the pack, the dual decode
+    and K6 for the ids."""
+    conf = glz_tpu_torch.config.DEFAULT
+    data = chip_smoke.make_corpus(3 << 20)
+    _kernels.reset_launch_counts()
+    assert glz_tpu_torch.decompress(glz_tpu_torch.compress(data, conf=conf)) == data.tobytes()
+    counts = _kernels.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "lookup_lj_lens": 1, "pack_lj": 1,
+                      "decode_streams": 1}
+    text = chip_smoke.make_word_corpus(3 << 20)
+    _kernels.reset_launch_counts()
+    blob = glz_tpu_torch.compress(text, mode=glz_tpu_torch.config.MODE_HUFFWORD, conf=conf)
+    assert glz_tpu_torch.decompress(blob) == text
+    counts = _kernels.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "lut_gather": 3, "pack_lj": 1,
+                      "decode_streams_dual": 1}
+
+
 def test_pinned_digests_on_the_card(cuda, realtext):
     text = realtext[: 1 << 20]
     for key, conf in chip_smoke.pinned_configs().items():
@@ -74,6 +110,10 @@ def test_pinned_digests_on_the_card(cuda, realtext):
     for key, conf in chip_smoke.huffword_pinned_configs().items():
         blob = glz_tpu_torch.compress(text, mode=glz_tpu_torch.config.MODE_HUFFWORD, conf=conf)
         assert hashlib.sha256(blob).hexdigest() == chip_smoke.HUFFWORD_PINNED[key]
+        assert glz_tpu_torch.decompress(blob) == text
+    for key, (conf, mode) in chip_smoke.bitstream_pinned_configs().items():
+        blob = glz_tpu_torch.compress(text, mode=mode, conf=conf)
+        assert hashlib.sha256(blob).hexdigest() == chip_smoke.BITSTREAM_PINNED[key]
         assert glz_tpu_torch.decompress(blob) == text
 
 
@@ -85,11 +125,21 @@ def test_cpu_and_card_write_the_same_bytes(cuda, text_100kb):
     hw = glz_tpu_torch.config.MODE_HUFFWORD
     assert (glz_tpu_torch.compress(text_100kb, mode=hw, conf=conf)
             == glz_tpu_torch.compress(text_100kb, mode=hw, conf=conf, device="cpu"))
+    for mode in (glz_tpu_torch.config.MODE_BYTE, hw):
+        conf = dataclasses.replace(glz_tpu_torch.config.DEFAULT, stream_symbols=1001,
+                                   checksum=True)
+        blob = glz_tpu_torch.compress(text_100kb, mode=mode, conf=conf)
+        assert blob == glz_tpu_torch.compress(text_100kb, mode=mode, conf=conf, device="cpu")
+        assert glz_tpu_torch.decompress(blob) == text_100kb
 
 
 def test_huffword_shared_on_the_card(cuda, text_100kb, realtext):
     conf = chip_smoke.huffword_conf(64, 8)
     files = [text_100kb, realtext[:200_000], b""]
+    blobs = glz_tpu_torch.compress_huffword_shared(files, conf)
+    assert blobs == glz_tpu_torch.compress_huffword_shared(files, conf, device="cpu")
+    assert [glz_tpu_torch.decompress(b) for b in blobs] == files
+    conf = glz_tpu_torch.config.DEFAULT
     blobs = glz_tpu_torch.compress_huffword_shared(files, conf)
     assert blobs == glz_tpu_torch.compress_huffword_shared(files, conf, device="cpu")
     assert [glz_tpu_torch.decompress(b) for b in blobs] == files

@@ -8,10 +8,14 @@ import numpy as np
 import pytest
 
 from glz_tpu import config as tpu_cfg
+from glz_tpu.core import api as tpu_api
+from glz_tpu.core import bitio as tpu_bitio
 from glz_tpu.core import codebook as tpu_codebook
 from glz_tpu.core import container as tpu_container
 
 from glz_tpu_torch import config as cfg
+from glz_tpu_torch.core import api as port_api
+from glz_tpu_torch.core import bitio as port_bitio
 from glz_tpu_torch.core import codebook as port_codebook
 from glz_tpu_torch.core import container as port_container
 
@@ -76,3 +80,32 @@ def test_config_matches_reference():
                 == dataclasses.asdict(getattr(tpu_cfg, name))), name
     assert ([f.name for f in dataclasses.fields(cfg.GlzConfig)]
             == [f.name for f in dataclasses.fields(tpu_cfg.GlzConfig)])
+
+
+@pytest.mark.parametrize("total_bits", [0, 1, 7, 8, 31, 32, 33, 1000, 32 * 64])
+def test_bitio_matches_reference(rng, total_bits):
+    """words_to_bytes (ones- and zero-padding of the last partial byte) and
+    bytes_to_words (big-endian words, zero-padded tail)."""
+    words = rng.integers(0, 1 << 32, 64, dtype=np.uint64).astype(np.uint32)
+    for pad_ones in (True, False):
+        got = port_bitio.words_to_bytes(words, total_bits, pad_ones)
+        assert got == tpu_bitio.words_to_bytes(words, total_bits, pad_ones)
+        assert len(got) == (total_bits + 7) // 8
+    data = bytes(rng.integers(0, 256, total_bits // 8 + 3, dtype=np.uint8))
+    for src in (data, np.frombuffer(data, np.uint8)):
+        got = port_bitio.bytes_to_words(src)
+        assert got.dtype == np.uint32
+        assert np.array_equal(got, tpu_bitio.bytes_to_words(src))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4096, 4097, 1 << 20, (1 << 30) + 3])
+@pytest.mark.parametrize("preset", ["DEFAULT", "RATIO", "THROUGHPUT"])
+def test_plan_streams_matches_reference(n, preset):
+    """Stream size: conf.stream_symbols unless conf.max_streams would be
+    exceeded (RATIO at 512 MiB: 192 streams of 2,796,203 symbols)."""
+    for max_streams in (None, 3):
+        kw = {} if max_streams is None else {"max_streams": max_streams}
+        port_conf = dataclasses.replace(getattr(cfg, preset), **kw)
+        tpu_conf = dataclasses.replace(getattr(tpu_cfg, preset), **kw)
+        assert port_api._plan_streams(n, port_conf) == tpu_api._plan_streams(n, tpu_conf)
+    assert port_api._plan_streams(512 << 20, cfg.RATIO) == 2_796_203

@@ -182,8 +182,9 @@ def test_shared_codebook_matches_reference(text_100kb, realtext, pipeline):
     assert got == want
     assert [_port_decompress(b) for b in want] == files
     assert [glz_tpu.decompress(b) for b in got] == files
-    with pytest.raises(NotImplementedError, match="bitstream device slice"):
-        glz_tpu_torch.compress_huffword_shared(files, cfg.DEFAULT, device="cpu")
+    # the bitstream layout: the same call under DEFAULT writes glz_tpu's bytes
+    assert (glz_tpu_torch.compress_huffword_shared(files[1:], cfg.DEFAULT, device="cpu")
+            == tpu_hw.compress_huffword_shared(files[1:], tpu_cfg.DEFAULT))
 
 
 def test_state_from_blob_matches_reference(realtext):
