@@ -8,8 +8,9 @@ lockstep codec, and the bitstream (layout 0) codec in byte and HuffWord
 mode (DEFAULT).  Phases (each prints one line or more; any failure exits
 non-zero before the last):
   1. environment: torch, the card, nvidia-smi, nvcc;
-  2. build: compile csrc/lockstep.cu and csrc/bitstream.cu for sm_90a (one
-     nvcc each, in parallel), with ptxas register/spill figures per kernel;
+  2. build: compile csrc/lockstep.cu and csrc/bitstream.cu (which share
+     csrc/decode_table.cuh) for sm_90a (one nvcc each, in parallel), with
+     ptxas register/spill figures per kernel;
   3. kernels against their plain PyTorch versions on the card, bit-exact
      (integer data, tolerance 0):
      - byte path: K1 lane_totals, K2 encode_groups and K3 decode_groups on
@@ -25,7 +26,9 @@ non-zero before the last):
   3c. bitstream kernels: K7 lookup_lj_lens, pack_lj and decode_streams on
      byte cases (ragged n_valid with garbage past it, S 1000 (not a power
      of two), codes of 27-32 bits, one symbol, a one-code codebook, three
-     DEFAULT-sized streams), and K6 on the lj and length tables, pack_lj
+     DEFAULT-sized streams, 64 MiB of uniform bytes (all codes 8 bits; its
+     decode time is printed), two word-aligned dispatches of one stream
+     each), and K6 on the lj and length tables, pack_lj
      and decode_streams_dual on HuffWord cases (S 16384, odd S, nonword-
      first text, one token (an empty dictionary), a >64K-word vocabulary,
      codes of 27-32 bits); each case also round-trips;
@@ -41,7 +44,9 @@ non-zero before the last):
      (streams of 16,384 tokens), launch counts read just after;
   5. kernel times at each main path's shapes (CUDA events), each kernel
      held against its plain version on the same inputs (the stream decodes
-     also against the input);
+     also against the input); the byte decodes again at each swept decode
+     table size (and subsequence length), each against the input, and the
+     share of the main corpus's symbols the table resolves in one probe;
   6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
      under eight configurations must have the SHA-256 that the JAX
      reference writes (pinned by tests/test_torch_canonical_byte.py,
@@ -51,6 +56,7 @@ Then the kernels JSON line, the nvidia-smi line and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -76,6 +82,7 @@ from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, decode_
                                                  entry_table, group_tables)
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops import decode as bd
+from glz_tpu_torch.ops import decode_table
 from glz_tpu_torch.ops import encode as be
 from glz_tpu_torch.ops import lockstep_decode as kd
 from glz_tpu_torch.ops import lockstep_encode as ke
@@ -92,7 +99,15 @@ SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 OPS_PER_SYMBOL = {"lane_totals": 2, "encode_groups": 16, "lane_totals_entries": 2,
                   "encode_entries": 15, "lut_gather": 5, "lookup_lj_lens": 4,
                   "pack_lj": 10}
-DECODE_OPS_BASE = 12        # + 2 per canonical-scan level (compare, select)
+# A decode's operations per symbol: the window, one table probe, the
+# advance and the output.  The canonical scan's levels are one
+# implementation's work, not the function's (a table resolves ~99% of codes
+# in one probe), so no decode's bound counts them.
+DECODE_OPS_BASE = 12
+# The sweep of phase 5: the decode table's index bits (both byte decodes)
+# and the stream decode's subsequence length in bits.
+TABLE_BITS_SWEEP = (10, 11, 12)
+SUBSEQ_BITS_SWEEP = (1024, 2048, 4096)
 
 # SHA-256 of the containers of realtext.txt[:1 MiB] written by glz_tpu.
 PINNED = {
@@ -241,6 +256,9 @@ CASES = {f"text_r{r}_s{s}": (s, r) for r in (8, 16, 32, 64) for s in (64, 512)}
 CASES["text_r8_s8192"] = (8192, 8)  # the largest S: 2^13-step sweeps
 CASES["deep26_r16_s512"] = (512, 16)
 CASES["dense_r32_s64"] = (64, 32)
+# rows 64: steps where every lane refills need 8,192 words, more than K3's
+# refill ring holds ahead, so some are read from the payload directly
+CASES["dense_r64_s64"] = (64, 64)
 
 
 def case_data(name: str):
@@ -420,7 +438,9 @@ def check_huffword_case(name: str, dev: torch.device) -> None:
 # name -> S; byte cases of K7, pack_lj and decode_streams
 BITSTREAM_CASES = {"ragged_s4096": 4096, "s1000": 1000, "deep32_s16384": 1 << 14,
                    "one_symbol": 1 << 18, "one_code_s4096": 4096,
-                   "default_3streams": 1 << 18}
+                   "default_3streams": 1 << 18, "uniform8_s262144": 1 << 18,
+                   "two_dispatch_s131072": 1 << 17}
+UNIFORM8_STREAMS = 256  # 64 MiB of uniform bytes: 256 streams of 2^18, all codes 8 bits
 
 
 def bitstream_case_data(name: str):
@@ -435,8 +455,13 @@ def bitstream_case_data(name: str):
     elif name.startswith("one_code"):  # a one-symbol alphabet: one 1-bit code
         arr = np.full(3 * S + 5, 9, np.uint8)
         cb = build_codebook(histogram_bytes(arr), 32)
+    elif name.startswith("uniform8"):  # every byte value equally likely: 8-bit codes
+        arr = np.random.default_rng(0x0808).integers(0, 256, UNIFORM8_STREAMS * S, dtype=np.uint8)
+        cb = build_codebook(histogram_bytes(arr), 32)
+        require(cb.min_len == cb.max_len == 8, f"{name}: codes of {cb.min_len}-{cb.max_len} bits")
     else:
-        n = {"ragged_s4096": 10 * S - 777, "s1000": 50 * S + 7, "default_3streams": 3 * S - 5}
+        n = {"ragged_s4096": 10 * S - 777, "s1000": 50 * S + 7, "default_3streams": 3 * S - 5,
+             "two_dispatch_s131072": 2 * S - 777}
         arr = make_corpus(n[name], seed=S + 3)
         cb = build_codebook(histogram_bytes(arr), 32)
     sym = np.random.default_rng(S).integers(0, 256, -(-arr.size // S) * S, dtype=np.uint8)
@@ -480,16 +505,41 @@ class BitstreamInputs:
         return fn(self.words, self.starts, self.n_valid, self.S, *self.tables,
                   self.cb.min_len, self.cb.max_len)
 
+    def dispatched(self, dispatch: int):
+        """(words, starts) of the same symbols packed as the device
+        container packs dispatches of `dispatch` symbols: each dispatch on
+        its own and word-aligned, so its last stream's recorded bits carry
+        the pad."""
+        words, starts, at = [], [], 0
+        for lo in range(0, self.sym.numel(), dispatch):
+            part = BitstreamInputs(self.sym[lo : lo + dispatch].cpu().numpy(),
+                                   min(self.n_valid - lo, dispatch), self.S, self.cb,
+                                   self.sym.device)
+            words.append(part.words)
+            starts.append(part.starts + 32 * at)
+            at += part.words.numel()
+        return torch.cat(words), torch.cat(starts)
 
-def check_bitstream_case(name: str, dev: torch.device) -> None:
+
+def check_bitstream_case(name: str, dev: torch.device) -> float | None:
     """K7, pack_lj and decode_streams on the card against their plain
-    versions for one case, bit-exact, plus the decode against the input."""
+    versions for one case, bit-exact, plus the decode against the input.
+    The two-dispatch case decodes two word-aligned dispatches of one stream
+    each.  Returns the uniform 8-bit case's decode time in ms (CUDA events),
+    else None."""
     inp = BitstreamInputs(*bitstream_case_data(name), dev)
     require(max_abs_err(inp.lookup(be.lookup_lj_lens), (inp.lj, inp.lens)) == 0, f"{name}: K7")
     require(max_abs_err(inp.pack(be.pack_lj), inp.words) == 0, f"{name}: pack_lj")
+    if name.startswith("two_dispatch"):
+        inp.words, inp.starts = inp.dispatched(inp.S)
+        require(inp.starts.numel() == 2 and int(inp.starts[1]) % 32 == 0,
+                f"{name}: not two word-aligned dispatches")
     out = inp.decode(bd.decode_streams)
     require(max_abs_err(out, inp.decode(bd.decode_streams_ref)) == 0, f"{name}: decode_streams")
     require(np.array_equal(out.cpu().numpy(), inp.arr), f"{name}: round trip")
+    if name.startswith("uniform8"):
+        return cuda_ms(lambda: inp.decode(bd.decode_streams), reps=5)
+    return None
 
 
 # name -> tokens per stream; HuffWord cases of K6 (lj and length tables),
@@ -585,6 +635,28 @@ def check_huffword_bitstream_case(name: str, dev: torch.device) -> None:
     require(np.array_equal(inp.token_ids(ranks), inp.ids), f"{name}: token round trip")
 
 
+@contextlib.contextmanager
+def patched(module, **values):
+    """The module's constants set to `values` inside the block (phase 5's
+    sweeps of the decode kernels' table and subsequence sizes)."""
+    old = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def table_shares(cb, hist: np.ndarray) -> str:
+    """The share of symbols, by the histogram, whose code the decode table
+    resolves in one probe (length <= table_bits), per swept table size."""
+    n = hist.sum()
+    return ", ".join(f"{tb} bits {hist[(cb.lengths > 0) & (cb.lengths <= tb)].sum() / n:.4%}"
+                     for tb in TABLE_BITS_SWEEP)
+
+
 def clock(out: dict, key: str, fn):
     """fn() on the host clock, ending in a synchronize; its milliseconds go
     to out[key] and its result is returned."""
@@ -672,15 +744,14 @@ def kernel_name(mangled: str) -> str:
     arguments (lanes per thread, entry words, u16/u32 element types)."""
     m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_kernel|"
                   r"decode_dual_kernel|decode_kernel|lut_gather_kernel|lookup_lj_lens_kernel|"
-                  r"pack_lj_kernel|decode_streams_kernel)(I.*E)?", mangled)
+                  r"pack_lj_kernel|decode_streams_sync_kernel|decode_streams_dual_kernel)"
+                  r"(I.*E)?", mangled)
     if not m:
         return mangled
     args = m.group(2) or ""
     widths = {"t": "u16", "j": "u32"}
     parts = re.findall(r"Li(\d+)E", args)
-    flag = {"Lb1E": "dual", "Lb0E": "bytes"} if m.group(1) == "decode_streams_kernel" else \
-        {"Lb1E": "entries", "Lb0E": "bytes"}
-    parts += [v for k, v in flag.items() if k in args]
+    parts += [v for k, v in {"Lb1E": "entries", "Lb0E": "bytes"}.items() if k in args]
     if m.group(1) == "lut_gather_kernel":
         parts = [widths[c] for c in re.findall(r"[tj]", args[1:-1])]
     return m.group(1) + (f"<{','.join(parts)}>" if parts else "")
@@ -716,10 +787,6 @@ def huffword_kernel_times(text: bytes, f, vocabs, launches: dict, dev: torch.dev
     n_pad, T = inp.ids_d.numel(), inp.T
     n_groups, lanes = inp.padded.size, inp.padded.size * inp.G
     id_bytes = 2 if inp.small else 4
-    half = T // 2
-    n_first = T - half  # tokens at even positions
-    scan_ops = sum(n * (DECODE_OPS_BASE + 2 * lv)
-                   for n, lv in zip((n_first, half), inp.scan_levels))
     sites = {  # name -> (kernel, plain, bytes, ops, library call or None)
         "lut_gather/gather_entries": (
             lambda: inp.gather(lut.gather_entries), lambda: inp.gather(lut.gather_entries_ref),
@@ -737,7 +804,8 @@ def huffword_kernel_times(text: bytes, f, vocabs, launches: dict, dev: torch.dev
         "decode_dual": (
             lambda: inp.decode(kd.decode_groups_dual),
             lambda: inp.decode(kd.decode_groups_dual_ref),
-            4 * inp.n_words + 12 * n_groups + 4 * 4 * 34 + 4 * n_pad, scan_ops, None),
+            4 * inp.n_words + 12 * n_groups + 4 * 4 * 34 + 4 * n_pad, DECODE_OPS_BASE * T,
+            None),
         "lut_gather/map_ranks": (
             lambda: inp.map(lut.map_ranks), lambda: inp.map(lut.map_ranks_ref),
             4 * n_pad + id_bytes * n_pad + 4 * inp.sym_tbl.numel(),
@@ -883,8 +951,18 @@ def bitstream_kernel_times(arr: np.ndarray, blob: bytes, launches: dict,
     rows.append(measure("decode_streams", lambda: decode(bd.decode_streams),
                         lambda: decode(bd.decode_streams_ref),
                         4 * words.numel() + 8 * starts.numel() + n + 4 * (2 * 34 + 256),
-                        (DECODE_OPS_BASE + 2 * (cb.max_len - cb.min_len)) * n, launches, card,
-                        check=same_as_input))
+                        DECODE_OPS_BASE * n, launches, card, check=same_as_input))
+    want = torch.from_numpy(arr).to(dev)
+    sweep = []
+    for tb in TABLE_BITS_SWEEP:
+        for T in SUBSEQ_BITS_SWEEP:
+            with patched(bd, TABLE_BITS=tb, SUBSEQ_BITS=T):
+                require(torch.equal(decode(bd.decode_streams), want),
+                        f"main shape: decode_streams at table_bits {tb}, T {T} != input")
+                ms = cuda_ms(lambda: decode(bd.decode_streams), reps=5)
+            sweep.append(f"table_bits {tb} T {T}: {ms:.3f}")
+    print(f"sweep: decode_streams at the main shape (ms): {'; '.join(sweep)} on {card}",
+          flush=True)
     return rows
 
 
@@ -918,9 +996,6 @@ def huffword_bitstream_kernel_times(blob: bytes, vocabs, launches: dict,
     b_ms, b_by = bound(12 * n_pad + 4 * inp.n_words, OPS_PER_SYMBOL["pack_lj"] * n_pad)
     print(f"time: pack_lj/huffword {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; {T} tokens) "
           f"on {card}", flush=True)
-    half = T // 2
-    scan_ops = sum(k * (DECODE_OPS_BASE + 2 * lv)
-                   for k, lv in zip((T - half, half), inp.scan_levels))
 
     def same_as_tokens(ranks):
         require(np.array_equal(inp.token_ids(ranks), ids),
@@ -929,7 +1004,7 @@ def huffword_bitstream_kernel_times(blob: bytes, vocabs, launches: dict,
     return [measure("decode_streams_dual", lambda: inp.decode(bd.decode_streams_dual),
                     lambda: inp.decode(bd.decode_streams_dual_ref),
                     4 * inp.n_words + 8 * inp.starts.numel() + 4 * T + 4 * 4 * 34,
-                    scan_ops, launches, card, check=same_as_tokens)]
+                    DECODE_OPS_BASE * T, launches, card, check=same_as_tokens)]
 
 
 def round_trip(data, mode: int, conf: cfg.GlzConfig):
@@ -990,8 +1065,8 @@ def main() -> int:
           f"({', '.join(HUFFWORD_CASES)}); {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    for case in BITSTREAM_CASES:
-        check_bitstream_case(case, dev)
+    uniform_ms = [check_bitstream_case(case, dev) for case in BITSTREAM_CASES]
+    uniform_ms = next(ms for ms in uniform_ms if ms is not None)
     for case in HUFFWORD_BITSTREAM_CASES:
         check_huffword_bitstream_case(case, dev)
     torch.cuda.synchronize()
@@ -1002,6 +1077,8 @@ def main() -> int:
           f"{len(HUFFWORD_BITSTREAM_CASES)} cases ({', '.join(HUFFWORD_BITSTREAM_CASES)}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     card = f"{name} ({smi})"
+    print(f"time: decode_streams on uniform8_s262144 ({UNIFORM8_STREAMS} streams of 2^18 "
+          f"symbols, all codes 8 bits) {uniform_ms:.3f} ms on {card}", flush=True)
 
     # ---- 4. main path: 512 MiB under THROUGHPUT with checksum
     arr = make_corpus(MAIN_BYTES)
@@ -1095,7 +1172,7 @@ def main() -> int:
     ops = {
         "lane_totals": OPS_PER_SYMBOL["lane_totals"] * n,
         "encode_groups": OPS_PER_SYMBOL["encode_groups"] * n,
-        "decode_groups": (DECODE_OPS_BASE + 2 * (cb.max_len - cb.min_len)) * n,
+        "decode_groups": DECODE_OPS_BASE * n,
     }
     payload = {}  # the plain encode's payload feeds both decodes
     runs = {
@@ -1122,7 +1199,27 @@ def main() -> int:
                      "library_ms": None})
         print(f"time: {k} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
               f"{b_by}; {traffic[k]} B, {ops[k]} ops) on {card}", flush=True)
-    del inp, payload
+    want = inp.sym.view(-1)
+    sweep = []
+    for tb in TABLE_BITS_SWEEP:
+        with patched(kd, TABLE_BITS=tb):
+            require(torch.equal(inp.k3(kd.decode_groups, payload["ref"]), want),
+                    f"main shape: decode_groups at table_bits {tb} != input")
+            sweep.append(f"table_bits {tb}: "
+                         f"{cuda_ms(lambda: inp.k3(kd.decode_groups, payload['ref']), 5):.3f}")
+    print(f"sweep: decode_groups at the main shape (ms): {'; '.join(sweep)} on {card}",
+          flush=True)
+    lut_ms = cuda_ms(lambda: decode_table.decode_lut(*inp.tables, cb.min_len, cb.max_len,
+                                                     kd.TABLE_BITS), reps=5)
+    print(f"time: decode_lut (decode_luts' table built with tensor ops on the card, which "
+          f"the kernels build in each block instead) {lut_ms:.3f} ms on {card}", flush=True)
+    hist = histogram_bytes(arr)
+    bcb = codebook_from_lengths(container.decode_byte_codebook(bf.codebook_blob))
+    print(f"table: symbols of the main corpus resolved in one probe: lockstep codebook "
+          f"(codes {cb.min_len}-{cb.max_len} bits) {table_shares(cb, hist)}; bitstream "
+          f"codebook (codes {bcb.min_len}-{bcb.max_len} bits) {table_shares(bcb, hist)}",
+          flush=True)
+    del inp, payload, want
     rows += huffword_kernel_times(text, hf, vocabs, hlaunches, dev, card)
     rows += bitstream_kernel_times(arr, bblob, blaunches, dev, card)
     rows += huffword_bitstream_kernel_times(hbblob, vocabs, hblaunches, dev, card)

@@ -295,6 +295,44 @@ class Codebook:
             out[l] = np.uint32((int(self.start_pos[l]) - int(self.first_code[l])) & 0xFFFFFFFF)
         return out
 
+    def decode_luts(self, table_bits: int = 16):
+        """(lut, fc_lj, start_pos, symbols) for table-driven decode.
+
+        lut[idx] packs (length << 16) | symbol for codes of length <=
+        table_bits.  Entries whose true length exceeds table_bits store
+        (length_lower_bound << 16) with symbol 0xFFFF (the decoder scans
+        from table_bits + 1); slots no code covers stay 0.  The decode
+        kernels build the same table on the card (ops/decode_table.py)."""
+        size = 1 << table_bits
+        lut = np.zeros(size, dtype=np.uint32)
+        fc_lj = self.first_code_left_justified(32)
+        sp = self.start_pos
+        syms = self.symbols
+        for l in range(self.min_len, self.max_len + 1):
+            n_l = int(self.start_pos[l + 1] - self.start_pos[l]) if l + 1 < len(self.start_pos) else 0
+            if n_l == 0:
+                continue
+            first = int(self.first_code[l])
+            if l <= table_bits:
+                # each code of length l owns 2^(table_bits-l) consecutive slots
+                span = 1 << (table_bits - l)
+                for k in range(n_l):
+                    code = first + k
+                    sym = int(syms[sp[l] + k])
+                    if sym >= 0xFFFF:  # id too wide to embed -> escape path
+                        sym = 0xFFFF
+                    base = code << (table_bits - l)
+                    lut[base : base + span] = (np.uint32(l) << 16) | np.uint32(sym)
+            else:
+                # mark the slot range covered by length-l codes with the
+                # escape tag
+                lo = (first << (32 - l)) >> (32 - table_bits)
+                hi_code = first + n_l - 1
+                hi = (hi_code << (32 - l)) >> (32 - table_bits)
+                mask = lut[lo : hi + 1] == 0
+                lut[lo : hi + 1] = np.where(mask, (np.uint32(l) << 16) | np.uint32(0xFFFF), lut[lo : hi + 1])
+        return lut, fc_lj, sp.astype(np.uint32), syms.astype(np.uint32)
+
 
 def canonical_codebook(lengths: np.ndarray) -> Codebook:
     """Assign canonical codes from lengths."""

@@ -36,13 +36,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decode_table.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;        // lanes per group row
 constexpr int kThreads = 1024;     // one block per group
 constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kLenMask = 63;  // entry word = lj | len (len <= 26)
-constexpr int kCodeTable = 34;     // fc_lj / offsets entries (MAX_CODE_LEN + 2)
+constexpr int kCodeTable = glz::kCodeLevels;  // fc_lj / offsets entries
 
 // Exclusive prefix of `x` over the block's threads (thread order); writes the
 // block total to *total.  `warp_tot` is one of two shared buffers of 32 ints
@@ -288,43 +290,92 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
 // for S steps.  Lanes whose refill flag is set take the payload words at
 // start + base + (exclusive rank among refilling lanes), and base advances
 // by the step's count k.  The 32-bit window v comes from registers (a, b)
-// and the bit phase; the code length is len = min_len + sum_l [v < fc_lj[l]]
-// with the offset selected by the same scan, and
-// sym = symtab[((v >> (32-len)) + off) & 255].  Lanes past their symbol
-// count decode nothing and write 0.  Four symbols per lane are packed into
-// one u32 and stored in file order.  Loads past the payload read 0.
-// Its roofline bound is operations (the canonical scan costs a compare and a
-// select per code length level per symbol) rather than bytes; like K2 it is
-// serial in t with a block barrier per step.  The codebook tables sit in
-// shared memory, where every lane reads the same fc/offset entry
-// (broadcast), refill loads are consecutive words, and output leaves 4
-// symbols per store.
+// and the bit phase; the code's length and symbol come from the shared
+// decode table (decode_table.cuh), which equals the canonical scan
+// len = min_len + sum_l [v < fc_lj[l]], sym = symtab[((v >> (32-len)) +
+// offsets[len]) & 255].  Lanes past their symbol count decode nothing and
+// write 0.  Loads past the payload read 0.
+// Bound by bytes (the payload read once, the output written once), but
+// serial in t with a block barrier per step and one block per SM.  Timed
+// apart on an H100 (tools/k3_phases.py, PERF.md), the first port's step lost most to
+// its stores (4-byte stores at a stride of S bytes, four useful bytes per
+// 32-byte sector), then to the ~20-level canonical scan, then to refill
+// loads that waited in the step that issued them.  So:
+//   * stores: each thread stages its lanes' output in shared memory, 4
+//     bytes every 4 steps, and writes each lane's 16 bytes with one 16-byte
+//     store every 16 steps (a thread reads back only its own staging, so
+//     this needs no barrier; slots and words are rotated by thread so a
+//     warp's staging stores hit distinct banks);
+//   * the table: one shared-memory probe instead of the level scan;
+//   * refills: a group's refill words are one contiguous segment consumed
+//     in order, so a ring of kRingWords words in shared memory is filled
+//     with 16-byte cp.async copies up to kRingWords words past the step's
+//     cursor, and lanes read their word from the ring.  A copy issued at
+//     step t is waited for at the end of step t + 1 and read from step
+//     t + 2 on (the next step's barrier makes it visible to all threads);
+//     a word not yet in the ring (steps where most lanes refill) is read
+//     from the payload directly.
 // ---------------------------------------------------------------------------
+constexpr int kRingWords = 1 << 14;  // 64 KiB of refill words
+constexpr int kStageSteps = 16;      // output steps staged per lane
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copies of payload words [from, to) (multiples of 4) into their
+// ring slots, zeros past n_words; the block's threads share the chunks.
+__device__ __forceinline__ void fill_ring(uint32_t* ring, const uint32_t* __restrict__ payload,
+                                         int64_t n_words, int64_t from, int64_t to) {
+  for (int64_t c = from + 4 * static_cast<int64_t>(threadIdx.x); c < to; c += 4 * kThreads) {
+    uint32_t* dst = ring + (c & (kRingWords - 1));
+    if (c + 4 <= n_words) {
+      cp_async16(dst, payload + c);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dst[q] = c + q < n_words ? payload[c + q] : 0u;
+    }
+  }
+}
+
 template <int LPT>
 __global__ void __launch_bounds__(kThreads, 1) decode_kernel(
     const uint32_t* __restrict__ payload, int64_t n_words,
     const int64_t* __restrict__ gstart, const int32_t* __restrict__ gcount,
-    const uint32_t* __restrict__ fc_g, const uint32_t* __restrict__ off_g,
+    int table_bits, const uint32_t* __restrict__ fc_g, const uint32_t* __restrict__ off_g,
     const uint32_t* __restrict__ symtab_g, int min_len, int max_len, int S,
     uint8_t* __restrict__ out) {
-  __shared__ uint32_t fc[kCodeTable];
-  __shared__ uint32_t offs[kCodeTable];
-  __shared__ uint32_t symtab[256];
+  extern __shared__ uint4 dyn_smem[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(dyn_smem);      // kRingWords
+  uint32_t* stage = ring + kRingWords + threadIdx.x * LPT * 4;  // this thread's LPT x 16 B
+  __shared__ glz::DecodeTable tbl;
   __shared__ int warp_tot[2][kWarps];
-  if (threadIdx.x < 256) symtab[threadIdx.x] = symtab_g[threadIdx.x];
-  if (threadIdx.x < kCodeTable) {
-    fc[threadIdx.x] = fc_g[threadIdx.x];
-    offs[threadIdx.x] = off_g[threadIdx.x];
-  }
-  __syncthreads();
+  glz::build_decode_table(tbl, table_bits, fc_g, off_g, symtab_g, min_len, max_len);
 
   constexpr int G = LPT * kThreads;
   const int g = blockIdx.x;
   const int lane_in_group = threadIdx.x * LPT;
   const int rem = lane_count(gcount[g], static_cast<int64_t>(lane_in_group) * S, LPT * S);
-  const int64_t first = (static_cast<int64_t>(g) * G + lane_in_group) * S;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(out + first);
-  const int words_per_lane = S / 4;
+  uint8_t* dst = out + (static_cast<int64_t>(g) * G + lane_in_group) * S;
+  const uint32_t rot = (threadIdx.x >> 3) & 3u;  // staging word rotation
+
+  int64_t base = gstart[g];
+  int64_t issued = (base & ~static_cast<int64_t>(3)) + kRingWords;
+  fill_ring(ring, payload, n_words, issued - kRingWords, issued);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  int64_t avail = issued, pending = issued;  // words below avail are in the ring
 
   // per lane: window words a, b; packed output acc; pq = phase | qm << 8
   uint32_t a[LPT], b[LPT], acc[LPT], pq[LPT];
@@ -337,7 +388,6 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(
     pq[j] = 31u << 8;
     if (min(max(rem - j * S, 0), S) > 0) need |= 1u << j;
   }
-  int64_t base = gstart[g];
   int parity = 0;
 
   for (int t = 0; t < S; ++t) {
@@ -346,34 +396,35 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(
     const int pre = block_exclusive_scan(__popc(need), warp_tot[parity], &total);
     parity ^= 1;
     int64_t idx = base + pre;
+    const int64_t target = (base & ~static_cast<int64_t>(3)) + kRingWords;
     base += total;
+    if (target > issued) {
+      fill_ring(ring, payload, n_words, issued, target);
+      issued = target;
+    }
+    cp_async_commit();
     uint32_t next_need = 0u;
 #pragma unroll
     for (int j = 0; j < LPT; ++j) {
       const uint32_t phase = pq[j] & 31u;
       const uint32_t qm = pq[j] >> 8;
       if (need & (1u << j)) {
-        const uint32_t w = idx < n_words ? payload[idx] : 0u;
+        const uint32_t w = idx < avail ? ring[idx & (kRingWords - 1)]
+                                       : (idx < n_words ? payload[idx] : 0u);
         ++idx;
         if (phase == 0u) a[j] = w; else b[j] = w;
       }
-      // ---- 32-bit window, left-justified
+      // ---- 32-bit window, left-justified; one table probe
       const uint32_t v = phase ? ((a[j] << phase) | (b[j] >> (32u - phase))) : a[j];
-      // ---- canonical length scan + fused offset select
-      uint32_t ln = static_cast<uint32_t>(min_len);
-      uint32_t off = offs[min_len];
-      for (int l = min_len; l < max_len; ++l) {
-        const bool c = v < fc[l];
-        ln += c ? 1u : 0u;
-        off = c ? offs[l + 1] : off;
+      uint32_t s;
+      uint32_t ln = glz::decode_one(tbl, v, &s);
+      if (t >= min(max(rem - j * S, 0), S)) {  // inactive lane
+        ln = 0u;
+        s = 0u;
       }
-      const bool active = t < min(max(rem - j * S, 0), S);
-      if (!active) ln = 0u;
-      const uint32_t gi = ((v >> ((32u - ln) & 31u)) + off) & 255u;
-      const uint32_t s = active ? symtab[gi] : 0u;
       acc[j] |= s << (8 * (t & 3));
       if ((t & 3) == 3) {
-        dst[j * words_per_lane + (t >> 2)] = acc[j];
+        stage[((j + threadIdx.x) & (LPT - 1)) * 4 + ((((t >> 2) & 3) + rot) & 3u)] = acc[j];
         acc[j] = 0u;
       }
       // ---- advance
@@ -382,18 +433,37 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(
       pq[j] = ((phase + ln) & 31u) | (((qm + ln) & 31u) << 8);
     }
     need = next_need;
+    if ((t & (kStageSteps - 1)) == kStageSteps - 1) {
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        const uint4 w = reinterpret_cast<const uint4*>(stage)[(j + threadIdx.x) & (LPT - 1)];
+        const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t at = (q + rot) & 3u;
+          o[q] = at == 0u ? ws[0] : at == 1u ? ws[1] : at == 2u ? ws[2] : ws[3];
+        }
+        *reinterpret_cast<uint4*>(dst + j * S + t - (kStageSteps - 1)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    cp_async_wait<1>();
+    avail = pending;
+    pending = issued;
   }
 }
 
 // ---------------------------------------------------------------------------
-// K5: the HuffWord lockstep decode.  K3 with two canonical codebooks that
+// K5: the HuffWord lockstep decode.  The first port's form of K3 (the canonical scan,
+// loads and stores in the step) with two canonical codebooks that
 // alternate by step parity: S is even and lane starts are multiples of S,
 // so step parity is token parity, and step t scans codebook t & 1 (set 0 is
 // the even tokens' dictionary).  The output is the token's canonical rank
 // (v >> (32-len)) + off, unmasked, one u32 per token in file order; K6 maps
 // ranks to token ids.  Inactive tokens write rank 0.  A codebook of an
 // empty dictionary has min_len = max_len = 0 and is only ever scanned by
-// inactive tokens.  Like K3 it is operation-bound (the canonical scan) and
+// inactive tokens.  It is operation-bound (the canonical scan) and
 // serial in t with a block barrier per step; both codebooks sit in shared
 // memory, where every lane reads the same entry (broadcast).
 // ---------------------------------------------------------------------------
@@ -577,21 +647,30 @@ int glz_encode_entries(const void* ent, const void* ctot, const void* gw,
                        cursor_end, stream, true);
 }
 
-int glz_decode_groups(const void* payload, long long n_words,
-                      const void* gstart, const void* gcount, const void* fc,
-                      const void* offsets, const void* symtab, int min_len,
-                      int max_len, int n_groups, int S, int rows, void* out,
-                      void* stream) {
-  if (n_groups <= 0 || S % 4 != 0 || min_len < 0 || max_len >= kCodeTable - 1 || min_len > max_len)
+// fc, offsets: u32[34]; symtab: u32[256]; table_bits in [1, 12]; payload
+// 16-byte aligned; S a multiple of 16.
+int glz_decode_groups(const void* payload, long long n_words, const void* gstart,
+                      const void* gcount, int table_bits, const void* fc, const void* offsets,
+                      const void* symtab, int min_len, int max_len, int n_groups, int S,
+                      int rows, void* out, void* stream) {
+  if (n_groups <= 0 || S % kStageSteps != 0 || min_len < 1 || max_len >= kCodeTable - 1 ||
+      min_len > max_len || table_bits < 1 || table_bits > glz::kMaxTableBits ||
+      reinterpret_cast<uintptr_t>(payload) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GLZ_DECODE(LPT)                                                        \
-  decode_kernel<LPT><<<n_groups, kThreads, 0, st>>>(                          \
-      static_cast<const uint32_t*>(payload), n_words,                          \
-      static_cast<const int64_t*>(gstart), static_cast<const int32_t*>(gcount), \
-      static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets), \
-      static_cast<const uint32_t*>(symtab), min_len, max_len, S,               \
-      static_cast<uint8_t*>(out))
+  const size_t smem = sizeof(uint32_t) * (kRingWords + static_cast<size_t>(rows) * kLanes * 4);
+#define GLZ_DECODE(LPT)                                                                  \
+  {                                                                                      \
+    const cudaError_t e = cudaFuncSetAttribute(                                          \
+        decode_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)); \
+    if (e != cudaSuccess) return static_cast<int>(e);                                    \
+    decode_kernel<LPT><<<n_groups, kThreads, smem, st>>>(                                \
+        static_cast<const uint32_t*>(payload), n_words, static_cast<const int64_t*>(gstart), \
+        static_cast<const int32_t*>(gcount), table_bits,                                 \
+        static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets),        \
+        static_cast<const uint32_t*>(symtab), min_len, max_len, S,                       \
+        static_cast<uint8_t*>(out));                                                     \
+  }
   switch (rows) {
     case 8: GLZ_DECODE(1); break;
     case 16: GLZ_DECODE(2); break;

@@ -1,10 +1,11 @@
 """Build, bind and count the hand-written Hopper kernels (csrc/lockstep.cu,
-csrc/bitstream.cu).
+csrc/bitstream.cu, and the header they share, csrc/decode_table.cuh).
 
 The CUDA sources are compiled with nvcc for sm_90a, one nvcc per source, all
 started together, and linked into one shared library with a plain C
 interface, on first use, into `build/` at the repository root (named by the
-sources' hash, so an edited source is rebuilt), and loaded with ctypes.
+hash of every file under csrc/, so an edited source or header is rebuilt),
+and loaded with ctypes.
 Each C entry launches on the current PyTorch stream and returns
 cudaGetLastError(); a non-zero code raises here.
 
@@ -25,8 +26,8 @@ import threading
 
 import torch
 
-SOURCES = [pathlib.Path(__file__).resolve().parents[1] / "csrc" / name
-           for name in ("lockstep.cu", "bitstream.cu")]
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = [CSRC / name for name in ("lockstep.cu", "bitstream.cu")]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -48,14 +49,13 @@ _SIGNATURES = {
     "glz_lane_totals_entries": [_P, _I, _I, _I, _P, _P, _P],
     "glz_encode_groups": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "glz_encode_entries": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "glz_decode_groups": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P, _P],
+    "glz_decode_groups": [_P, _LL, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "glz_decode_dual": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P],
     "glz_lut_gather": [_P, _I, _LL, _P, _LL, _LL, _LL, _LL, _LL, _P, _I, _P],
     "glz_lookup_lj_lens": [_P, _LL, _LL, _P, _P, _P, _P, _P],
     "glz_pack_lj": [_P, _P, _LL, _P, _LL, _P],
-    "glz_decode_streams": [_P, _LL, _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _P, _P],
+    "glz_decode_streams": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "glz_decode_streams_dual": [_P, _LL, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _P,
                                 _P],
 }
@@ -77,7 +77,8 @@ def build() -> pathlib.Path:
     path.  The compilers' -Xptxas -v reports (registers, spills per kernel)
     are kept in build_log()."""
     global _BUILD_LOG
-    tag = hashlib.sha256(b"".join(src.read_bytes() for src in SOURCES)
+    tag = hashlib.sha256(b"".join(f.name.encode() + f.read_bytes()
+                                  for f in sorted(CSRC.iterdir()) if f.is_file())
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"libglz_kernels_{tag}.so"
     log = lib.with_suffix(".ptxas.txt")

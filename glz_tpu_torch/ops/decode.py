@@ -1,5 +1,6 @@
-"""Bitstream (layout-0) decode: one thread per stream, one codebook (byte
-mode) or two alternating by token parity (HuffWord).
+"""Bitstream (layout-0) decode: several self-synchronising decoders per
+stream with one codebook (byte mode), one thread per stream with two
+codebooks alternating by token parity (HuffWord).
 
 Counterpart of glz_tpu/ops/decode.py:decode_block and assemble, and of the
 host HuffWord decoders (glz_tpu/models/huffword.py:_decode_tokens_host, the
@@ -14,9 +15,12 @@ the stream's bit cursor (0 past the payload's end) by the canonical scan
 
 and the cursor advances by len.  Byte mode emits symtab[rank & 255]; the
 dual form emits the rank and scans codebook (k*S + j) & 1 for token j of
-stream k.  The 2^16-entry LUT of decode_block is a speed device of the TPU
-path and has no counterpart.  The output is in file order, so assemble's
-transpose has none either.
+stream k.  The byte kernel takes each code from a decode table of the
+window's first TABLE_BITS bits (ops/decode_table.py; decode_block's has 16)
+and cuts each stream into subsequences of SUBSEQ_BITS bits that it decodes
+in parallel and synchronises (subsequence_table_ref is the plain version of
+those steps).
+The output is in file order, so assemble's transpose has no counterpart.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from glz_tpu_torch.ops import _kernels
+from glz_tpu_torch.ops.decode_table import canonical_scan, decode_one_ref, table_ref
 from glz_tpu_torch.ops.lockstep_decode import CODE_TABLE
 from glz_tpu_torch.ops.lockstep_encode import U32, as_u32, to_i32
 
@@ -31,34 +36,37 @@ from glz_tpu_torch.ops.lockstep_encode import U32, as_u32, to_i32
 # Bit positions a plain decode holds tables for at once (several int64
 # arrays of this length are live).
 _CHUNK_POSITIONS = 1 << 26
+# The byte kernel's decode table indexes the window's first TABLE_BITS bits,
+# and its decoders each start on a subsequence of SUBSEQ_BITS bits (a
+# multiple of 32); both chosen by chip_smoke.py's sweep (PERF.md).
+TABLE_BITS = 11
+SUBSEQ_BITS = 1024
+
+
+def _window(P: torch.Tensor, B: int, p: torch.Tensor) -> torch.Tensor:
+    """The 32-bit windows (u32 values in int64) at bit positions p of the
+    zero-extended payload P of B bits; positions at or past B read 0."""
+    p = p.clamp(max=B)
+    phase = p & 31
+    hi = P[p >> 5]
+    lo_w = P[(p >> 5) + 1]
+    return torch.where(phase > 0, ((hi << phase) & U32) | (lo_w >> ((32 - phase) & 31)), hi)
 
 
 def _position_tables(P: torch.Tensor, lo: int, n_pos: int, fc: torch.Tensor,
                      offs: torch.Tensor, min_len: int, max_len: int):
     """(length, rank) int64 [n_pos] of a code starting at each bit position
     lo + i of the zero-extended payload P (u32 values in int64)."""
-    p = torch.arange(lo, lo + n_pos, device=P.device)
-    phase = p & 31
-    hi = P[p >> 5]
-    lo_w = P[(p >> 5) + 1]
-    v = torch.where(phase > 0, ((hi << phase) & U32) | (lo_w >> ((32 - phase) & 31)), hi)
-    del hi, lo_w, phase, p
-    fc_l, off_l = as_u32(fc).tolist(), as_u32(offs).tolist()
-    ln = torch.full_like(v, min_len)
-    off = torch.full_like(v, off_l[min_len])
-    for l in range(min_len, max_len):
-        c = v < fc_l[l]
-        ln += c
-        off = torch.where(c, off_l[l + 1], off)
-    rank = ((v >> ((32 - ln) & 31)) + off) & U32
-    return ln, rank
+    v = _window(P, 32 * (P.numel() - 2), torch.arange(lo, lo + n_pos, device=P.device))
+    return canonical_scan(v, fc, offs, min_len, max_len)
 
 
 def _chains(P: torch.Tensor, B: int, starts: torch.Tensor, first: torch.Tensor,
-            M: int, codebooks) -> torch.Tensor:
+            M: int, codebooks, positions: bool = False):
     """Ranks int64 [len(starts), M]: M steps of each stream's walk from bit
     starts[i] (in [0, B]), its first token of parity class first[i] %
-    len(codebooks).
+    len(codebooks); with positions, also each step's bit position (the
+    walk's code boundaries; positions past B read as B).
 
     The code length and rank are tabled for every bit position a walk can
     reach (M steps of at most 32 bits from a start; positions at or past the
@@ -88,6 +96,8 @@ def _chains(P: torch.Tensor, B: int, starts: torch.Tensor, first: torch.Tensor,
         width += take
         if width < M:
             jump = jump[jump]
+    if positions:
+        return rank_at[pos], pos % n_pos + lo
     return rank_at[pos]
 
 
@@ -154,6 +164,73 @@ def decode_streams_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int
     return as_u32(symtab)[rank & 255].to(torch.uint8)
 
 
+def subsequence_table_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
+                          S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
+                          symtab: torch.Tensor, min_len: int, max_len: int, T: int,
+                          table_bits: int = TABLE_BITS, rounds: int | None = None):
+    """Plain version of the byte kernel's subsequence steps (csrc/bitstream.cu:
+    decode_streams_sync_kernel, steps 1 and 2).
+
+    Stream k (with count = min(S, n_symbols - k*S) > 0) spans
+    clamp(starts[k+1] - starts[k], 0, 32*count) bits (the last stream's run
+    to the payload's end), cut into n = max(ceil(span / T), 1) subsequences
+    from starts[k]; subsequence i < n-1 decodes the codes that start in
+    [starts[k] + iT, starts[k] + (i+1)T), and the last one runs until the
+    stream has its count, so it has no exit.  Step 1 starts subsequence 0 at
+    starts[k] and every other at its first bit; each synchronisation round
+    restarts every subsequence whose start differs from its predecessor's
+    exit, from that exit, until none does (or after `rounds` rounds; 0 gives
+    step 1's table).  Any T >= 32 is accepted here (the kernel takes
+    multiples of 32).
+
+    Returns (stream, start, exit, count, rounds): int64 tensors over the
+    subsequences in stream order (exit and count -1 for each stream's last
+    subsequence) and the number of rounds that changed a start."""
+    dev = words.device
+    B = 32 * words.numel()
+    P = torch.cat([as_u32(words), words.new_zeros(2, dtype=torch.int64)])
+    table = table_ref(fc_lj, offsets, symtab, min_len, max_len, table_bits)
+    L = starts.numel()
+    k = torch.arange(L, device=dev)
+    count = (n_symbols - k * S).clamp(0, S)
+    stop = torch.cat([starts[1:], torch.tensor([B], device=dev)])
+    span = torch.minimum(stop - starts, 32 * count).clamp(min=0)
+    n_sub = torch.where(count > 0, ((span + T - 1) // T).clamp(min=1), 0)
+    stream = torch.repeat_interleave(k, n_sub)
+    sub = torch.arange(stream.numel(), device=dev) - (torch.cumsum(n_sub, 0) - n_sub)[stream]
+    nominal = starts[stream] + sub * T
+    end = nominal + T
+    bounded = sub < n_sub[stream] - 1
+    start = nominal.clone()
+    exit_ = torch.full_like(start, -1)
+    cnt = torch.full_like(start, -1)
+
+    def run(sel: torch.Tensor) -> None:
+        """Decode the selected subsequences from their starts to their ends."""
+        pos, end_s = start[sel], end[sel]
+        n = torch.zeros_like(pos)
+        live = pos < end_s
+        while bool(live.any()):
+            ln, _ = decode_one_ref(_window(P, B, pos[live]), table, fc_lj, offsets, symtab,
+                                   max_len, table_bits)
+            pos[live] += ln
+            n[live] += 1
+            live = pos < end_s
+        exit_[sel], cnt[sel] = pos, n
+
+    run(bounded)
+    n_rounds = 0
+    while rounds is None or n_rounds < rounds:
+        want = torch.where(sub > 0, torch.roll(exit_, 1), start)
+        changed = want != start
+        if not bool(changed.any()):
+            break
+        start = torch.where(changed, want, start)
+        run(changed & bounded)
+        n_rounds += 1
+    return stream, start, exit_, cnt, n_rounds
+
+
 def decode_streams(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: int,
                    fc_lj: torch.Tensor, offsets: torch.Tensor, symtab: torch.Tensor,
                    min_len: int, max_len: int) -> torch.Tensor:
@@ -176,8 +253,9 @@ def decode_streams(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S:
     if n_symbols:
         _kernels.launch("glz_decode_streams", "decode_streams", _kernels.ptr(words),
                         words.numel(), _kernels.ptr(starts), starts.numel(), n_symbols, S,
-                        _kernels.ptr(fc_lj), _kernels.ptr(offsets), _kernels.ptr(symtab),
-                        min_len, max_len, _kernels.ptr(out))
+                        TABLE_BITS, _kernels.ptr(fc_lj),
+                        _kernels.ptr(offsets), _kernels.ptr(symtab), min_len, max_len,
+                        SUBSEQ_BITS, _kernels.ptr(out))
     return out
 
 

@@ -17,6 +17,9 @@ from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops.lockstep_encode import U32, as_u32, lane_counts, to_i32
 
 CODE_TABLE = 34  # fc_lj / offsets entries (MAX_CODE_LEN + 2)
+# K3's decode table indexes the window's first TABLE_BITS bits (chosen among
+# 10, 11 and 12 by chip_smoke.py's sweep, PERF.md)
+TABLE_BITS = 11
 
 
 def _decode_ref(payload: torch.Tensor, group_starts: torch.Tensor,
@@ -138,11 +141,13 @@ def decode_groups(payload: torch.Tensor, group_starts: torch.Tensor,
                                  offsets, symtab, S, min_len, max_len, rows)
     G = rows * LANES
     out = torch.empty(n_groups * G * S, dtype=torch.uint8, device=dev)
+    if payload.data_ptr() % 16:  # the kernel copies 16-byte pieces
+        payload = payload.clone()
     _kernels.launch("glz_decode_groups", "decode_groups", _kernels.ptr(payload),
                     payload.numel(), _kernels.ptr(group_starts),
-                    _kernels.ptr(group_counts), _kernels.ptr(fc_lj),
-                    _kernels.ptr(offsets), _kernels.ptr(symtab), min_len,
-                    max_len, n_groups, S, rows, _kernels.ptr(out))
+                    _kernels.ptr(group_counts), TABLE_BITS, _kernels.ptr(fc_lj),
+                    _kernels.ptr(offsets), _kernels.ptr(symtab),
+                    min_len, max_len, n_groups, S, rows, _kernels.ptr(out))
     return out
 
 

@@ -6,7 +6,10 @@ its Pallas lut256, in interpret mode inside encode.lookup_lj_lens and
 encode_block_fast; the XLA pack_lj, encode_block and decode_block; the
 host HuffWord decode _decode_tokens_host) and through the port's plain
 PyTorch versions, which are what the port's wrappers run for CPU tensors.
-All data are integers, so every comparison is exact (tolerance 0).
+All data are integers, so every comparison is exact (tolerance 0).  The
+byte stream kernel's own steps have plain versions too: its decode table
+and probe are held against the plain decode's canonical scan, and its
+subsequence table against the serial walk's code boundaries.
 
 Cases: a text codebook (max_len <= 26, where the TPU path fuses its two
 lookups), a codebook with codes of 27-32 bits, a ragged n_valid with
@@ -30,10 +33,12 @@ from glz_tpu.ops import decode as tpu_decode
 from glz_tpu.ops import encode as tpu_encode
 
 import chip_smoke
+from test_torch_host import TABLE_CODEBOOKS, table_codebook_lengths
 from glz_tpu_torch.core.codebook import build_codebook, codebook_from_lengths, histogram_bytes
 from glz_tpu_torch.models import huffword as port_hw
 from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables
 from glz_tpu_torch.ops import decode as bd
+from glz_tpu_torch.ops import decode_table as dt
 from glz_tpu_torch.ops import encode as be
 from glz_tpu_torch.utils import tokenizer as tok
 
@@ -255,3 +260,137 @@ def test_decode_dual_matches_host(realtext, name, stream_tokens):
                                       stream_tokens, dicts if word_first else dicts[::-1])
     assert np.array_equal(got, want)
     assert np.array_equal(got, ids)
+
+
+# ---- the decode table and the subsequence table (the byte kernel's steps) --
+
+@pytest.mark.parametrize("table_bits", [8, 10, 11, 12])
+@pytest.mark.parametrize("name", TABLE_CODEBOOKS)
+def test_table_probe_matches_scan(name, table_bits):
+    """The kernels' table (table_ref) and probe (decode_one_ref, escapes by
+    the scan from the entry's level) against the plain decode's canonical
+    scan on every table_bits-bit window: each slot's smallest, largest and
+    a random window.  For a complete code the table is decode_luts'
+    compacted."""
+    cb = codebook_from_lengths(table_codebook_lengths(name))
+    fc, offs, symtab = decode_tables(cb, CPU)
+    table = dt.table_ref(fc, offs, symtab, cb.min_len, cb.max_len, table_bits)
+    if name != "one_code":
+        lut = dt.decode_lut(fc, offs, symtab, cb.min_len, cb.max_len, table_bits)
+        assert torch.equal(table, dt.compact_lut(lut, table_bits, cb.min_len))
+    shift = 32 - table_bits
+    slot = torch.arange(1 << table_bits) << shift
+    rnd = torch.from_numpy(np.random.default_rng(table_bits).integers(0, 1 << shift, slot.numel()))
+    v = torch.cat([slot, slot | ((1 << shift) - 1), slot | rnd])
+    ln, sym = dt.decode_one_ref(v, table, fc, offs, symtab, cb.max_len, table_bits)
+    # the plain decode's scan, on a payload whose word i is window i
+    want_ln, want_rank = bd._position_tables(torch.cat([v, v.new_zeros(2)]), 0, 32 * v.numel(),
+                                             fc, offs, cb.min_len, cb.max_len)
+    assert torch.equal(ln, want_ln[::32])
+    assert torch.equal(sym, (symtab.long() & 0xFFFFFFFF)[want_rank[::32] & 255])
+    escapes = int((table < 256).sum())
+    assert escapes == 0 if cb.max_len <= table_bits else escapes > 0
+
+
+def _container(arr: np.ndarray, S: int, cb, dispatch: int | None = None):
+    """(words int32, starts int64) of the port's device container of arr:
+    one pack, or dispatches of `dispatch` symbols each word-aligned (the
+    last stream's recorded bits carry the pad)."""
+    words, sbits = [], []
+    for lo in range(0, arr.size, dispatch or arr.size):
+        chunk = arr[lo : lo + (dispatch or arr.size)]
+        sym = np.zeros(-(-chunk.size // S) * S, np.uint8)
+        sym[: chunk.size] = chunk
+        w, total, sb = be.encode_block_fast(torch.from_numpy(sym), chunk.size, *tables(cb), S)
+        sb = sb.numpy()
+        sb[-1] += 32 * w.numel() - total
+        words.append(w)
+        sbits.append(sb)
+    sbits = np.concatenate(sbits)
+    return torch.cat(words), torch.from_numpy(np.cumsum(sbits) - sbits)
+
+
+def _check_subsequences(words, starts, n: int, S: int, cb, T: int, rounds=None) -> int:
+    """subsequence_table_ref against the serial walk's code boundaries
+    (_chains): each synchronised start is the walk's first boundary at or
+    past the subsequence's first bit; each exit the first at or past its
+    end, and each count the walk's codes between.  With rounds = 0 (step
+    1's table) only subsequences whose guess is a boundary are held.
+    Returns the rounds taken."""
+    tbl = decode_tables(cb, CPU)
+    stream, start, exit_, cnt, n_rounds = bd.subsequence_table_ref(
+        words, starts, n, S, *tbl, cb.min_len, cb.max_len, T, rounds=rounds)
+    B = 32 * words.numel()
+    P = torch.cat([u32_t(words), words.new_zeros(2, dtype=torch.int64)])
+    L = starts.numel()
+    _, walk = bd._chains(P, B, starts.clamp(0, B), torch.arange(L) * S, S + T,
+                         [(tbl[0], tbl[1], cb.min_len, cb.max_len)], positions=True)
+    per = torch.bincount(stream, minlength=L)
+    sub = torch.arange(stream.numel()) - (torch.cumsum(per, 0) - per)[stream]
+    nominal = starts[stream] + sub * T
+    b = walk[stream]
+    j0 = torch.searchsorted(b, nominal[:, None])[:, 0].clamp(max=b.shape[1] - 1)
+    # (each stream's last subsequence has no end: its j1 is not held)
+    j1 = torch.searchsorted(b, (nominal + T)[:, None])[:, 0].clamp(max=b.shape[1] - 1)
+    at_j0 = b.gather(1, j0[:, None])[:, 0]
+    bounded = cnt >= 0
+    synced = start == at_j0
+    if rounds is None:
+        assert bool(synced.all())
+    held = bounded & synced
+    assert bool(held.any())
+    assert torch.equal(exit_[held], b.gather(1, j1[:, None])[:, 0][held])
+    assert torch.equal(cnt[held], (j1 - j0)[held])
+    assert bool((per[: -(-n // S)] >= 1).all())
+    return n_rounds
+
+
+def u32_t(t: torch.Tensor) -> torch.Tensor:
+    return t.long() & 0xFFFFFFFF
+
+
+def test_subsequences_uniform8_never_synchronise():
+    """Uniform 8-bit codes: with T = 1001 bits (odd) no guess after a
+    stream's first lands on a byte boundary, so each round synchronises one
+    more subsequence (8 per stream: 7 rounds); the kernel's T, a multiple
+    of 32 from each stream's start, synchronises them at once."""
+    arr = np.random.default_rng(8).integers(0, 256, 5000, dtype=np.uint8)
+    cb = build_codebook(np.ones(256, np.int64), 32)
+    words, starts = _container(arr, 1000, cb)
+    assert _check_subsequences(words, starts, arr.size, 1000, cb, 1001) == 7
+    assert _check_subsequences(words, starts, arr.size, 1000, cb, bd.SUBSEQ_BITS) == 0
+
+
+@pytest.mark.parametrize("T", [96, 100, bd.SUBSEQ_BITS])
+def test_subsequences_s1000(realtext, T):
+    """S = 1000 (not a power of two) on the text codebook, at the kernel's
+    T and at short subsequences; step 1's table (rounds = 0) holds wherever
+    a guess is a code boundary."""
+    arr, n_valid, cb = byte_case("text", realtext)
+    arr = arr[:40_000]
+    words, starts = _container(arr, 1000, cb)
+    assert _check_subsequences(words, starts, arr.size, 1000, cb, T) >= 1
+    _check_subsequences(words, starts, arr.size, 1000, cb, T, rounds=0)
+
+
+def test_subsequences_two_dispatches(realtext):
+    """Two word-aligned dispatches: the first dispatch's last stream spans
+    its pad, which its last subsequence decodes past."""
+    arr, n_valid, cb = byte_case("text", realtext)
+    arr, S = arr[: 2 * 4096 - 777], 4096
+    words, starts = _container(arr, S, cb, dispatch=S)
+    assert starts.numel() == 2 and int(starts[1]) % 32 == 0
+    _check_subsequences(words, starts, arr.size, S, cb, 128)
+    _check_subsequences(words, starts, arr.size, S, cb, bd.SUBSEQ_BITS)
+
+
+def test_subsequences_host_encoder(realtext):
+    """A container of the JAX package's host encoder (byte-aligned,
+    ones-padded payload), with codes of 27-32 bits (escapes)."""
+    arr, n_valid, cb = byte_case("deep32", realtext)
+    arr, S = arr[:30_000], 4096
+    words, total_bits, sbits = tpu_encode_streams(arr, tpu_canonical(cb.lengths), S)
+    words = tpu_bitio.bytes_to_words(tpu_bitio.words_to_bytes(words, total_bits))
+    sbits = sbits.astype(np.int64)
+    starts = torch.from_numpy(np.cumsum(sbits) - sbits)
+    _check_subsequences(_i32_tensor(words, CPU), starts, arr.size, S, cb, 256)

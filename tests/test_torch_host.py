@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from glz_tpu import config as tpu_cfg
 from glz_tpu.core import api as tpu_api
@@ -18,6 +19,8 @@ from glz_tpu_torch.core import api as port_api
 from glz_tpu_torch.core import bitio as port_bitio
 from glz_tpu_torch.core import codebook as port_codebook
 from glz_tpu_torch.core import container as port_container
+from glz_tpu_torch.models.canonical_byte import decode_tables
+from glz_tpu_torch.ops import decode_table
 
 
 @pytest.mark.parametrize("limit", [None, 26, 12])
@@ -109,3 +112,44 @@ def test_plan_streams_matches_reference(n, preset):
         tpu_conf = dataclasses.replace(getattr(tpu_cfg, preset), **kw)
         assert port_api._plan_streams(n, port_conf) == tpu_api._plan_streams(n, tpu_conf)
     assert port_api._plan_streams(512 << 20, cfg.RATIO) == 2_796_203
+
+
+def table_codebook_lengths(name: str) -> np.ndarray:
+    """Code lengths of the decode-table cases: the benchmark corpus's (the
+    AND of three uniform bytes), depth-26 and depth-32 limited codebooks of
+    a geometric law, a one-code codebook (one symbol: an incomplete code)
+    and uniform 8-bit codes."""
+    if name == "corpus":
+        rng = np.random.default_rng(0xE58)
+        arr = rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+        arr &= rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+        arr &= rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+        return port_codebook.code_lengths(port_codebook.histogram_bytes(arr), 32)
+    if name.startswith("deep"):
+        freqs = np.left_shift(1, np.maximum(40 - np.arange(256), 0)).astype(np.int64)
+        return port_codebook.code_lengths(freqs, int(name[4:]))
+    if name == "one_code":
+        return port_codebook.code_lengths(np.eye(256, dtype=np.int64)[9], 32)
+    return np.full(256, 8, np.int32)
+
+
+TABLE_CODEBOOKS = ["corpus", "deep26", "deep32", "one_code", "uniform8"]
+
+
+@pytest.mark.parametrize("table_bits", [8, 10, 11, 12, 16])
+@pytest.mark.parametrize("name", TABLE_CODEBOOKS)
+def test_decode_luts_match_reference(name, table_bits):
+    """Codebook.decode_luts (the table-driven decode's tables) equals
+    glz_tpu's, and decode_lut builds the same table from the tensors the
+    decode wrappers take (fc_lj, offsets, symtab, min_len, max_len)."""
+    lengths = table_codebook_lengths(name)
+    want = tpu_codebook.canonical_codebook(lengths).decode_luts(table_bits)
+    cb = port_codebook.codebook_from_lengths(lengths)
+    got = cb.decode_luts(table_bits)
+    assert {"deep26": 26, "deep32": 32, "one_code": 1, "uniform8": 8}.get(name, cb.max_len) \
+        == cb.max_len
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    lut = decode_table.decode_lut(*decode_tables(cb, torch.device("cpu")), cb.min_len,
+                                  cb.max_len, table_bits)
+    assert np.array_equal(lut.numpy().view(np.uint32), want[0])
