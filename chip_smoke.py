@@ -31,7 +31,9 @@ non-zero before the last):
      each), and K6 on the lj and length tables, pack_lj
      and decode_streams_dual on HuffWord cases (S 16384, odd S, nonword-
      first text, one token (an empty dictionary), a >64K-word vocabulary,
-     codes of 27-32 bits); each case also round-trips;
+     codes of 27-32 bits, 256 equiprobable 8-bit words with 1-3-bit
+     separators (its decode time and rounds are printed)); each case also
+     round-trips;
   4. byte main path: compress + decompress of a 512 MiB corpus under
      THROUGHPUT with checksum, launch counts read just after;
   4b. HuffWord main path: compress + decompress of 100 MiB of English-like
@@ -44,9 +46,10 @@ non-zero before the last):
      (streams of 16,384 tokens), launch counts read just after;
   5. kernel times at each main path's shapes (CUDA events), each kernel
      held against its plain version on the same inputs (the stream decodes
-     also against the input); the byte decodes again at each swept decode
-     table size (and subsequence length), each against the input, and the
-     share of the main corpus's symbols the table resolves in one probe;
+     also against the input); the decodes again at each swept decode
+     table size (and the stream decodes' subsequence length), each against
+     the input or the plain version, and the share of the main corpora's
+     symbols (tokens) the tables resolve in one probe;
   6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
      under eight configurations must have the SHA-256 that the JAX
      reference writes (pinned by tests/test_torch_canonical_byte.py,
@@ -108,6 +111,10 @@ DECODE_OPS_BASE = 12
 # and the stream decode's subsequence length in bits.
 TABLE_BITS_SWEEP = (10, 11, 12)
 SUBSEQ_BITS_SWEEP = (1024, 2048, 4096)
+# The dual stream decode's sweep: its word table's bits and its subsequence
+# length in bits.
+DUAL_TABLE_BITS_SWEEP = (11, 12, 13, 14)
+DUAL_SUBSEQ_BITS_SWEEP = (256, 384, 512, 768)
 
 # SHA-256 of the containers of realtext.txt[:1 MiB] written by glz_tpu.
 PINNED = {
@@ -546,15 +553,29 @@ def check_bitstream_case(name: str, dev: torch.device) -> float | None:
 # pack_lj and decode_streams_dual
 HUFFWORD_BITSTREAM_CASES = {"hw_s16384": 1 << 14, "hw_odd_s1001": 1001,
                             "hw_nonword_s777": 777, "hw_one_token": 1 << 14,
-                            "hw_bigvocab_s4097": 4097, "hw_deep32_s999": 999}
+                            "hw_bigvocab_s4097": 4097, "hw_deep32_s999": 999,
+                            "hw_uniform8_s16384": 1 << 14}
+UNIFORM8_WORD_STREAMS = 64  # 2^20 tokens: 256 equiprobable words (8-bit codes), 1-3-bit separators
 
 
 def huffword_bitstream_case(name: str):
     """(class-local token ids, word_first, [word, nonword] codebooks,
     n_word, n_nonword, S) of a HuffWord bitstream kernel case.  The deep32
     case draws tokens from made-up dictionaries whose word codes reach 32
-    bits (no text has such a vocabulary at a test's size)."""
+    bits (no text has such a vocabulary at a test's size); the uniform8
+    case from 256 equiprobable words and four separators of 1-3 bits, so
+    the stream decode's guesses meet the true chain late."""
     S = HUFFWORD_BITSTREAM_CASES[name]
+    if "uniform8" in name:  # every word code 8 bits, separators of 1-3 bits
+        rng = np.random.default_rng(0x0808)
+        cb_w = build_codebook(np.ones(256, np.int64), 32)
+        cb_n = build_codebook(np.array([4, 2, 1, 1]), 32)
+        require(cb_w.min_len == cb_w.max_len == 8 and (cb_n.min_len, cb_n.max_len) == (1, 3),
+                f"{name}: codes of {cb_w.min_len}-{cb_w.max_len} and {cb_n.min_len}-"
+                f"{cb_n.max_len} bits")
+        ids = rng.integers(0, 256, UNIFORM8_WORD_STREAMS * S)
+        ids[1::2] = rng.choice(4, ids[1::2].size, p=[0.5, 0.25, 0.125, 0.125])
+        return ids, True, [cb_w, cb_n], 256, 4, S
     if "deep32" in name:
         rng = np.random.default_rng(0xD32)
         cb_w = build_codebook(np.left_shift(1, np.maximum(40 - np.arange(200), 0)), 32)
@@ -620,10 +641,12 @@ class HuffwordBitstreamInputs:
                                       ranks.device)
 
 
-def check_huffword_bitstream_case(name: str, dev: torch.device) -> None:
+def check_huffword_bitstream_case(name: str, dev: torch.device) -> str | None:
     """K6 with the lj and the length tables, pack_lj and decode_streams_dual
     on the card against their plain versions for one case, bit-exact, plus
-    the token round trip."""
+    the token round trip.  Returns the uniform8 case's decode time (CUDA
+    events) and its synchronisation rounds (the plain subsequence table's:
+    the kernel runs the same rounds), else None."""
     inp = HuffwordBitstreamInputs(*huffword_bitstream_case(name), dev)
     for tbl, want, what in ((inp.lj_tbl, inp.lj, "lj"), (inp.len_tbl, inp.lens, "lengths")):
         require(max_abs_err(inp.gather(lut.gather_entries, tbl), want) == 0,
@@ -633,6 +656,16 @@ def check_huffword_bitstream_case(name: str, dev: torch.device) -> None:
     require(max_abs_err(ranks, inp.decode(bd.decode_streams_dual_ref)) == 0,
             f"{name}: decode_streams_dual")
     require(np.array_equal(inp.token_ids(ranks), inp.ids), f"{name}: token round trip")
+    if "uniform8" not in name:
+        return None
+    ms = cuda_ms(lambda: inp.decode(bd.decode_streams_dual), reps=5)
+    tables = [bd.subsequence_table_dual_ref(inp.words, inp.starts, inp.T, inp.S, inp.fc,
+                                            inp.off, *inp.len_range, bd.DUAL_SUBSEQ_BITS,
+                                            rounds=rounds) for rounds in (None, 0)]
+    (_, start, par, _, _, _, rounds), (_, guess, guess_par, *_) = tables
+    restarted = int(((start != guess) | (par != guess_par)).sum())
+    return (f"{ms:.3f} ms, {rounds} rounds, {restarted} of {start.numel()} subsequences "
+            f"restarted (plain subsequence table, T {bd.DUAL_SUBSEQ_BITS})")
 
 
 @contextlib.contextmanager
@@ -744,14 +777,16 @@ def kernel_name(mangled: str) -> str:
     arguments (lanes per thread, entry words, u16/u32 element types)."""
     m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_kernel|"
                   r"decode_dual_kernel|decode_kernel|lut_gather_kernel|lookup_lj_lens_kernel|"
-                  r"pack_lj_kernel|decode_streams_sync_kernel|decode_streams_dual_kernel)"
+                  r"pack_lj_kernel|decode_streams_sync_kernel)"
                   r"(I.*E)?", mangled)
     if not m:
         return mangled
     args = m.group(2) or ""
     widths = {"t": "u16", "j": "u32"}
     parts = re.findall(r"Li(\d+)E", args)
-    parts += [v for k, v in {"Lb1E": "entries", "Lb0E": "bytes"}.items() if k in args]
+    flags = {"Lb1E": "dual" if m.group(1) == "decode_streams_sync_kernel" else "entries",
+             "Lb0E": "bytes"}
+    parts += [v for k, v in flags.items() if k in args]
     if m.group(1) == "lut_gather_kernel":
         parts = [widths[c] for c in re.findall(r"[tj]", args[1:-1])]
     return m.group(1) + (f"<{','.join(parts)}>" if parts else "")
@@ -1001,10 +1036,27 @@ def huffword_bitstream_kernel_times(blob: bytes, vocabs, launches: dict,
         require(np.array_equal(inp.token_ids(ranks), ids),
                 "huffword bitstream main shape: decode_streams_dual != tokens")
 
-    return [measure("decode_streams_dual", lambda: inp.decode(bd.decode_streams_dual),
+    rows = [measure("decode_streams_dual", lambda: inp.decode(bd.decode_streams_dual),
                     lambda: inp.decode(bd.decode_streams_dual_ref),
                     4 * inp.n_words + 8 * inp.starts.numel() + 4 * T + 4 * 4 * 34,
                     DECODE_OPS_BASE * T, launches, card, check=same_as_tokens)]
+    want = inp.decode(bd.decode_streams_dual_ref)
+    sweep = []
+    for tb in DUAL_TABLE_BITS_SWEEP:
+        for sub in DUAL_SUBSEQ_BITS_SWEEP:
+            with patched(bd, DUAL_TABLE_BITS=tb, DUAL_SUBSEQ_BITS=sub):
+                require(torch.equal(inp.decode(bd.decode_streams_dual), want),
+                        f"main shape: decode_streams_dual at table_bits {tb}, T {sub} differs")
+                ms = cuda_ms(lambda: inp.decode(bd.decode_streams_dual), reps=5)
+            sweep.append(f"table_bits {tb} T {sub}: {ms:.3f}")
+    print(f"sweep: decode_streams_dual at the main shape (ms): {'; '.join(sweep)} on {card}",
+          flush=True)
+    shares = [", ".join(f"{tb} bits {v.counts[cb.lengths <= tb].sum() / v.counts.sum():.4%}"
+                        for tb in DUAL_TABLE_BITS_SWEEP) for v, cb in zip((wv, nv), cbs)]
+    print(f"table: tokens the dual tables resolve in one probe: words (codes {cbs[0].min_len}-"
+          f"{cbs[0].max_len} bits) {shares[0]}; separators (codes {cbs[1].min_len}-"
+          f"{cbs[1].max_len} bits) {shares[1]}", flush=True)
+    return rows
 
 
 def round_trip(data, mode: int, conf: cfg.GlzConfig):
@@ -1067,8 +1119,8 @@ def main() -> int:
     t0 = time.perf_counter()
     uniform_ms = [check_bitstream_case(case, dev) for case in BITSTREAM_CASES]
     uniform_ms = next(ms for ms in uniform_ms if ms is not None)
-    for case in HUFFWORD_BITSTREAM_CASES:
-        check_huffword_bitstream_case(case, dev)
+    hw_uniform = [check_huffword_bitstream_case(case, dev) for case in HUFFWORD_BITSTREAM_CASES]
+    hw_uniform = next(line for line in hw_uniform if line is not None)
     torch.cuda.synchronize()
     print(f"kernels: lookup_lj_lens, pack_lj, decode_streams bit-exact vs plain, round trip, "
           f"on {len(BITSTREAM_CASES)}/{len(BITSTREAM_CASES)} cases "
@@ -1079,6 +1131,9 @@ def main() -> int:
     card = f"{name} ({smi})"
     print(f"time: decode_streams on uniform8_s262144 ({UNIFORM8_STREAMS} streams of 2^18 "
           f"symbols, all codes 8 bits) {uniform_ms:.3f} ms on {card}", flush=True)
+    print(f"time: decode_streams_dual on hw_uniform8_s16384 ({UNIFORM8_WORD_STREAMS} streams "
+          f"of 16,384 tokens, word codes 8 bits, separators 1-3) {hw_uniform} on {card}",
+          flush=True)
 
     # ---- 4. main path: 512 MiB under THROUGHPUT with checksum
     arr = make_corpus(MAIN_BYTES)

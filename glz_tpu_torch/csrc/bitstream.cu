@@ -3,9 +3,11 @@
 //   K7 lookup_lj_lens_kernel     <- glz_tpu/ops/pallas_lut.py:_lut256_kernel, as
 //                                   glz_tpu/ops/encode.py:lookup_lj_lens calls it
 //      pack_lj_kernel            <- the XLA scatter of glz_tpu/ops/encode.py:pack_lj
-//      decode_streams_sync_kernel <- the XLA loop of glz_tpu/ops/decode.py:decode_block
+//      decode_streams_sync_kernel<false, ...>
+//                                <- the XLA loop of glz_tpu/ops/decode.py:decode_block
 //                                   (byte mode)
-//      decode_streams_dual_kernel <- the host dual-dictionary decode of
+//      decode_streams_sync_kernel<true, ...>
+//                                <- the host dual-dictionary decode of
 //                                   glz_tpu/models/huffword.py (HuffWord)
 //
 // A layout-0 payload is one MSB-first bit stream in u32 words (word w holds
@@ -15,6 +17,7 @@
 // reach 32 is selected around or done in 64 bits.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "decode_table.cuh"
@@ -142,30 +145,39 @@ struct BitReader {
 };
 
 // ---------------------------------------------------------------------------
-// The byte stream decode: several self-synchronising decoders per stream
+// The stream decodes: several self-synchronising decoders per stream
 // (Weissenberger and Schmidt, "Massively Parallel Huffman Decoding on GPUs",
-// ICPP 2018).  One block per stream k, whose bits are [starts[k],
-// starts[k+1]) (the last stream's run to the payload's end; a span is
-// clamped to [0, 32 * count] bits).  The span is cut into subsequences of T
-// bits (T a multiple of 32) measured from starts[k], and subsequence i
-// decodes the codes that start in [starts[k] + iT, starts[k] + (i+1)T):
-//   1. guess: subsequence 0 starts at starts[k], every other at its first
-//      bit; each records its exit (the first code boundary at or past its
-//      end), its code count and its meeting point (below) in shared
-//      memory;
-//   2. synchronise: while some subsequence i's start differs from
-//      subsequence i-1's exit, each such i decodes again from that exit.
-//      A start that equals a true code boundary stays one, so this ends
-//      within as many rounds as there are subsequences, exactly; on varied
-//      code lengths decoders meet the true boundaries within a few codes
-//      and it takes one round (measured: 1.00 a stream at the main shape).
-//      The guess records its first boundary kMeetBits into the
-//      subsequence (its meeting point) and its codes from there on, so a
-//      round decodes only up to the meeting point: if the new chain lands
-//      on it, the guess's exit and count from there on stand; if not (the
-//      chains have not met), it decodes the rest.  Cutting at multiples of
-//      32 bits from the stream's start also synchronises uniform 8-bit
-//      codes (all 256 byte values equally likely) at once;
+// ICPP 2018), one kernel template for both modes:
+//   kDual = false  byte mode, one codebook, symtab[rank & 255] as u8
+//   kDual = true   HuffWord, two codebooks alternating by token parity:
+//                  token j of stream k scans codebook (k*S + j) & 1 (set 0
+//                  is the even tokens'), and the output is the u32 rank
+// A decoder's state is its bit position and, in the dual form, its next
+// token's parity (state = window-relative position << 1 | parity; the byte
+// form's parity is always 0).  Stream k's bits are [starts[k], starts[k+1])
+// (the last stream's run to the payload's end; a span is clamped to [0, 32
+// * count] bits).  The span is cut into subsequences of T bits (T a
+// multiple of 32) measured from starts[k], and subsequence i decodes the
+// codes that start in [starts[k] + iT, starts[k] + (i+1)T):
+//   1. guess: subsequence 0 starts at (starts[k], (k*S) & 1), every other at
+//      its first bit with the stream's first parity (a guess of one parity
+//      only: a chain of the wrong parity is a chain from a wrong position,
+//      and meets the true one as any other does); each records its exit
+//      state (at the first code boundary at or past its end), its code
+//      count and its meeting point (below) in shared memory;
+//   2. synchronise: while some subsequence i's start state differs from
+//      subsequence i-1's exit state, each such i decodes again from that
+//      exit.  A start that equals a true code boundary (and parity) stays
+//      one, so this ends within as many rounds as there are subsequences,
+//      exactly; on varied code lengths decoders meet the true chain within
+//      a few codes and it takes one round (PERF.md).  The guess records its
+//      first boundary kMeetBits into the subsequence (its meeting point)
+//      and its codes from there on, so a round decodes only up to the
+//      meeting point: if the new chain lands on it with the same parity,
+//      the guess's exit and count from there on stand; if not (the chains
+//      have not met), it decodes the rest.  Cutting at multiples of 32
+//      bits from the stream's start also synchronises uniform 8-bit byte
+//      codes at once;
 //   3. write: an exclusive block scan of the counts gives each
 //      subsequence's first symbol index, and each decodes once more from
 //      its synchronised start, writing the symbols whose index is below the
@@ -173,23 +185,31 @@ struct BitReader {
 // The stream's last subsequence has no end: it decodes until the stream
 // has its count, past the recorded end if need be, as the serial walk does
 // (so a dispatch's word-alignment pad and any other span give the plain
-// version's output).  A stream longer than kWindowSubs subsequences is done
-// in windows of kWindowSubs, each starting at the previous one's exact exit.
-// Codes come from the shared decode table (decode_table.cuh).  The write
-// knows each subsequence's count and gathers its symbols into 16-byte
-// stores (write_run): each thread writes its own run of ~T/4.4 bytes, far
-// from its warp's other threads, where 4-byte stores would cost a 32-byte
-// sector transaction for every four bytes.  Bound by bytes (the payload
-// read once, the output written once); the subsequences spread each
-// stream's serial chain over a block and the streams over all SMs.
+// version's output).  A stream longer than kThreads * kSubs subsequences is
+// done in windows of that many, each starting at the previous one's exact
+// exit state.  Codes come from the shared decode tables (decode_table.cuh).
+// The write knows each subsequence's count and gathers its outputs into
+// 16-byte stores (write_run, write_ranks): each thread writes its own run,
+// far from its warp's other threads, where 4-byte stores would cost a
+// 32-byte sector transaction for every few bytes.  Bound by bytes (the
+// payload read once, the output written once); the subsequences spread
+// each stream's serial chain over a block and the streams over all SMs.
+//
+// Geometry.  Byte mode: one block of 256 threads x 8 subsequences per
+// stream (2^18-symbol streams are ~2,300 subsequences of 1,024 bits).  The
+// dual form's streams are short (16,384 tokens, ~87,000 bits on the
+// HuffWord benchmark: ~230 subsequences of 384 bits), so its blocks are 128
+// threads x 2 subsequences, as many as fit on the card (8 an SM), each
+// building its two tables once and walking the streams with a stride.  An
+// empty dictionary's codebook is (0, 0) and decodes a length of 0: no
+// valid token uses it, but a guess of the wrong parity can, so the guess
+// and the rounds advance by at least one bit and never stand still.
 // ---------------------------------------------------------------------------
-constexpr int kSyncThreads = 256;
-constexpr int kSubsPerThread = 8;
-constexpr int kWindowSubs = kSyncThreads * kSubsPerThread;
 constexpr int kMeetBits = 128;  // a guess's meeting point: its first boundary this far in
 
 // Exclusive prefix of x over the block (thread order); the block total in
 // *total.  The caller synchronises before warp_tot is used again.
+template <int kThreads>
 __device__ __forceinline__ int block_exclusive_scan(int x, int* warp_tot, int* total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -201,7 +221,7 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int* warp_tot, int* t
   }
   if (lane == 31) warp_tot[warp] = inc;
   __syncthreads();
-  int wt = lane < kSyncThreads / 32 ? warp_tot[lane] : 0;
+  int wt = lane < kThreads / 32 ? warp_tot[lane] : 0;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int y = __shfl_up_sync(0xffffffffu, wt, o);
@@ -212,21 +232,44 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int* warp_tot, int* t
   return (warp ? before : 0) + inc - x;
 }
 
+// One code of either form at the window v, in parity par: its length, and
+// its output (symbol or rank) in *out; the advance a guess or a round takes
+// for it (at least one bit in the dual form).
+__device__ __forceinline__ uint32_t decode_code(const glz::DecodeTable& t, const uint8_t*,
+                                                uint32_t v, int, uint32_t* out) {
+  return glz::decode_one(t, v, out);
+}
+
+__device__ __forceinline__ uint32_t decode_code(const glz::DualTable& t, const uint8_t* lut,
+                                                uint32_t v, int par, uint32_t* out) {
+  return glz::decode_dual(t, lut, v, par, out);
+}
+
+__device__ __forceinline__ uint32_t advance(const glz::DecodeTable&, uint32_t ln) { return ln; }
+__device__ __forceinline__ uint32_t advance(const glz::DualTable&, uint32_t ln) {
+  return ln ? ln : 1u;
+}
+
 // Decodes the codes from bit *pos while *pos < end; returns their count
-// and leaves *pos at the next code boundary.
-__device__ __forceinline__ int64_t decode_span(const glz::DecodeTable& t,
+// and leaves *pos at the next code boundary and *par at its parity.
+template <class Table>
+__device__ __forceinline__ int64_t decode_span(const Table& t, const uint8_t* lut,
                                                const uint32_t* __restrict__ words,
-                                               int64_t n_words, int64_t* pos, int64_t end) {
+                                               int64_t n_words, int64_t* pos, int* par,
+                                               int64_t end) {
   BitReader r(words, n_words, *pos);
   int64_t p = *pos, n = 0;
+  int q = *par;
   while (p < end) {
-    uint32_t sym;
-    const uint32_t ln = glz::decode_one(t, r.window(), &sym);
+    uint32_t out;
+    const uint32_t ln = advance(t, decode_code(t, lut, r.window(), q, &out));
     r.skip(ln);
     p += ln;
+    if constexpr (std::is_same_v<Table, glz::DualTable>) q ^= 1;
     ++n;
   }
   *pos = p;
+  *par = q & 1;
   return n;
 }
 
@@ -254,10 +297,11 @@ __device__ __forceinline__ void store_piece_part(uint8_t* __restrict__ out, int6
 // 16-byte boundary at or below g0 and decodes from g0 on, so every thread
 // of a warp is at the same place in its piece on every step: the word and
 // piece boundaries fall on the same steps for all of them.
-__device__ __forceinline__ void write_run(const glz::DecodeTable& t,
+__device__ __forceinline__ void write_run(const glz::DecodeTable& t, const uint8_t*,
                                           const uint32_t* __restrict__ words, int64_t n_words,
-                                          int64_t pos, int64_t c, uint8_t* __restrict__ out,
+                                          int64_t pos, int, int64_t c, void* out_v,
                                           int64_t g0) {
+  uint8_t* __restrict__ out = static_cast<uint8_t*>(out_v);
   BitReader r(words, n_words, pos);
   const int64_t g_end = g0 + c;
   uint32_t acc = 0u, q0 = 0u, q1 = 0u, q2 = 0u;  // the word being filled; the piece's words
@@ -290,19 +334,75 @@ __device__ __forceinline__ void write_run(const glz::DecodeTable& t,
   }
 }
 
-__global__ void __launch_bounds__(kSyncThreads, 4) decode_streams_sync_kernel(
+// The dual form of write_run: the c ranks from bit pos (parity par) into
+// out[g0, g0 + c), four ranks to a 16-byte store on 16-byte boundaries
+// (the pieces at the run's ends go out in u32 stores).  The loop starts at
+// the piece boundary at or below g0, as write_run's does.
+__device__ __forceinline__ void write_run(const glz::DualTable& t, const uint8_t* lut,
+                                          const uint32_t* __restrict__ words, int64_t n_words,
+                                          int64_t pos, int par, int64_t c, void* out_v,
+                                          int64_t g0) {
+  uint32_t* __restrict__ out = static_cast<uint32_t*>(out_v);
+  BitReader r(words, n_words, pos);
+  const int64_t g_end = g0 + c;
+  uint32_t q0 = 0u, q1 = 0u, q2 = 0u;  // the piece's ranks so far
+  int64_t g = g0 & ~int64_t{3};
+  for (; g < g_end; ++g) {
+    uint32_t rank = 0u;
+    if (g >= g0) {
+      r.skip(glz::decode_dual(t, lut, r.window(), par, &rank));
+      par ^= 1;
+    }
+    if ((g & 3) == 3) {
+      if (g - 3 >= g0) {
+        *reinterpret_cast<uint4*>(out + g - 3) = make_uint4(q0, q1, q2, rank);
+      } else {
+        if (g - 2 >= g0) out[g - 2] = q1;
+        if (g - 1 >= g0) out[g - 1] = q2;
+        out[g] = rank;
+      }
+    } else {
+      q0 = q1;
+      q1 = q2;
+      q2 = rank;
+    }
+  }
+  const int w = static_cast<int>(g & 3);  // the last piece's ranks: the queue's last w
+  if (w >= 3 && g - 3 >= g0) out[g - 3] = q0;
+  if (w >= 2 && g - 2 >= g0) out[g - 2] = q1;
+  if (w >= 1 && g - 1 >= g0) out[g - 1] = q2;
+}
+
+// The decode's codebooks: fc_lj / offsets ([2][34] u32 in the dual form,
+// set 0 for even tokens), the byte form's symtab, each set's length range.
+struct Codebooks {
+  const uint32_t* fc;
+  const uint32_t* offs;
+  const uint32_t* symtab;
+  int min_len[2], max_len[2];
+  int table_bits;
+};
+
+template <bool kDual, int kThreads, int kSubs, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) decode_streams_sync_kernel(
     const uint32_t* __restrict__ words, int64_t n_words,
     const int64_t* __restrict__ starts, int64_t n_streams, int64_t n_symbols, int64_t S,
-    int table_bits, const uint32_t* __restrict__ fc_g, const uint32_t* __restrict__ off_g,
-    const uint32_t* __restrict__ symtab_g, int min_len, int max_len, int T,
-    uint8_t* __restrict__ out) {
-  __shared__ glz::DecodeTable tbl;
-  __shared__ uint32_t exit_s[kWindowSubs];  // window-relative exit; then first index
-  __shared__ uint32_t meet_s[kWindowSubs];  // the guess's meeting point, window-relative
+    const Codebooks cbs, int T, void* __restrict__ out) {
+  constexpr int kWindowSubs = kThreads * kSubs;
+  using Table = std::conditional_t<kDual, glz::DualTable, glz::DecodeTable>;
+  __shared__ Table tbl;
+  extern __shared__ uint8_t dual_lut[];     // the dual tables' entries
+  __shared__ uint32_t exit_s[kWindowSubs];  // window-relative exit state; then first index
+  __shared__ uint32_t meet_s[kWindowSubs];  // the guess's meeting point, window-relative state
   __shared__ uint16_t cnt_s[kWindowSubs];
   __shared__ uint16_t tail_s[kWindowSubs];  // the guess's codes from its meeting point on
-  __shared__ int warp_tot[kSyncThreads / 32];
-  glz::build_decode_table(tbl, table_bits, fc_g, off_g, symtab_g, min_len, max_len);
+  __shared__ int warp_tot[kThreads / 32];
+  if constexpr (kDual)
+    glz::build_dual_table(tbl, dual_lut, cbs.table_bits, cbs.fc, cbs.offs, cbs.min_len[0],
+                          cbs.max_len[0], cbs.min_len[1], cbs.max_len[1]);
+  else
+    glz::build_decode_table(tbl, cbs.table_bits, cbs.fc, cbs.offs, cbs.symtab, cbs.min_len[0],
+                            cbs.max_len[0]);
   constexpr int64_t kNoEnd = INT64_MAX;
 
   for (int64_t k = blockIdx.x; k < n_streams; k += gridDim.x) {
@@ -315,8 +415,10 @@ __global__ void __launch_bounds__(kSyncThreads, 4) decode_streams_sync_kernel(
     const int64_t cap = stop - start < 32 * count ? stop - start : 32 * count;
     const int64_t span = cap > 0 ? cap : 0;
     const int64_t n_sub = span > T ? (span + T - 1) / T : 1;
-    int64_t done = 0;   // symbols of the stream before this window
-    int64_t p0 = start; // the window's first code boundary
+    const uint32_t guess_par = kDual ? static_cast<uint32_t>(first_sym & 1) : 0u;
+    int64_t done = 0;                   // symbols of the stream before this window
+    int64_t p0 = start;                 // the window's first code boundary
+    uint32_t par0 = guess_par;          // and its parity
 
     for (int64_t w0 = 0; w0 < n_sub; w0 += kWindowSubs) {
       const int nw = static_cast<int>(n_sub - w0 < kWindowSubs ? n_sub - w0 : kWindowSubs);
@@ -326,52 +428,58 @@ __global__ void __launch_bounds__(kSyncThreads, 4) decode_streams_sync_kernel(
       auto end_of = [&](int i) {
         return i < bounded ? base + static_cast<int64_t>(i + 1) * T : kNoEnd;
       };
+      auto state = [&](int64_t pos, int par) {
+        return static_cast<uint32_t>(pos - base) << 1 | static_cast<uint32_t>(par);
+      };
       // ---- 1. guess, in two runs split at the meeting point
-      uint32_t st[kSubsPerThread];
+      uint32_t st[kSubs];
 #pragma unroll
-      for (int j = 0; j < kSubsPerThread; ++j) {
-        const int i = threadIdx.x + j * kSyncThreads;
-        st[j] = i == 0 ? static_cast<uint32_t>(p0 - base) : static_cast<uint32_t>(i) * T;
+      for (int j = 0; j < kSubs; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        st[j] = i == 0 ? state(p0, par0) : state(base + static_cast<int64_t>(i) * T, guess_par);
         if (i < bounded) {
-          int64_t pos = base + st[j];
+          int64_t pos = base + (st[j] >> 1);
+          int par = st[j] & 1;
           const int64_t reach = base + static_cast<int64_t>(i) * T + kMeetBits;
           const int64_t meet = reach < end_of(i) ? reach : end_of(i);
-          const int64_t head = decode_span(tbl, words, n_words, &pos, meet);
-          meet_s[i] = static_cast<uint32_t>(pos - base);
-          const int64_t tail = decode_span(tbl, words, n_words, &pos, end_of(i));
+          const int64_t head = decode_span(tbl, dual_lut, words, n_words, &pos, &par, meet);
+          meet_s[i] = state(pos, par);
+          const int64_t tail = decode_span(tbl, dual_lut, words, n_words, &pos, &par, end_of(i));
           tail_s[i] = static_cast<uint16_t>(tail);
           cnt_s[i] = static_cast<uint16_t>(head + tail);
-          exit_s[i] = static_cast<uint32_t>(pos - base);
+          exit_s[i] = state(pos, par);
         }
       }
       __syncthreads();
       // ---- 2. synchronise
       for (;;) {
-        uint32_t want[kSubsPerThread];
+        uint32_t want[kSubs];
 #pragma unroll
-        for (int j = 0; j < kSubsPerThread; ++j) {
-          const int i = threadIdx.x + j * kSyncThreads;
+        for (int j = 0; j < kSubs; ++j) {
+          const int i = threadIdx.x + j * kThreads;
           want[j] = (i > 0 && i < nw) ? exit_s[i - 1] : st[j];
         }
         __syncthreads();
         int changed = 0;
 #pragma unroll
-        for (int j = 0; j < kSubsPerThread; ++j) {
-          const int i = threadIdx.x + j * kSyncThreads;
+        for (int j = 0; j < kSubs; ++j) {
+          const int i = threadIdx.x + j * kThreads;
           if (i < nw && want[j] != st[j]) {
             st[j] = want[j];
             changed = 1;
             if (i < bounded) {
               // decode up to the guess's meeting point: where the chains
               // meet, the guess's exit and its codes from there on stand
-              int64_t pos = base + st[j];
-              const int64_t meet = base + meet_s[i];
-              int64_t n = decode_span(tbl, words, n_words, &pos, meet);
-              if (pos == meet) {
+              int64_t pos = base + (st[j] >> 1);
+              int par = st[j] & 1;
+              const uint32_t meet = meet_s[i];
+              int64_t n = decode_span(tbl, dual_lut, words, n_words, &pos, &par,
+                                      base + (meet >> 1));
+              if (state(pos, par) == meet) {
                 n += tail_s[i];
               } else {
-                n += decode_span(tbl, words, n_words, &pos, end_of(i));
-                exit_s[i] = static_cast<uint32_t>(pos - base);
+                n += decode_span(tbl, dual_lut, words, n_words, &pos, &par, end_of(i));
+                exit_s[i] = state(pos, par);
                 meet_s[i] = 0u;  // never met: later rounds decode the whole subsequence
               }
               cnt_s[i] = static_cast<uint16_t>(n);
@@ -381,19 +489,19 @@ __global__ void __launch_bounds__(kSyncThreads, 4) decode_streams_sync_kernel(
         if (!__syncthreads_or(changed)) break;
       }
       // ---- 3. first index of each subsequence: exclusive scan of the counts
-      // (thread t sums subsequences [t*kSubsPerThread, (t+1)*kSubsPerThread))
-      const int64_t next_p0 = final_window ? 0 : base + exit_s[nw - 1];
+      // (thread t sums subsequences [t*kSubs, (t+1)*kSubs))
+      const uint32_t next = final_window ? 0u : exit_s[nw - 1];
       int sum = 0;
 #pragma unroll
-      for (int j = 0; j < kSubsPerThread; ++j) {
-        const int i = threadIdx.x * kSubsPerThread + j;
+      for (int j = 0; j < kSubs; ++j) {
+        const int i = threadIdx.x * kSubs + j;
         sum += i < bounded ? cnt_s[i] : 0;
       }
       int total;
-      int pre = block_exclusive_scan(sum, warp_tot, &total);
+      int pre = block_exclusive_scan<kThreads>(sum, warp_tot, &total);
 #pragma unroll
-      for (int j = 0; j < kSubsPerThread; ++j) {
-        const int i = threadIdx.x * kSubsPerThread + j;
+      for (int j = 0; j < kSubs; ++j) {
+        const int i = threadIdx.x * kSubs + j;
         if (i < bounded) {
           exit_s[i] = static_cast<uint32_t>(pre);
           pre += cnt_s[i];
@@ -402,101 +510,30 @@ __global__ void __launch_bounds__(kSyncThreads, 4) decode_streams_sync_kernel(
       __syncthreads();
       // ---- write
 #pragma unroll
-      for (int j = 0; j < kSubsPerThread; ++j) {
-        const int i = threadIdx.x + j * kSyncThreads;
+      for (int j = 0; j < kSubs; ++j) {
+        const int i = threadIdx.x + j * kThreads;
         if (i < nw) {
           const int64_t f = done + (i < bounded ? exit_s[i] : total);
           const int64_t c = i < bounded && cnt_s[i] < count - f ? cnt_s[i] : count - f;
-          if (c > 0) write_run(tbl, words, n_words, base + st[j], c, out, first_sym + f);
+          if (c > 0)
+            write_run(tbl, dual_lut, words, n_words, base + (st[j] >> 1),
+                      static_cast<int>(st[j] & 1), c, out, first_sym + f);
         }
       }
       done += total;
-      p0 = next_p0;
+      p0 = base + (next >> 1);
+      par0 = next & 1;
       __syncthreads();
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// The HuffWord stream decode: one thread per stream, its tokens in order
-// (the first port's decode_streams_kernel<true>, unchanged).  A 64-bit bit buffer
-// holds the next 32..64 stream bits left-justified; the 32-bit window v is
-// its top half.  After a code of len bits the buffer shifts by len (<= 32,
-// a 64-bit shift) and, below 32 bits, takes the next word, which was loaded
-// one refill ahead.  Words past the payload read 0.  The code length and rank come
-// from the canonical scan over fc_lj / offsets in shared memory (every
-// thread of a warp reads the same entry: broadcast):
-//   len = min_len + sum_{l in [min_len, max_len)} [v < fc_lj[l]], off by the
-//   same scan, rank = (v >> (32 - len)) + off (no shift when len = 32).
-// It writes the u32 rank and scans codebook (k*S + j) & 1 for token j of
-// stream k; set 0 is the even tokens' codebook, and an empty dictionary's
-// (0, 0) codebook is scanned by no valid token.  The format gives one
-// serial chain per stream (2,991 chains of 16,384 steps on the HuffWord
-// main path), so the kernel is latency-bound: each step waits on the
-// previous step's length.  Blocks are one warp, to spread the chains over
-// all SMs.
-// ---------------------------------------------------------------------------
-constexpr int kStreamThreads = 32;
-
-__global__ void __launch_bounds__(kStreamThreads) decode_streams_dual_kernel(
-    const uint32_t* __restrict__ words, int64_t n_words,
-    const int64_t* __restrict__ starts, int64_t n_streams, int64_t n_symbols, int64_t S,
-    const uint32_t* __restrict__ fc_g, const uint32_t* __restrict__ off_g,
-    int min0, int max0, int min1, int max1, uint32_t* __restrict__ out32) {
-  __shared__ uint32_t fc[2][kCodeTable];
-  __shared__ uint32_t offs[2][kCodeTable];
-  for (int i = threadIdx.x; i < 2 * kCodeTable; i += blockDim.x) {
-    fc[i / kCodeTable][i % kCodeTable] = fc_g[i];
-    offs[i / kCodeTable][i % kCodeTable] = off_g[i];
-  }
-  __syncthreads();
-
-  const int64_t k = global_thread();
-  if (k >= n_streams) return;
-  const int64_t first = k * S;
-  const int64_t left = n_symbols - first;
-  const int64_t count = left <= 0 ? 0 : (left < S ? left : S);
-  if (count == 0) return;
-
-  auto load = [&](int64_t i) -> uint32_t {
-    return (i >= 0 && i < n_words) ? words[i] : 0u;
-  };
-  const int64_t start = starts[k];
-  int64_t wpos = start >> 5;
-  const uint32_t phase = static_cast<uint32_t>(start) & 31u;
-  uint64_t buf = (static_cast<uint64_t>(load(wpos)) << 32) | load(wpos + 1);
-  buf <<= phase;
-  int nbits = 64 - static_cast<int>(phase);
-  wpos += 2;
-  uint32_t next = load(wpos);
-
-  int p = static_cast<int>(first & 1);
-  for (int64_t j = 0; j < count; ++j) {
-    if (nbits < 32) {
-      buf |= static_cast<uint64_t>(next) << (32 - nbits);
-      nbits += 32;
-      next = load(++wpos);
-    }
-    const uint32_t v = static_cast<uint32_t>(buf >> 32);
-    const int set = p;
-    const int lo = set ? min1 : min0;
-    const int hi = set ? max1 : max0;
-    const uint32_t* fcs = fc[set];
-    const uint32_t* ofs = offs[set];
-    uint32_t ln = static_cast<uint32_t>(lo);
-    uint32_t off = ofs[lo];
-    for (int l = lo; l < hi; ++l) {
-      const bool c = v < fcs[l];
-      ln += c ? 1u : 0u;
-      off = c ? ofs[l + 1] : off;
-    }
-    const uint32_t rank = (v >> ((32u - ln) & 31u)) + off;
-    buf <<= ln;
-    nbits -= static_cast<int>(ln);
-    out32[first + j] = rank;
-    p ^= 1;
-  }
-}
+// The byte form: 2,048-subsequence windows, 4 blocks an SM.
+constexpr int kSyncThreads = 256;
+constexpr int kSyncSubs = 8;
+// The dual form: 256-subsequence windows, 8 blocks an SM.
+constexpr int kDualThreads = 128;
+constexpr int kDualSubs = 2;
 
 int blocks_for(int64_t items, int threads) {
   const int64_t want = (items + threads - 1) / threads;
@@ -506,6 +543,9 @@ int blocks_for(int64_t items, int threads) {
 bool bad_geometry(long long n_streams, long long S, long long n_symbols) {
   return n_streams <= 0 || S <= 0 || n_symbols <= 0 || n_streams * S < n_symbols;
 }
+
+// A subsequence's bits: a multiple of 32 whose count of codes fits a u16.
+bool bad_subsequence(int T) { return T < 32 || T % 32 != 0 || T > 65504; }
 
 }  // namespace
 
@@ -545,37 +585,51 @@ int glz_decode_streams(const void* words, long long n_words, const void* starts,
                        int max_len, int T, void* out, void* stream) {
   if (bad_geometry(n_streams, S, n_symbols) ||
       !(1 <= min_len && min_len <= max_len && max_len <= kCodeTable - 2) ||
-      !(1 <= table_bits && table_bits <= glz::kMaxTableBits) ||
-      T < 32 || T % 32 != 0 || T > 65504)
+      !(1 <= table_bits && table_bits <= glz::kMaxTableBits) || bad_subsequence(T))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Codebooks cbs{static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets),
+                      static_cast<const uint32_t*>(symtab), {min_len, 0}, {max_len, 0},
+                      table_bits};
   const unsigned grid = static_cast<unsigned>(n_streams < (1 << 20) ? n_streams : (1 << 20));
-  decode_streams_sync_kernel<<<grid, kSyncThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words, static_cast<const int64_t*>(starts),
-      n_streams, n_symbols, S, table_bits, static_cast<const uint32_t*>(fc),
-      static_cast<const uint32_t*>(offsets),
-      static_cast<const uint32_t*>(symtab), min_len, max_len, T, static_cast<uint8_t*>(out));
+  decode_streams_sync_kernel<false, kSyncThreads, kSyncSubs, 4>
+      <<<grid, kSyncThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(words), n_words, static_cast<const int64_t*>(starts),
+          n_streams, n_symbols, S, cbs, T, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // fc, offsets: [2][34] u32, set 0 for even tokens.  A codebook's length range
-// is [0, 0] (an empty dictionary) or within [1, 32].
+// is [0, 0] (an empty dictionary) or within [1, 32].  table_bits in [1, 14]
+// (the word table's; dual_bits); T as for glz_decode_streams.  out: n_symbols
+// u32, 16-byte aligned.
 int glz_decode_streams_dual(const void* words, long long n_words, const void* starts,
                             long long n_streams, long long n_symbols, long long S,
-                            const void* fc, const void* offsets, int min0, int max0,
-                            int min1, int max1, void* out, void* stream) {
+                            int table_bits, const void* fc, const void* offsets, int min0,
+                            int max0, int min1, int max1, int T, void* out, void* stream) {
   auto bad_range = [](int lo, int hi) {
     return !((lo == 0 && hi == 0) || (1 <= lo && lo <= hi && hi <= kCodeTable - 2));
   };
-  if (bad_geometry(n_streams, S, n_symbols) || bad_range(min0, max0) || bad_range(min1, max1))
+  if (bad_geometry(n_streams, S, n_symbols) || bad_range(min0, max0) || bad_range(min1, max1) ||
+      !(1 <= table_bits && table_bits <= glz::kMaxDualTableBits) || bad_subsequence(T) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t want = (n_streams + kStreamThreads - 1) / kStreamThreads;
-  if (want > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  decode_streams_dual_kernel<<<static_cast<unsigned>(want), kStreamThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  const Codebooks cbs{static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets),
+                      nullptr, {min0, min1}, {max0, max1}, table_bits};
+  const size_t smem = (size_t{1} << glz::dual_bits(table_bits, max0)) +
+                      (size_t{1} << glz::dual_bits(table_bits, max1));
+  auto kernel = decode_streams_sync_kernel<true, kDualThreads, kDualSubs, 8>;
+  // as many blocks as fit on the card at once, each walking the streams
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDualThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(n_streams < resident ? n_streams : resident);
+  kernel<<<grid, kDualThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), n_words, static_cast<const int64_t*>(starts),
-      n_streams, n_symbols, S, static_cast<const uint32_t*>(fc),
-      static_cast<const uint32_t*>(offsets), min0, max0, min1, max1,
-      static_cast<uint32_t*>(out));
+      n_streams, n_symbols, S, cbs, T, out);
   return static_cast<int>(cudaGetLastError());
 }
 

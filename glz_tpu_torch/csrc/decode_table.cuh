@@ -1,33 +1,37 @@
-// The decode table the two byte decodes share: K3 (lockstep.cu) and the
-// stream decode (bitstream.cu).
+// The decode tables of the table-driven decodes: the byte table K3
+// (lockstep.cu) and the byte stream decode (bitstream.cu) share, and the
+// two tables of the dual (HuffWord) stream decode (bitstream.cu).
 //
-// A code's length and symbol come from one probe of a 2^table_bits-entry
-// u16 table in shared memory, indexed by the window's first table_bits
-// bits:
-//
-//   (len << 8) | sym   every window in the slot has a code of len <=
-//                      table_bits bits and this symbol
-//   level              no length field: the canonical scan starts at
-//                      `level` (a slot of longer codes)
-//
-// Each block builds its table from the decode's own fc_lj / offsets /
-// symtab (build_decode_table), so the wrappers pass nothing new and launch
-// nothing more: building Codebook.decode_luts' table with tensor ops on the
-// card cost 1.3-1.6 ms of host dispatch a call (PERF.md).  A slot is
+// A code's length comes from one probe of a 2^table_bits-entry table in
+// shared memory, indexed by the window's first table_bits bits.  A slot is
 // resolved when the canonical scan gives the same length, at most
-// table_bits, at the slot's smallest and largest window: every level's
-// compare [v < fc_lj[l]] is monotone in v, so then it is the same for every
-// window of the slot, and so are the length, the offset and, the length
-// being at most table_bits, the rank.  Otherwise the entry is the first
-// level at which the slot's largest window is not below fc_lj; every window
-// of the slot is below fc_lj at every level before it, so the scan from
-// there gives the full scan's length and offset.  The table therefore
-// changes no output, whatever the tables; for a complete code (every
-// codebook of two or more symbols) it is the compacted form of
-// Codebook.decode_luts (ops/decode_table.py: decode_lut, compact_lut).  On
-// the benchmark corpus 10-12 bits resolve ~99% of codes (PERF.md), where the
-// scan loads two shared entries per length level (~20 levels there).
-// Shifts stay below 32: the rank's shift is (32 - len) & 31, as in the scan.
+// table_bits, at the slot's smallest and largest window (probe_slot): every
+// level's compare [v < fc_lj[l]] is monotone in v, so then it is the same
+// for every window of the slot, and so are the length and the offset.
+// Otherwise the entry is the slot's level: the first level at which its
+// largest window is not below fc_lj.  Every window of the slot is below
+// fc_lj at every level before it, so the scan from there gives the full
+// scan's length and offset.  A table therefore changes no output, whatever
+// the tables.  The entries:
+//
+//   byte (u16)   (len << 8) | sym for a resolved slot (the length <=
+//                table_bits and the symbol), else the level (no length
+//                field); for a complete code (every codebook of two or more
+//                symbols) this is the compacted form of
+//                Codebook.decode_luts (ops/decode_table.py)
+//   dual (u8)    0x80 | len for a resolved slot, else the level; the rank
+//                is (v >> (32 - len)) + offsets[len], computed from the
+//                window, since HuffWord ranks do not fit an entry (up to
+//                the vocabulary's size, above 65,535 for large ones)
+//
+// Each block builds its tables from the decode's own fc_lj / offsets (and
+// symtab), so the wrappers pass nothing new and launch nothing more:
+// building Codebook.decode_luts' table with tensor ops on the card cost
+// 1.3-1.6 ms of host dispatch a call (PERF.md).  On the byte benchmark
+// corpus 10-12 bits resolve ~99% of codes; on the HuffWord one a word table
+// of 11 bits resolves ~70% of words and one of 14 bits ~85%, and the
+// separators' table resolves every code (PERF.md).  Shifts stay below 32:
+// the rank's shift is (32 - len) & 31, as in the scan.
 
 #pragma once
 
@@ -35,34 +39,98 @@
 
 namespace glz {
 
-constexpr int kMaxTableBits = 12;
-constexpr int kCodeLevels = 34;  // fc_lj / offsets entries (MAX_CODE_LEN + 2)
+constexpr int kMaxTableBits = 12;      // the byte table
+constexpr int kMaxDualTableBits = 14;  // each dual table (2^14 u8 entries: 16 KiB)
+constexpr int kCodeLevels = 34;        // fc_lj / offsets entries (MAX_CODE_LEN + 2)
 
-struct DecodeTable {
-  uint16_t lut[1 << kMaxTableBits];
+// One canonical codebook's scan tables.
+struct Canon {
   uint32_t fc[kCodeLevels];
   uint32_t offs[kCodeLevels];
-  uint32_t symtab[256];
-  int shift;     // 32 - table_bits
   int min_len;
   int max_len;
   int monotone;  // fc[l] non-increasing over [min_len, max_len]
 };
 
+struct DecodeTable {
+  uint16_t lut[1 << kMaxTableBits];
+  Canon c;
+  uint32_t symtab[256];
+  int shift;  // 32 - table_bits
+};
+
+// The dual decode's two codebooks (set 0 for even tokens); their u8 tables
+// lie in dynamic shared memory, table p at lut + base[p].
+struct DualTable {
+  Canon c[2];
+  int shift[2];  // 32 - table p's bits
+  int base[2];
+};
+
 // The canonical scan from level lo: len = lo + sum_{l in [lo, max_len)}
-// [v < fc[l]], the offset selected by the same compares; the rank's symbol
-// in *sym.
-__device__ __forceinline__ uint32_t scan_from(const DecodeTable& t, uint32_t v, uint32_t lo,
-                                              uint32_t* sym) {
+// [v < fc[l]], the offset selected by the same compares in *off.
+__device__ __forceinline__ uint32_t scan_from(const Canon& c, uint32_t v, uint32_t lo,
+                                              uint32_t* off) {
   uint32_t ln = lo;
-  uint32_t off = t.offs[lo];
-  for (int l = static_cast<int>(lo); l < t.max_len; ++l) {
-    const bool c = v < t.fc[l];
-    ln += c ? 1u : 0u;
-    off = c ? t.offs[l + 1] : off;
+  uint32_t o = c.offs[lo];
+  for (int l = static_cast<int>(lo); l < c.max_len; ++l) {
+    const bool less = v < c.fc[l];
+    ln += less ? 1u : 0u;
+    o = less ? c.offs[l + 1] : o;
   }
-  *sym = t.symtab[((v >> ((32u - ln) & 31u)) + off) & 255u];
+  *off = o;
   return ln;
+}
+
+// An escape's length and offset from its slot's level.  Where fc is
+// non-increasing (every complete code), the compares that hold are a prefix
+// of the levels, so the scan stops at the first that fails and its offset
+// is that level's: the same length and offset in ~1-2 levels instead of
+// all of them to max_len.
+__device__ __forceinline__ uint32_t escape(const Canon& c, uint32_t v, uint32_t lo,
+                                           uint32_t* off) {
+  if (!c.monotone) return scan_from(c, v, lo, off);
+  uint32_t ln = lo;
+  while (static_cast<int>(ln) < c.max_len && v < c.fc[ln]) ++ln;
+  *off = c.offs[ln];
+  return ln;
+}
+
+// All threads of the block; the caller synchronises before using c.
+__device__ __forceinline__ void load_canon(Canon& c, const uint32_t* __restrict__ fc_g,
+                                           const uint32_t* __restrict__ off_g, int min_len,
+                                           int max_len) {
+  for (int i = threadIdx.x; i < kCodeLevels; i += blockDim.x) {
+    c.fc[i] = fc_g[i];
+    c.offs[i] = off_g[i];
+  }
+  if (threadIdx.x == 0) {
+    c.min_len = min_len;
+    c.max_len = max_len;
+    int mono = 1;
+    for (int l = min_len; l < max_len; ++l) mono &= fc_g[l] >= fc_g[l + 1];
+    c.monotone = mono;
+  }
+}
+
+// Slot s of a table of `bits` bits: its level, and whether it is resolved,
+// with its length and the rank of its largest window.
+struct Slot {
+  uint32_t level, len, rank;
+  bool resolved;
+};
+
+__device__ __forceinline__ Slot probe_slot(const Canon& c, uint32_t s, int bits) {
+  const int shift = 32 - bits;
+  const uint32_t v_lo = s << shift;
+  const uint32_t v_hi = v_lo | ((1u << shift) - 1u);
+  uint32_t lo = static_cast<uint32_t>(c.min_len);
+  while (static_cast<int>(lo) < c.max_len && v_hi < c.fc[lo]) ++lo;
+  uint32_t off_lo, off_hi;
+  const uint32_t len_lo = scan_from(c, v_lo, lo, &off_lo);
+  const uint32_t len_hi = scan_from(c, v_hi, lo, &off_hi);
+  return {lo, len_hi, (v_hi >> ((32u - len_hi) & 31u)) + off_hi,
+          len_lo == len_hi && len_hi <= static_cast<uint32_t>(bits)};
 }
 
 // All threads of the block; synchronises before returning.
@@ -70,41 +138,19 @@ __device__ __forceinline__ void build_decode_table(
     DecodeTable& t, int table_bits, const uint32_t* __restrict__ fc_g,
     const uint32_t* __restrict__ off_g, const uint32_t* __restrict__ symtab_g, int min_len,
     int max_len) {
-  for (int i = threadIdx.x; i < kCodeLevels; i += blockDim.x) {
-    t.fc[i] = fc_g[i];
-    t.offs[i] = off_g[i];
-  }
+  load_canon(t.c, fc_g, off_g, min_len, max_len);
   for (int i = threadIdx.x; i < 256; i += blockDim.x) t.symtab[i] = symtab_g[i];
-  if (threadIdx.x == 0) {
-    t.shift = 32 - table_bits;
-    t.min_len = min_len;
-    t.max_len = max_len;
-    int mono = 1;
-    for (int l = min_len; l < max_len; ++l) mono &= fc_g[l] >= fc_g[l + 1];
-    t.monotone = mono;
-  }
+  if (threadIdx.x == 0) t.shift = 32 - table_bits;
   __syncthreads();
-  const uint32_t low = (1u << t.shift) - 1u;
   for (int s = threadIdx.x; s < (1 << table_bits); s += blockDim.x) {
-    const uint32_t v_lo = static_cast<uint32_t>(s) << t.shift;
-    const uint32_t v_hi = v_lo | low;
-    uint32_t lo = static_cast<uint32_t>(min_len);
-    while (static_cast<int>(lo) < max_len && v_hi < t.fc[lo]) ++lo;
-    uint32_t sym_lo, sym_hi;
-    const uint32_t len_lo = scan_from(t, v_lo, lo, &sym_lo);
-    const uint32_t len_hi = scan_from(t, v_hi, lo, &sym_hi);
-    t.lut[s] = static_cast<uint16_t>(len_lo == len_hi && len_hi <= static_cast<uint32_t>(table_bits)
-                                         ? (len_hi << 8) | sym_hi
-                                         : lo);
+    const Slot e = probe_slot(t.c, static_cast<uint32_t>(s), table_bits);
+    t.lut[s] = static_cast<uint16_t>(e.resolved ? (e.len << 8) | t.symtab[e.rank & 255u]
+                                                : e.level);
   }
   __syncthreads();
 }
 
 // Length of the code at the top of the 32-bit window v; its symbol in *sym.
-// Where fc is non-increasing (every complete code), the compares that hold
-// are a prefix of the levels, so an escape's scan stops at the first that
-// fails and its offset is that level's: the same length and offset in ~1-2
-// levels instead of all of them to max_len.
 __device__ __forceinline__ uint32_t decode_one(const DecodeTable& t, uint32_t v,
                                                uint32_t* sym) {
   const uint32_t e = t.lut[v >> t.shift];
@@ -112,10 +158,58 @@ __device__ __forceinline__ uint32_t decode_one(const DecodeTable& t, uint32_t v,
     *sym = e & 255u;
     return e >> 8;
   }
-  if (!t.monotone) return scan_from(t, v, e, sym);
-  uint32_t ln = e;
-  while (static_cast<int>(ln) < t.max_len && v < t.fc[ln]) ++ln;
-  *sym = t.symtab[((v >> ((32u - ln) & 31u)) + t.offs[ln]) & 255u];
+  uint32_t off;
+  const uint32_t ln = escape(t.c, v, e, &off);
+  *sym = t.symtab[((v >> ((32u - ln) & 31u)) + off) & 255u];
+  return ln;
+}
+
+// Bits of dual table p: the word table's table_bits, no more than the
+// codebook's longest code (the separators' table is small), at least 1.
+__host__ __device__ __forceinline__ int dual_bits(int table_bits, int max_len) {
+  const int b = max_len < table_bits ? max_len : table_bits;
+  return b > 0 ? b : 1;
+}
+
+// All threads of the block; lut is dynamic shared memory of
+// 2^dual_bits(table_bits, max0) + 2^dual_bits(table_bits, max1) bytes.
+// Synchronises before returning.
+__device__ __forceinline__ void build_dual_table(
+    DualTable& t, uint8_t* lut, int table_bits, const uint32_t* __restrict__ fc_g,
+    const uint32_t* __restrict__ off_g, int min0, int max0, int min1, int max1) {
+  load_canon(t.c[0], fc_g, off_g, min0, max0);
+  load_canon(t.c[1], fc_g + kCodeLevels, off_g + kCodeLevels, min1, max1);
+  const int b0 = dual_bits(table_bits, max0), b1 = dual_bits(table_bits, max1);
+  if (threadIdx.x == 0) {
+    t.shift[0] = 32 - b0;
+    t.shift[1] = 32 - b1;
+    t.base[0] = 0;
+    t.base[1] = 1 << b0;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < (1 << b0) + (1 << b1); s += blockDim.x) {
+    const int p = s >= (1 << b0);
+    const Slot e = probe_slot(t.c[p], static_cast<uint32_t>(p ? s - (1 << b0) : s),
+                              p ? b1 : b0);
+    lut[s] = static_cast<uint8_t>(e.resolved ? 0x80u | e.len : e.level);
+  }
+  __syncthreads();
+}
+
+// Length of the code at the top of the 32-bit window v under codebook p
+// (0 for an empty dictionary's (0, 0) codebook); its rank in *rank.
+__device__ __forceinline__ uint32_t decode_dual(const DualTable& t, const uint8_t* lut,
+                                                uint32_t v, int p, uint32_t* rank) {
+  const Canon& c = t.c[p];
+  const uint32_t e = lut[t.base[p] + (v >> t.shift[p])];
+  uint32_t ln, off;
+  if (e & 0x80u) {
+    ln = e & 0x7Fu;
+    off = c.offs[ln];
+  } else {
+    ln = escape(c, v, e, &off);
+  }
+  *rank = (v >> ((32u - ln) & 31u)) + off;
   return ln;
 }
 

@@ -166,22 +166,59 @@ __global__ void __launch_bounds__(256) lane_totals_entries_kernel(
 // on text-like data), but the sweep is serial in t and every step needs the
 // whole group's emission count, so a block barrier per step with one group
 // per SM is what limits it.  The design spends that step on register work
-// only: lane state stays in registers, the entry table is in shared memory,
-// the input is read 4 steps at a time, and emitted words go straight to
-// their final payload slot.
+// only: lane state stays in registers and emitted words go straight to
+// their final payload slot.  Timed apart on an H100 (tools/k2_phases.py,
+// PERF.md), the first port's step lost most to its input loads (4 bytes a
+// lane every fourth step, at a stride of S bytes, used in the step that
+// issued them: over half its time), then to the entry lookups, the block
+// scan and the emission stores.  So:
+//   * input: each thread stages its lanes' next 16 bytes (16 steps) in
+//     shared memory, one 16-byte cp.async a lane into one 16-byte slot.
+//     The copy is issued the step after the slot's last word was read and
+//     waited for three steps later, when the next 16 steps begin, so it
+//     never stands in the step that issued it.  A thread reads back only
+//     its own staging, so this needs no barrier (slots rotated by thread so
+//     a warp's reads spread over 8 banks).  This alone took the kernel to
+//     what the probe's kernel without loads takes;
+//   * lookups: each lane's entry is looked up once a step and held across
+//     the step's barrier (looking it up on both sides of the barrier, to
+//     save eight registers, measured slower).
 //
 // K4 (kEntries) is the same sweep on the HuffWord path, whose symbols are
 // u32 lj|len entry words gathered by K6 (0 past the valid token count, so
-// n_valid is not needed).  It reads one entry per lane per step into the
-// register K2 uses for 4 staged bytes, so both forms hold the same state.
-// Its bound is bytes as well (4n entry bytes in).
+// n_valid is not needed).  It keeps the first port's body: it reads one
+// entry per lane per step into the register K2 uses for 4 staged bytes, so
+// both forms hold the same state.  Its bound is bytes as well (4n entry
+// bytes in).
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Dynamic shared memory of K2 at LPT lanes a thread: the staged input.
+template <int LPT>
+constexpr size_t encode_smem() {
+  return sizeof(uint4) * kThreads * LPT;
+}
+
 template <int LPT, bool kEntries>
 __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
     const void* __restrict__ sym, const uint32_t* __restrict__ tbl,
     int64_t n_valid, const int32_t* __restrict__ ctot,
     const int32_t* __restrict__ gw, const int32_t* __restrict__ grow, int S,
     uint32_t* __restrict__ out, int32_t* __restrict__ cursor_end) {
+  extern __shared__ uint4 enc_smem[];
+  uint4* stage = enc_smem + threadIdx.x * LPT;  // this thread's LPT x 16 staged bytes
   __shared__ uint32_t ent[256];
   __shared__ int warp_tot[2][kWarps];
   if (!kEntries && threadIdx.x < 256) ent[threadIdx.x] = tbl[threadIdx.x];
@@ -193,11 +230,17 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
   const int64_t first = lane0 * S;
   // valid symbols of this thread's LPT lanes, lane j: clamp(rem - j*S, 0, S)
   const int rem = kEntries ? 0 : lane_count(n_valid, first, LPT * S);
-  // a lane's symbols as u32 words: 4 bytes each, or one entry each
-  const int words_per_lane = kEntries ? S : S / 4;
-  const uint32_t* src =
-      kEntries ? static_cast<const uint32_t*>(sym) + first
-               : reinterpret_cast<const uint32_t*>(static_cast<const uint8_t*>(sym) + first);
+  const uint32_t* ent_src = static_cast<const uint32_t*>(sym) + first;
+  const uint8_t* byte_src = static_cast<const uint8_t*>(sym) + first;
+  // lane j's 16-byte chunk at byte offset c goes to slot (j + thread) % LPT
+  auto stage_chunk = [&](int c) {
+#pragma unroll
+    for (int j = 0; j < LPT; ++j)
+      cp_async16(stage + ((j + threadIdx.x) & (LPT - 1)),
+                 byte_src + static_cast<int64_t>(j) * S + c);
+    cp_async_commit();
+  };
+  if (!kEntries) stage_chunk(S - 16);
 
   uint32_t w0[LPT], w1[LPT], q[LPT];
   int cur[LPT];
@@ -216,24 +259,32 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
 
   for (int t = S - 1; t >= 0; --t) {
     const int sh = 8 * (t & 3);
-    if (kEntries || (t & 3) == 3) {
+    if (kEntries) {
 #pragma unroll
-      for (int j = 0; j < LPT; ++j)
-        q[j] = src[j * words_per_lane + (kEntries ? t : (t >> 2))];
+      for (int j = 0; j < LPT; ++j) q[j] = ent_src[static_cast<int64_t>(j) * S + t];
+    } else {
+      if ((t & 15) == 15) cp_async_wait<0>();
+      if ((t & 3) == 3) {
+#pragma unroll
+        for (int j = 0; j < LPT; ++j)
+          q[j] = reinterpret_cast<const uint32_t*>(stage + ((j + threadIdx.x) & (LPT - 1)))
+              [(t & 15) >> 2];
+      }
+      // the chunk's last word was read (and used) a step ago: stage the next
+      if ((t & 15) == 2 && t > 16) stage_chunk((t & ~15) - 16);
     }
-    // entry of lane j's symbol t (0 past the lane's valid count); a byte is
-    // looked up twice per step rather than held, to keep registers for lane
-    // state
-    auto entry = [&](int j) -> uint32_t {
-      if (kEntries) return q[j];
-      return (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;
-    };
+    // entry of lane j's symbol t (0 past the lane's valid count), looked up
+    // once and held across the step's barrier
+    uint32_t e[LPT];
+#pragma unroll
+    for (int j = 0; j < LPT; ++j)
+      e[j] = kEntries ? q[j] : (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;
     if (t != S - 1) {
       // ---- emission for forward step t+1
       uint32_t need = 0u;
 #pragma unroll
       for (int j = 0; j < LPT; ++j) {
-        const int cp = cur[j] - static_cast<int>(entry(j) & kLenMask);
+        const int cp = cur[j] - static_cast<int>(e[j] & kLenMask);
         if (((cur[j] + 31) >> 5) > ((cp + 31) >> 5)) need |= 1u << j;
       }
       int total;
@@ -254,10 +305,9 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
     // ---- prepend symbol t's code: shift the window right by ln
 #pragma unroll
     for (int j = 0; j < LPT; ++j) {
-      const uint32_t e = entry(j);
-      const uint32_t ln = e & kLenMask;
+      const uint32_t ln = e[j] & kLenMask;
       if (ln > 0u) {
-        const uint32_t lj = e & ~kLenMask;
+        const uint32_t lj = e[j] & ~kLenMask;
         const bool big = ln >= 32u;
         const uint32_t lnc = ln & 31u;
         const uint32_t sl = (32u - ln) & 31u;
@@ -318,20 +368,6 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
 // ---------------------------------------------------------------------------
 constexpr int kRingWords = 1 << 14;  // 64 KiB of refill words
 constexpr int kStageSteps = 16;      // output steps staged per lane
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Start the copies of payload words [from, to) (multiples of 4) into their
 // ring slots, zeros past n_words; the block's threads share the chunks.
@@ -601,19 +637,28 @@ int glz_lane_totals(const void* sym, const void* tbl, long long n_valid,
 }
 
 // entries != 0: `sym` holds u32 lj|len entry words (K4) and tbl/n_valid are
-// unused; else u8 symbols looked up in the 256-entry tbl (K2).
+// unused; else u8 symbols looked up in the 256-entry tbl (K2).  sym 16-byte
+// aligned; S a multiple of 16.
 static int encode_groups(const void* sym, const void* tbl, long long n_valid,
                          const void* ctot, const void* gw, const void* grow,
                          int n_groups, int S, int rows, void* out,
                          void* cursor_end, void* stream, bool entries) {
-  if (n_groups <= 0 || S % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_groups <= 0 || S % 16 != 0 || reinterpret_cast<uintptr_t>(sym) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // K2 stages its input in dynamic shared memory
 #define GLZ_ENCODE(LPT, E)                                                     \
-  encode_kernel<LPT, E><<<n_groups, kThreads, 0, st>>>(                       \
-      sym, static_cast<const uint32_t*>(tbl), n_valid,                         \
-      static_cast<const int32_t*>(ctot), static_cast<const int32_t*>(gw),      \
-      static_cast<const int32_t*>(grow), S, static_cast<uint32_t*>(out),       \
-      static_cast<int32_t*>(cursor_end))
+  {                                                                            \
+    const int smem = E ? 0 : static_cast<int>(encode_smem<LPT>());             \
+    const cudaError_t e = cudaFuncSetAttribute(                                \
+        encode_kernel<LPT, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
+    if (e != cudaSuccess) return static_cast<int>(e);                          \
+    encode_kernel<LPT, E><<<n_groups, kThreads, smem, st>>>(                   \
+        sym, static_cast<const uint32_t*>(tbl), n_valid,                       \
+        static_cast<const int32_t*>(ctot), static_cast<const int32_t*>(gw),    \
+        static_cast<const int32_t*>(grow), S, static_cast<uint32_t*>(out),     \
+        static_cast<int32_t*>(cursor_end));                                    \
+  }
 #define GLZ_ENCODE_ROWS(E)                                                     \
   switch (rows) {                                                              \
     case 8: GLZ_ENCODE(1, E); break;                                           \

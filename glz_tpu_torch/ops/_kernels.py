@@ -56,8 +56,8 @@ _SIGNATURES = {
     "glz_lookup_lj_lens": [_P, _LL, _LL, _P, _P, _P, _P, _P],
     "glz_pack_lj": [_P, _P, _LL, _P, _LL, _P],
     "glz_decode_streams": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "glz_decode_streams_dual": [_P, _LL, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _P,
-                                _P],
+    "glz_decode_streams_dual": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _I, _I, _I, _I, _I,
+                                _P, _P],
 }
 
 

@@ -1,6 +1,6 @@
 """Bitstream (layout-0) decode: several self-synchronising decoders per
-stream with one codebook (byte mode), one thread per stream with two
-codebooks alternating by token parity (HuffWord).
+stream, with one codebook (byte mode) or two alternating by token parity
+(HuffWord).
 
 Counterpart of glz_tpu/ops/decode.py:decode_block and assemble, and of the
 host HuffWord decoders (glz_tpu/models/huffword.py:_decode_tokens_host, the
@@ -15,11 +15,13 @@ the stream's bit cursor (0 past the payload's end) by the canonical scan
 
 and the cursor advances by len.  Byte mode emits symtab[rank & 255]; the
 dual form emits the rank and scans codebook (k*S + j) & 1 for token j of
-stream k.  The byte kernel takes each code from a decode table of the
-window's first TABLE_BITS bits (ops/decode_table.py; decode_block's has 16)
-and cuts each stream into subsequences of SUBSEQ_BITS bits that it decodes
-in parallel and synchronises (subsequence_table_ref is the plain version of
-those steps).
+stream k.  Both kernels (one template) take each code from decode tables of
+the window's first bits (ops/decode_table.py; decode_block's has 16) and
+cut each stream into subsequences that they decode in parallel and
+synchronise over (bit position, parity): subsequence_table_ref and
+subsequence_table_dual_ref are the plain versions of those steps.  Byte
+mode: TABLE_BITS, SUBSEQ_BITS; dual: DUAL_TABLE_BITS (the word table's),
+DUAL_SUBSEQ_BITS.
 The output is in file order, so assemble's transpose has no counterpart.
 """
 
@@ -28,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from glz_tpu_torch.ops import _kernels
-from glz_tpu_torch.ops.decode_table import canonical_scan, decode_one_ref, table_ref
+from glz_tpu_torch.ops.decode_table import (canonical_scan, decode_dual_ref, decode_one_ref,
+                                            dual_table_ref, table_ref)
 from glz_tpu_torch.ops.lockstep_decode import CODE_TABLE
 from glz_tpu_torch.ops.lockstep_encode import U32, as_u32, to_i32
 
@@ -41,6 +44,12 @@ _CHUNK_POSITIONS = 1 << 26
 # multiple of 32); both chosen by chip_smoke.py's sweep (PERF.md).
 TABLE_BITS = 11
 SUBSEQ_BITS = 1024
+# The dual (HuffWord) kernel's word table indexes the window's first
+# DUAL_TABLE_BITS bits (its separator table no more than the separators'
+# longest code), and its decoders start on subsequences of
+# DUAL_SUBSEQ_BITS bits; both chosen by chip_smoke.py's sweep (PERF.md).
+DUAL_TABLE_BITS = 12
+DUAL_SUBSEQ_BITS = 384
 
 
 def _window(P: torch.Tensor, B: int, p: torch.Tensor) -> torch.Tensor:
@@ -66,7 +75,7 @@ def _chains(P: torch.Tensor, B: int, starts: torch.Tensor, first: torch.Tensor,
     """Ranks int64 [len(starts), M]: M steps of each stream's walk from bit
     starts[i] (in [0, B]), its first token of parity class first[i] %
     len(codebooks); with positions, also each step's bit position (the
-    walk's code boundaries; positions past B read as B).
+    walk's code boundaries; positions past B read as B) and parity class.
 
     The code length and rank are tabled for every bit position a walk can
     reach (M steps of at most 32 bits from a start; positions at or past the
@@ -97,7 +106,7 @@ def _chains(P: torch.Tensor, B: int, starts: torch.Tensor, first: torch.Tensor,
         if width < M:
             jump = jump[jump]
     if positions:
-        return rank_at[pos], pos % n_pos + lo
+        return rank_at[pos], pos % n_pos + lo, pos // n_pos
     return rank_at[pos]
 
 
@@ -164,6 +173,61 @@ def decode_streams_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int
     return as_u32(symtab)[rank & 255].to(torch.uint8)
 
 
+def _subsequence_steps(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: int,
+                       T: int, lengths, flip: int, rounds: int | None):
+    """The subsequence steps of csrc/bitstream.cu's decode_streams_sync_kernel
+    (steps 1 and 2) on decoder states (bit position, parity): lengths(v,
+    par) gives the advance of windows v at parities par, and each code
+    flips the parity by `flip` (0 in byte mode).  Subsequence 0 of stream k
+    starts at (starts[k], (k*S) & flip), every other at its first bit with
+    the same parity.  See subsequence_table_ref."""
+    dev = words.device
+    B = 32 * words.numel()
+    P = torch.cat([as_u32(words), words.new_zeros(2, dtype=torch.int64)])
+    L = starts.numel()
+    k = torch.arange(L, device=dev)
+    count = (n_symbols - k * S).clamp(0, S)
+    stop = torch.cat([starts[1:], torch.tensor([B], device=dev)])
+    span = torch.minimum(stop - starts, 32 * count).clamp(min=0)
+    n_sub = torch.where(count > 0, ((span + T - 1) // T).clamp(min=1), 0)
+    stream = torch.repeat_interleave(k, n_sub)
+    sub = torch.arange(stream.numel(), device=dev) - (torch.cumsum(n_sub, 0) - n_sub)[stream]
+    nominal = starts[stream] + sub * T
+    end = nominal + T
+    bounded = sub < n_sub[stream] - 1
+    start = nominal.clone()
+    start_par = (stream * S) & flip
+    exit_ = torch.full_like(start, -1)
+    exit_par = torch.full_like(start, -1)
+    cnt = torch.full_like(start, -1)
+
+    def run(sel: torch.Tensor) -> None:
+        """Decode the selected subsequences from their starts to their ends."""
+        pos, par, end_s = start[sel], start_par[sel], end[sel]
+        n = torch.zeros_like(pos)
+        live = pos < end_s
+        while bool(live.any()):
+            pos[live] += lengths(_window(P, B, pos[live]), par[live])
+            par[live] ^= flip
+            n[live] += 1
+            live = pos < end_s
+        exit_[sel], exit_par[sel], cnt[sel] = pos, par, n
+
+    run(bounded)
+    n_rounds = 0
+    while rounds is None or n_rounds < rounds:
+        want = torch.where(sub > 0, torch.roll(exit_, 1), start)
+        want_par = torch.where(sub > 0, torch.roll(exit_par, 1), start_par)
+        changed = (want != start) | (want_par != start_par)
+        if not bool(changed.any()):
+            break
+        start = torch.where(changed, want, start)
+        start_par = torch.where(changed, want_par, start_par)
+        run(changed & bounded)
+        n_rounds += 1
+    return stream, start, start_par, exit_, exit_par, cnt, n_rounds
+
+
 def subsequence_table_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
                           S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
                           symtab: torch.Tensor, min_len: int, max_len: int, T: int,
@@ -186,48 +250,13 @@ def subsequence_table_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: 
     Returns (stream, start, exit, count, rounds): int64 tensors over the
     subsequences in stream order (exit and count -1 for each stream's last
     subsequence) and the number of rounds that changed a start."""
-    dev = words.device
-    B = 32 * words.numel()
-    P = torch.cat([as_u32(words), words.new_zeros(2, dtype=torch.int64)])
     table = table_ref(fc_lj, offsets, symtab, min_len, max_len, table_bits)
-    L = starts.numel()
-    k = torch.arange(L, device=dev)
-    count = (n_symbols - k * S).clamp(0, S)
-    stop = torch.cat([starts[1:], torch.tensor([B], device=dev)])
-    span = torch.minimum(stop - starts, 32 * count).clamp(min=0)
-    n_sub = torch.where(count > 0, ((span + T - 1) // T).clamp(min=1), 0)
-    stream = torch.repeat_interleave(k, n_sub)
-    sub = torch.arange(stream.numel(), device=dev) - (torch.cumsum(n_sub, 0) - n_sub)[stream]
-    nominal = starts[stream] + sub * T
-    end = nominal + T
-    bounded = sub < n_sub[stream] - 1
-    start = nominal.clone()
-    exit_ = torch.full_like(start, -1)
-    cnt = torch.full_like(start, -1)
 
-    def run(sel: torch.Tensor) -> None:
-        """Decode the selected subsequences from their starts to their ends."""
-        pos, end_s = start[sel], end[sel]
-        n = torch.zeros_like(pos)
-        live = pos < end_s
-        while bool(live.any()):
-            ln, _ = decode_one_ref(_window(P, B, pos[live]), table, fc_lj, offsets, symtab,
-                                   max_len, table_bits)
-            pos[live] += ln
-            n[live] += 1
-            live = pos < end_s
-        exit_[sel], cnt[sel] = pos, n
+    def lengths(v, _par):
+        return decode_one_ref(v, table, fc_lj, offsets, symtab, max_len, table_bits)[0]
 
-    run(bounded)
-    n_rounds = 0
-    while rounds is None or n_rounds < rounds:
-        want = torch.where(sub > 0, torch.roll(exit_, 1), start)
-        changed = want != start
-        if not bool(changed.any()):
-            break
-        start = torch.where(changed, want, start)
-        run(changed & bounded)
-        n_rounds += 1
+    stream, start, _, exit_, _, cnt, n_rounds = _subsequence_steps(
+        words, starts, n_symbols, S, T, lengths, 0, rounds)
     return stream, start, exit_, cnt, n_rounds
 
 
@@ -274,6 +303,34 @@ def decode_streams_dual_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols
     return to_i32(rank)
 
 
+def subsequence_table_dual_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
+                               S: int, fc_lj: torch.Tensor, offsets: torch.Tensor, min_lens,
+                               max_lens, T: int, table_bits: int = DUAL_TABLE_BITS,
+                               rounds: int | None = None):
+    """Plain version of the dual kernel's subsequence steps: those of
+    subsequence_table_ref on decoder states (bit position, parity).  A
+    code at parity p is decoded with codebook p's table (decode_dual_ref)
+    and flips the parity; subsequence 0 of stream k starts at (starts[k],
+    (k*S) & 1) and every other guess takes the same parity; a round
+    restarts a subsequence whose start state (position or parity) differs
+    from its predecessor's exit state.  An empty dictionary's codebook
+    decodes a length of 0, which the guesses and rounds advance by 1 (no
+    valid token uses it).
+
+    Returns (stream, start, start parity, exit, exit parity, count, rounds):
+    int64 tensors over the subsequences in stream order (exit, its parity
+    and count -1 for each stream's last subsequence) and the rounds."""
+    tables = [dual_table_ref(fc_lj[p], offsets[p], min_lens[p], max_lens[p], table_bits)
+              for p in (0, 1)]
+
+    def lengths(v, par):
+        ln = [decode_dual_ref(v, tables[p], fc_lj[p], offsets[p], max_lens[p], table_bits)[0]
+              for p in (0, 1)]
+        return torch.where(par == 1, ln[1], ln[0]).clamp(min=1)
+
+    return _subsequence_steps(words, starts, n_symbols, S, T, lengths, 1, rounds)
+
+
 def decode_streams_dual(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
                         S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
                         min_lens, max_lens) -> torch.Tensor:
@@ -297,7 +354,7 @@ def decode_streams_dual(words: torch.Tensor, starts: torch.Tensor, n_symbols: in
     if n_symbols:
         _kernels.launch("glz_decode_streams_dual", "decode_streams_dual",
                         _kernels.ptr(words), words.numel(), _kernels.ptr(starts),
-                        starts.numel(), n_symbols, S, _kernels.ptr(fc_lj),
+                        starts.numel(), n_symbols, S, DUAL_TABLE_BITS, _kernels.ptr(fc_lj),
                         _kernels.ptr(offsets), min_lens[0], max_lens[0], min_lens[1],
-                        max_lens[1], _kernels.ptr(out))
+                        max_lens[1], DUAL_SUBSEQ_BITS, _kernels.ptr(out))
     return out

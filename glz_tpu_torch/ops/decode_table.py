@@ -1,6 +1,8 @@
-"""The decode table the two byte decodes share (K3 in csrc/lockstep.cu, the
-stream decode in csrc/bitstream.cu; the device side is
-csrc/decode_table.cuh).
+"""The decode tables of the table-driven decodes: the byte table K3
+(csrc/lockstep.cu) and the byte stream decode (csrc/bitstream.cu) share,
+and the dual stream decode's two tables (dual_table_ref, decode_dual_ref:
+a length or a level per slot, the rank computed from the window).  The
+device side is csrc/decode_table.cuh.
 
 A code's length and symbol come from one probe of a 2^table_bits-entry u16
 table indexed by the window's first table_bits bits: (len << 8) | sym where
@@ -51,16 +53,15 @@ def canonical_scan(v: torch.Tensor, fc_lj: torch.Tensor, offsets: torch.Tensor,
     return ln, ((v >> ((32 - ln) & 31)) + off) & U32
 
 
-def table_ref(fc_lj: torch.Tensor, offsets: torch.Tensor, symtab: torch.Tensor,
-              min_len: int, max_len: int, table_bits: int) -> torch.Tensor:
-    """Plain version of decode_table.cuh's build_decode_table: the u16
-    table (int64 values) [2^table_bits].  A slot is resolved where the scan
-    gives the same length, at most table_bits, at its smallest and largest
-    window; else its entry is the first level at which its largest window is
-    not below fc_lj."""
+def _slots(fc_lj: torch.Tensor, offsets: torch.Tensor, min_len: int, max_len: int,
+           bits: int):
+    """(level, length at the smallest window, length and rank at the largest
+    window) of each slot of a table of `bits` bits, as decode_table.cuh's
+    probe_slot computes them: the level is the first at which the slot's
+    largest window is not below fc_lj, and both scans start there."""
     dev = fc_lj.device
-    shift = 32 - table_bits
-    v_lo = torch.arange(1 << table_bits, device=dev) << shift
+    shift = 32 - bits
+    v_lo = torch.arange(1 << bits, device=dev) << shift
     v_hi = v_lo | ((1 << shift) - 1)
     fc = as_u32(fc_lj).tolist()
     lo = torch.full_like(v_lo, min_len)
@@ -70,6 +71,17 @@ def table_ref(fc_lj: torch.Tensor, offsets: torch.Tensor, symtab: torch.Tensor,
         lo += below
     len_lo, _ = canonical_scan(v_lo, fc_lj, offsets, lo, max_len)
     len_hi, rank = canonical_scan(v_hi, fc_lj, offsets, lo, max_len)
+    return lo, len_lo, len_hi, rank
+
+
+def table_ref(fc_lj: torch.Tensor, offsets: torch.Tensor, symtab: torch.Tensor,
+              min_len: int, max_len: int, table_bits: int) -> torch.Tensor:
+    """Plain version of decode_table.cuh's build_decode_table: the u16
+    table (int64 values) [2^table_bits].  A slot is resolved where the scan
+    gives the same length, at most table_bits, at its smallest and largest
+    window; else its entry is the first level at which its largest window is
+    not below fc_lj."""
+    lo, len_lo, len_hi, rank = _slots(fc_lj, offsets, min_len, max_len, table_bits)
     sym = as_u32(symtab)[rank & 255]
     return torch.where((len_lo == len_hi) & (len_hi <= table_bits), (len_hi << 8) | sym, lo)
 
@@ -132,3 +144,40 @@ def compact_lut(lut: torch.Tensor, table_bits: int, min_len: int) -> torch.Tenso
     e = as_u32(lut)
     ln, sym = e >> 16, e & 0xFFFF
     return torch.where(e == 0, min_len, torch.where(sym == ESCAPE, ln, (ln << 8) | sym))
+
+
+# ---- the dual (HuffWord) stream decode's tables ------------------------------
+
+RESOLVED = 0x80  # the flag of a dual table's resolved entries
+
+
+def dual_bits(table_bits: int, max_len: int) -> int:
+    """Bits of a dual table (decode_table.cuh's dual_bits): the word table's
+    table_bits, no more than the codebook's longest code, at least 1."""
+    return max(min(table_bits, max_len), 1)
+
+
+def dual_table_ref(fc_lj: torch.Tensor, offsets: torch.Tensor, min_len: int, max_len: int,
+                   table_bits: int) -> torch.Tensor:
+    """Plain version of one table of decode_table.cuh's build_dual_table:
+    the u8 table (int64 values) [2^dual_bits(table_bits, max_len)] of one
+    codebook, RESOLVED | len where every window of the slot has a code of
+    len <= its bits, else the scan's level.  An empty dictionary's (0, 0)
+    codebook resolves every slot to length 0."""
+    bits = dual_bits(table_bits, max_len)
+    lo, len_lo, len_hi, _ = _slots(fc_lj, offsets, min_len, max_len, bits)
+    return torch.where((len_lo == len_hi) & (len_hi <= bits), RESOLVED | len_hi, lo)
+
+
+def decode_dual_ref(v: torch.Tensor, table: torch.Tensor, fc_lj: torch.Tensor,
+                    offsets: torch.Tensor, max_len: int, table_bits: int):
+    """Plain version of decode_table.cuh's decode_dual for one codebook:
+    (length, rank) int64 tensors of the windows v (u32 values in int64), by
+    one probe of its table and, where the entry has no length, the scan from
+    its level; rank = ((v >> (32 - len)) + offsets[len]) mod 2^32."""
+    e = table[v >> (32 - dual_bits(table_bits, max_len))]
+    scan = e < RESOLVED
+    ln, rank = canonical_scan(v, fc_lj, offsets, torch.where(scan, e, max_len), max_len)
+    ln_t = e & (RESOLVED - 1)
+    rank_t = ((v >> ((32 - ln_t) & 31)) + as_u32(offsets)[ln_t]) & U32
+    return torch.where(scan, ln, ln_t), torch.where(scan, rank, rank_t)

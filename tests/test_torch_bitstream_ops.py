@@ -323,8 +323,8 @@ def _check_subsequences(words, starts, n: int, S: int, cb, T: int, rounds=None) 
     B = 32 * words.numel()
     P = torch.cat([u32_t(words), words.new_zeros(2, dtype=torch.int64)])
     L = starts.numel()
-    _, walk = bd._chains(P, B, starts.clamp(0, B), torch.arange(L) * S, S + T,
-                         [(tbl[0], tbl[1], cb.min_len, cb.max_len)], positions=True)
+    _, walk, _ = bd._chains(P, B, starts.clamp(0, B), torch.arange(L) * S, S + T,
+                            [(tbl[0], tbl[1], cb.min_len, cb.max_len)], positions=True)
     per = torch.bincount(stream, minlength=L)
     sub = torch.arange(stream.numel()) - (torch.cumsum(per, 0) - per)[stream]
     nominal = starts[stream] + sub * T
@@ -394,3 +394,125 @@ def test_subsequences_host_encoder(realtext):
     sbits = sbits.astype(np.int64)
     starts = torch.from_numpy(np.cumsum(sbits) - sbits)
     _check_subsequences(_i32_tensor(words, CPU), starts, arr.size, S, cb, 256)
+
+
+# ---- the dual kernel's steps: its tables and its subsequence table ----------
+
+def dual_codebook(name: str):
+    """A codebook of the dual decode: the HuffWord benchmark's words
+    (Zipf(1.1) counts over 20,000 words, codes of 3-21 bits) and
+    separators, a 70,000-word vocabulary (ranks above 65,535), codes of
+    27-32 bits, one code, and an empty dictionary's (0, 0) codebook."""
+    if name == "words":
+        return build_codebook(np.maximum(1e7 / np.arange(1, 20001) ** 1.1, 1).astype(np.int64), 32)
+    if name == "separators":
+        return build_codebook(np.array([3_000_000, 1_000_000, 1_000_000, 1_000_000]), 32)
+    if name == "big_vocab":
+        return build_codebook(np.random.default_rng(0xB16).integers(1, 40, 70_000), 32)
+    if name == "deep32":
+        return build_codebook(np.left_shift(1, np.maximum(40 - np.arange(200), 0)), 32)
+    if name == "one_code":
+        return codebook_from_lengths(np.array([1], np.int32))
+    return codebook_from_lengths(np.zeros(0, np.int32))
+
+
+DUAL_TABLE_BITS = [11, 12, 13, 14]
+
+
+@pytest.mark.parametrize("table_bits", DUAL_TABLE_BITS)
+@pytest.mark.parametrize("name", ["words", "separators", "big_vocab", "deep32", "one_code",
+                                  "empty"])
+def test_dual_table_probe_matches_scan(name, table_bits):
+    """The dual kernel's table (dual_table_ref, u8 entries: a length or the
+    scan's level) and probe (decode_dual_ref, the rank from the window)
+    against the plain decode's canonical scan on every slot's smallest,
+    largest and a random window, at each swept table size."""
+    cb = dual_codebook(name)
+    fc, offs = port_hw._dual_tables(cb, cb, CPU)
+    fc, offs = fc[0], offs[0]
+    table = dt.dual_table_ref(fc, offs, cb.min_len, cb.max_len, table_bits)
+    bits = dt.dual_bits(table_bits, cb.max_len)
+    assert table.numel() == 1 << bits and int(table.max()) < 256
+    shift = 32 - bits
+    slot = torch.arange(1 << bits) << shift
+    rnd = torch.from_numpy(np.random.default_rng(table_bits).integers(0, 1 << shift, slot.numel()))
+    v = torch.cat([slot, slot | ((1 << shift) - 1), slot | rnd])
+    ln, rank = dt.decode_dual_ref(v, table, fc, offs, cb.max_len, table_bits)
+    want_ln, want_rank = bd._position_tables(torch.cat([v, v.new_zeros(2)]), 0, 32 * v.numel(),
+                                             fc, offs, cb.min_len, cb.max_len)
+    assert torch.equal(ln, want_ln[::32])
+    assert torch.equal(rank, want_rank[::32])
+    escapes = int((table < dt.RESOLVED).sum())
+    assert escapes == 0 if cb.max_len <= bits else escapes > 0
+    if name == "big_vocab":
+        assert int(rank.max()) > 0xFFFF
+    if name == "empty":
+        assert not ln.any()
+
+
+def _dual_payload(name: str, realtext: bytes, stream_tokens: int):
+    """(words, starts, T, fc, offsets, min_lens, max_lens) of the port's
+    HuffWord bitstream encode of a dual case; deep32 draws tokens from the
+    made-up dictionaries of chip_smoke's deep32 case (word codes of 27-32
+    bits)."""
+    if name == "deep32":
+        ids, word_first, cbs, n_word, n_nonword, _ = chip_smoke.huffword_bitstream_case(
+            "hw_deep32_s999")
+    else:
+        _, _, word_first, wv, nv, ids = tok.build_vocabs(dual_case(name, realtext))
+        cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), 32) for v in (wv, nv)]
+        n_word, n_nonword = wv.n, nv.n
+    T = ids.size
+    payload, sbits = port_hw.encode_bitstream_tokens(
+        ids, T, word_first, cbs, n_word, n_nonword, stream_tokens, -(-T // stream_tokens),
+        device="cpu")
+    lengths = [cb.lengths if n else np.zeros(0, np.int32) for cb, n in zip(cbs, (n_word, n_nonword))]
+    cb_w, cb_n = (codebook_from_lengths(l) for l in lengths)
+    even, odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
+    fc, offs = port_hw._dual_tables(even, odd, CPU)
+    words = _i32_tensor(tpu_bitio.bytes_to_words(payload), CPU)
+    return (words, torch.from_numpy(np.cumsum(sbits) - sbits), T, fc, offs,
+            (even.min_len, odd.min_len), (even.max_len, odd.max_len))
+
+
+@pytest.mark.parametrize("T", [96, 100, bd.DUAL_SUBSEQ_BITS])
+@pytest.mark.parametrize("name,stream_tokens", [
+    ("text", 1001), ("text", 16384), ("nonword_first", 777), ("one_token", 16384),
+    ("big_vocab", 4097), ("deep32", 999)])
+def test_subsequences_dual(realtext, name, stream_tokens, T):
+    """subsequence_table_dual_ref against the serial walk's code boundaries
+    and parities (_chains): each synchronised start state is the walk's
+    first boundary at or past the subsequence's first bit, with its token's
+    parity; each exit state the first at or past its end, and each count
+    the walk's codes between.  Step 1's table (rounds = 0) holds wherever a
+    guess is a boundary of the right parity."""
+    words, starts, n, fc, offs, min_lens, max_lens = _dual_payload(name, realtext,
+                                                                   stream_tokens)
+    S = stream_tokens
+    B = 32 * words.numel()
+    P = torch.cat([u32_t(words), words.new_zeros(2, dtype=torch.int64)])
+    L = starts.numel()
+    _, walk, cls = bd._chains(P, B, starts.clamp(0, B), torch.arange(L) * S, S + T,
+                              [(fc[p], offs[p], min_lens[p], max_lens[p]) for p in (0, 1)],
+                              positions=True)
+    for rounds in (None, 0):
+        stream, start, spar, exit_, epar, cnt, n_rounds = bd.subsequence_table_dual_ref(
+            words, starts, n, S, fc, offs, min_lens, max_lens, T, rounds=rounds)
+        per = torch.bincount(stream, minlength=L)
+        assert bool((per[: -(-n // S)] >= 1).all())
+        sub = torch.arange(stream.numel()) - (torch.cumsum(per, 0) - per)[stream]
+        nominal = starts[stream] + sub * T
+        b, c = walk[stream], cls[stream]
+        j0 = torch.searchsorted(b, nominal[:, None])[:, 0].clamp(max=b.shape[1] - 1)
+        j1 = torch.searchsorted(b, (nominal + T)[:, None])[:, 0].clamp(max=b.shape[1] - 1)
+        synced = (start == b.gather(1, j0[:, None])[:, 0]) & (spar == c.gather(1, j0[:, None])[:, 0])
+        if rounds is None:
+            assert bool(synced.all())
+            if name == "text" and T == 100:
+                assert n_rounds >= 1
+        held = (cnt >= 0) & synced
+        assert torch.equal(exit_[held], b.gather(1, j1[:, None])[:, 0][held])
+        assert torch.equal(epar[held], c.gather(1, j1[:, None])[:, 0][held])
+        assert torch.equal(cnt[held], (j1 - j0)[held])
+        if name != "one_token":
+            assert bool(held.any())
