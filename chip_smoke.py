@@ -5,8 +5,9 @@
 
 Four paths: the byte-mode lockstep codec (THROUGHPUT), the HuffWord
 lockstep codec, and the bitstream (layout 0) codec in byte and HuffWord
-mode (DEFAULT).  Phases (each prints one line or more; any failure exits
-non-zero before the last):
+mode (DEFAULT), the byte one through glz_tpu's default front door
+(backend "host") and the device backend.  Phases (each prints one line or
+more; any failure exits non-zero before the last):
   1. environment: torch, the card, nvidia-smi, nvcc;
   2. build: compile csrc/lockstep.cu and csrc/bitstream.cu (which share
      csrc/decode_table.cuh) for sm_90a (one nvcc each, in parallel), with
@@ -19,41 +20,51 @@ non-zero before the last):
        steps);
      - HuffWord path: K6 lut_gather at both call sites (gather_entries,
        map_ranks), the entry-word lane totals, K4 encode_entries and K5
-       decode_dual on rows 8/16/32 at S 64/512 and rows 64 at S 64 (ragged
-       token counts), nonword-first text, single-symbol dictionaries, one
-       token (an empty dictionary) and a >64K-word vocabulary (u32 ids);
-       each case also round-trips its tokens;
-  3c. bitstream kernels: K7 lookup_lj_lens, pack_lj and decode_streams on
+       decode_dual (one block a group at rows 8 and 16, a cluster of rows/8
+       blocks at rows 32 and 64) on
+       rows 8/16/32 at S 64/512, rows 64 at S 64 and 256 and rows 8 at S
+       1024 (ragged token counts), nonword-first text, single-symbol
+       dictionaries, one token (an empty dictionary) and a >64K-word
+       vocabulary (u32 ids); each case also round-trips its tokens; and K5
+       alone on random words at S 66 (rows 8) and 130 (rows 64);
+  3c. bitstream kernels: K7 lookup_lj_lens, the pack (pack_scan, pack_tiles,
+     from bit 0 and from bit 13, and the whole step) and decode_streams on
      byte cases (ragged n_valid with garbage past it, S 1000 (not a power
      of two), codes of 27-32 bits, one symbol, a one-code codebook, three
      DEFAULT-sized streams, 64 MiB of uniform bytes (all codes 8 bits; its
-     decode time is printed), two word-aligned dispatches of one stream
-     each), and K6 on the lj and length tables, pack_lj
-     and decode_streams_dual on HuffWord cases (S 16384, odd S, nonword-
-     first text, one token (an empty dictionary), a >64K-word vocabulary,
-     codes of 27-32 bits, 256 equiprobable 8-bit words with 1-3-bit
-     separators (its decode time and rounds are printed)); each case also
-     round-trips;
+     decode time is printed), two dispatches of one stream each, word-
+     aligned (the device container) or the second packed from the first's
+     last bit (the host container)), and K6 on the lj and length tables,
+     the pack and decode_streams_dual on HuffWord cases (S 16384, odd S,
+     nonword-first text, one token (an empty dictionary), a >64K-word
+     vocabulary, codes of 27-32 bits, 256 equiprobable 8-bit words with
+     1-3-bit separators (its decode time and rounds are printed)); each
+     case also round-trips;
   4. byte main path: compress + decompress of a 512 MiB corpus under
      THROUGHPUT with checksum, launch counts read just after;
   4b. HuffWord main path: compress + decompress of 100 MiB of English-like
      text (20,000 Zipf words) at S 512, rows 32, with checksum, launch
      counts read just after, and the host steps re-run alone;
   4c. byte bitstream path: the same 512 MiB under DEFAULT with checksum
-     (2,048 streams of 2^18 symbols in four dispatches of 2^27), launch
-     counts read just after, and the host steps re-run alone;
+     (2,048 streams of 2^18 symbols in four dispatches of 2^27) through
+     backend "host" (glz_tpu's default container) and then "device",
+     launch counts read just after each, and the host steps re-run alone;
   4d. HuffWord bitstream path: phase 4b's text under DEFAULT with checksum
      (streams of 16,384 tokens), launch counts read just after;
   5. kernel times at each main path's shapes (CUDA events), each kernel
      held against its plain version on the same inputs (the stream decodes
-     also against the input); the decodes again at each swept decode
-     table size (and the stream decodes' subsequence length), each against
-     the input or the plain version, and the share of the main corpora's
-     symbols (tokens) the tables resolve in one probe;
+     also against the input); the whole pack step against the first
+     port's (torch.cumsum and pack_lj_kernel, tools/pack_phases.py) on the
+     same codes; the decodes
+     again at each swept decode table size (and the stream decodes'
+     subsequence length), each against the input or the plain version, and
+     the share of the main corpora's symbols (tokens) the tables resolve in
+     one probe; the registers and spills of the pack's and K5's kernels;
   6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
-     under eight configurations must have the SHA-256 that the JAX
+     under ten configurations must have the SHA-256 that the JAX
      reference writes (pinned by tests/test_torch_canonical_byte.py,
-     tests/test_torch_huffword.py and tests/test_torch_bitstream.py).
+     tests/test_torch_huffword.py, tests/test_torch_bitstream.py and
+     tests/test_torch_front_door.py).
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -62,11 +73,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -101,7 +114,7 @@ SCALAR_OPS_PER_S = 67e12    # H100 SXM 32-bit rate outside the tensor cores
 # from the plain versions: table lookup, masks, shifts, compares, selects)
 OPS_PER_SYMBOL = {"lane_totals": 2, "encode_groups": 16, "lane_totals_entries": 2,
                   "encode_entries": 15, "lut_gather": 5, "lookup_lj_lens": 4,
-                  "pack_lj": 10}
+                  "pack_scan": 1, "pack_tiles": 10}
 # A decode's operations per symbol: the window, one table probe, the
 # advance and the output.  The canonical scan's levels are one
 # implementation's work, not the function's (a table resolves ~99% of codes
@@ -130,6 +143,8 @@ BITSTREAM_PINNED = {
     "byte_default": "1e9bfdda8cebb3c622568ffb1595e42122acafd0354078bc3ab7a2dd445f1fc8",
     "byte_ratio": "c5e2edb717109d38f77dfe1aa0da773a920b8074c3061e4299f5ca5524e2fcf3",
     "hw_default": "718655c9744a36624676ef06248d30d69512a164236078559c35198cda45870a",
+    "byte_default_host": "6e3eff1670f7dc5a595737ca1c8e8e91248f2c9d5c88636bd401327a36f59065",
+    "byte_ratio_host": "5a1f850548aeb05d8b643941d299de2e7c95e25e9abe540f97da1699abdf86b8",
 }
 
 REPLACES = {
@@ -141,14 +156,15 @@ REPLACES = {
     "decode_dual": "glz_tpu/ops/pallas_decode.py:471",
     "lut_gather": "glz_tpu/ops/pallas_lut.py:47",
     "lookup_lj_lens": "glz_tpu/ops/pallas_lut.py:32",
-    "pack_lj": "glz_tpu/ops/encode.py:75",
+    "pack_scan": "glz_tpu/ops/encode.py:75",
+    "pack_tiles": "glz_tpu/ops/encode.py:75",
     "decode_streams": "glz_tpu/ops/decode.py:37",
     "decode_streams_dual": "glz_tpu/models/huffword.py:502",
 }
 BYTE_KERNELS = ("lane_totals", "encode_groups", "decode_groups")
 HUFFWORD_KERNELS = ("lut_gather", "lane_totals_entries", "encode_entries", "decode_dual")
-BITSTREAM_KERNELS = ("lookup_lj_lens", "pack_lj", "decode_streams")
-HUFFWORD_BITSTREAM_KERNELS = ("lut_gather", "pack_lj", "decode_streams_dual")
+BITSTREAM_KERNELS = ("lookup_lj_lens", "pack_scan", "pack_tiles", "decode_streams")
+HUFFWORD_BITSTREAM_KERNELS = ("lut_gather", "pack_scan", "pack_tiles", "decode_streams_dual")
 
 
 def require(cond, msg: str) -> None:
@@ -180,14 +196,18 @@ def huffword_pinned_configs() -> dict[str, cfg.GlzConfig]:
             "hw_ratio": huffword_conf(base=cfg.RATIO)}
 
 
-def bitstream_pinned_configs() -> dict[str, tuple[cfg.GlzConfig, int]]:
-    """(configuration, mode) of the bitstream digests: byte DEFAULT and
-    RATIO (the container of glz_tpu's compress_bytes_device) and HuffWord
-    DEFAULT, each with checksum."""
+def bitstream_pinned_configs() -> dict[str, tuple[cfg.GlzConfig, int, str]]:
+    """(configuration, mode, backend) of the bitstream digests, each with
+    checksum: byte DEFAULT and RATIO under backend "device" (the container
+    of glz_tpu's compress_bytes_device) and "host" (glz_tpu.compress's
+    default, compress_bytes_host's container), and HuffWord DEFAULT."""
     default = dataclasses.replace(cfg.DEFAULT, checksum=True)
-    return {"byte_default": (default, cfg.MODE_BYTE),
-            "byte_ratio": (dataclasses.replace(cfg.RATIO, checksum=True), cfg.MODE_BYTE),
-            "hw_default": (default, cfg.MODE_HUFFWORD)}
+    ratio = dataclasses.replace(cfg.RATIO, checksum=True)
+    return {"byte_default": (default, cfg.MODE_BYTE, "device"),
+            "byte_ratio": (ratio, cfg.MODE_BYTE, "device"),
+            "hw_default": (default, cfg.MODE_HUFFWORD, "host"),
+            "byte_default_host": (default, cfg.MODE_BYTE, "host"),
+            "byte_ratio_host": (ratio, cfg.MODE_BYTE, "host")}
 
 
 def make_word_corpus(n_bytes: int, seed: int = 0x3AD) -> bytes:
@@ -351,6 +371,13 @@ HUFFWORD_CASES["hw_nonword_r8_s64"] = (64, 8)
 HUFFWORD_CASES["hw_single_r16_s64"] = (64, 16)
 HUFFWORD_CASES["hw_one_token_r8_s64"] = (64, 8)
 HUFFWORD_CASES["hw_bigvocab_r8_s64"] = (64, 8)
+# K5's extremes: rows 8 (one block a group) at the largest HuffWord S, and
+# rows 64 (a cluster of eight blocks a group)
+HUFFWORD_CASES["hw_r8_s1024"] = (1024, 8)
+HUFFWORD_CASES["hw_r64_s256"] = (256, 64)
+# K5 alone on random payload words at even S that is not a power of two
+# (lanes not 16-byte aligned when S % 4 == 2): (S, rows)
+K5_RANDOM_CASES = {"k5_random_r8_s66": (66, 8), "k5_random_r64_s130": (130, 64)}
 
 
 def huffword_case_text(name: str) -> bytes:
@@ -440,13 +467,37 @@ def check_huffword_case(name: str, dev: torch.device) -> None:
     require(np.array_equal(got.astype(np.int64), inp.ids), f"{name}: token round trip")
 
 
+def check_k5_random(name: str, dev: torch.device) -> None:
+    """K5 against its plain version on random payload words (the decode is
+    a function of any words): the word corpus's dual codebooks, two groups,
+    the second ragged."""
+    S, rows = K5_RANDOM_CASES[name]
+    G = rows * LANES
+    rng = np.random.default_rng(S * 100 + rows)
+    counts = np.maximum(1e7 / np.arange(1, 20001) ** 1.1, 1).astype(np.int64)
+    even, odd = build_codebook(counts, 26), build_codebook(np.array([3, 1, 1, 1]) * 10**6, 26)
+    fc, off = hw_model._dual_tables(even, odd, dev)
+    lens = (even.min_len, odd.min_len), (even.max_len, odd.max_len)
+    n_words = G * S // 3
+    words = _i32_tensor(rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32), dev)
+    starts = torch.tensor([0, n_words // 2], dtype=torch.int64, device=dev)
+    group_counts = torch.tensor([G * S, G * S // 2 + 17], dtype=torch.int32, device=dev)
+
+    def decode(fn):
+        return fn(words, starts, group_counts, fc, off, S, *lens, rows)
+
+    require(max_abs_err(decode(kd.decode_groups_dual), decode(kd.decode_groups_dual_ref)) == 0,
+            f"{name}: K5")
+
+
 # ---- bitstream (layout 0) kernel cases ------------------------------------------
 
-# name -> S; byte cases of K7, pack_lj and decode_streams
+# name -> S; byte cases of K7, the pack and decode_streams
 BITSTREAM_CASES = {"ragged_s4096": 4096, "s1000": 1000, "deep32_s16384": 1 << 14,
                    "one_symbol": 1 << 18, "one_code_s4096": 4096,
                    "default_3streams": 1 << 18, "uniform8_s262144": 1 << 18,
-                   "two_dispatch_s131072": 1 << 17}
+                   "two_dispatch_s131072": 1 << 17, "host_two_dispatch_s131072": 1 << 17}
+PACK_PHASE = 13  # the bit, not word-aligned, at which every case also packs
 UNIFORM8_STREAMS = 256  # 64 MiB of uniform bytes: 256 streams of 2^18, all codes 8 bits
 
 
@@ -468,7 +519,7 @@ def bitstream_case_data(name: str):
         require(cb.min_len == cb.max_len == 8, f"{name}: codes of {cb.min_len}-{cb.max_len} bits")
     else:
         n = {"ragged_s4096": 10 * S - 777, "s1000": 50 * S + 7, "default_3streams": 3 * S - 5,
-             "two_dispatch_s131072": 2 * S - 777}
+             "two_dispatch_s131072": 2 * S - 777, "host_two_dispatch_s131072": 2 * S - 777}
         arr = make_corpus(n[name], seed=S + 3)
         cb = build_codebook(histogram_bytes(arr), 32)
     sym = np.random.default_rng(S).integers(0, 256, -(-arr.size // S) * S, dtype=np.uint8)
@@ -476,71 +527,102 @@ def bitstream_case_data(name: str):
     return sym, arr.size, S, cb
 
 
-def _packed(lj: torch.Tensor, lens: torch.Tensor, S: int):
-    """(offsets, n_words, starts) of codes and lengths: the int64 exclusive
-    cumsum, the payload's word count and each stream's start bit."""
-    offsets = torch.cumsum(lens, 0, dtype=torch.int64)
-    n_words = (int(offsets[-1]) + 31) >> 5
-    offsets -= lens
-    sb = lens.view(-1, S).sum(dim=1, dtype=torch.int64)
-    return offsets, n_words, torch.cumsum(sb, 0) - sb
+class PackInputs:
+    """The pack's inputs and its plain versions' outputs for codes and
+    lengths on one device: each kernel sees the inputs the path gives it."""
+
+    def __init__(self, lj: torch.Tensor, lens: torch.Tensor, S: int):
+        self.lj, self.lens, self.S = lj, lens, S
+        self.words, self.total, self.sb = be.pack_codes_ref(lj, lens, S)
+        self.starts = torch.cumsum(self.sb, 0) - self.sb
+        self.n_words = self.words.numel()
+        self.tile_end = torch.cumsum(be.pack_scan_ref(lens), 0)
+
+    def scan(self, fn):
+        return fn(self.lens)
+
+    def pack(self, fn, phase: int = 0):
+        return fn(self.lj, self.lens, self.tile_end, phase, self.S,
+                  (phase + self.total + 31) >> 5)
+
+    def check(self, name: str) -> None:
+        """pack_scan and pack_tiles bit-exact against their plain versions,
+        from bit 0 and from bit PACK_PHASE, and the whole step (pack_codes)
+        against pack_codes_ref."""
+        require(max_abs_err(self.scan(be.pack_scan), self.scan(be.pack_scan_ref)) == 0,
+                f"{name}: pack_scan")
+        for phase in (0, PACK_PHASE):
+            require(max_abs_err(self.pack(be.pack_tiles, phase),
+                                self.pack(be.pack_tiles_ref, phase)) == 0,
+                    f"{name}: pack_tiles from bit {phase}")
+        words, total, sb = be.pack_codes(self.lj, self.lens, self.S, PACK_PHASE)
+        want = be.pack_codes_ref(self.lj, self.lens, self.S, PACK_PHASE)
+        require(total == want[1] and max_abs_err((words, sb), (want[0], want[2])) == 0,
+                f"{name}: pack_codes from bit {PACK_PHASE}")
 
 
-class BitstreamInputs:
+class BitstreamInputs(PackInputs):
     """Everything the byte bitstream kernels take for one input, on one
     device.  Each plain version makes the next kernel's input, so every
     kernel sees the inputs the path gives it."""
 
     def __init__(self, sym: np.ndarray, n_valid: int, S: int, cb, dev: torch.device):
-        self.n_valid, self.S, self.cb = n_valid, S, cb
+        self.n_valid, self.cb = n_valid, cb
         self.arr = sym[:n_valid]
         self.sym = torch.from_numpy(sym).to(dev)
         self.lj_tbl = _i32_tensor(cb.left_justified_codes(), dev)
         self.len_tbl = _i32_tensor(cb.lengths.astype(np.uint32), dev)
-        self.lj, self.lens = self.lookup(be.lookup_lj_lens_ref)
-        self.offsets, self.n_words, self.starts = _packed(self.lj, self.lens, S)
-        self.words = self.pack(be.pack_lj_ref)
+        super().__init__(*self.lookup(be.lookup_lj_lens_ref), S)
         self.tables = decode_tables(cb, dev)
 
     def lookup(self, fn):
         return fn(self.sym, self.n_valid, self.lj_tbl, self.len_tbl)
 
-    def pack(self, fn):
-        return fn(self.lj, self.offsets, self.n_words)
-
     def decode(self, fn):
         return fn(self.words, self.starts, self.n_valid, self.S, *self.tables,
                   self.cb.min_len, self.cb.max_len)
 
-    def dispatched(self, dispatch: int):
-        """(words, starts) of the same symbols packed as the device
-        container packs dispatches of `dispatch` symbols: each dispatch on
-        its own and word-aligned, so its last stream's recorded bits carry
-        the pad."""
+    def dispatched(self, dispatch: int, host: bool):
+        """(words, starts) of the same symbols packed by the kernels in
+        dispatches of `dispatch` symbols, as the containers pack them: the
+        device container's each on its own and word-aligned (its last
+        stream's recorded bits carry the pad); the host container's each
+        from the bits before it, the word two dispatches share ORed."""
         words, starts, at = [], [], 0
         for lo in range(0, self.sym.numel(), dispatch):
-            part = BitstreamInputs(self.sym[lo : lo + dispatch].cpu().numpy(),
-                                   min(self.n_valid - lo, dispatch), self.S, self.cb,
-                                   self.sym.device)
-            words.append(part.words)
-            starts.append(part.starts + 32 * at)
-            at += part.words.numel()
+            lj, lens = (t[lo : lo + dispatch] for t in (self.lj, self.lens))
+            w, total, sb = be.pack_codes(lj, lens, self.S, at if host else 0)
+            base = at if host else 32 * sum(x.numel() for x in words)
+            starts.append(torch.cumsum(sb, 0) - sb + base)
+            if host and at & 31:
+                w[:1].bitwise_or_(words[-1][-1:])
+                words[-1] = words[-1][:-1]
+            words.append(w)
+            at += total
         return torch.cat(words), torch.cat(starts)
 
 
 def check_bitstream_case(name: str, dev: torch.device) -> float | None:
-    """K7, pack_lj and decode_streams on the card against their plain
-    versions for one case, bit-exact, plus the decode against the input.
-    The two-dispatch case decodes two word-aligned dispatches of one stream
-    each.  Returns the uniform 8-bit case's decode time in ms (CUDA events),
-    else None."""
+    """K7, the pack (pack_scan, pack_tiles) and decode_streams on the card
+    against their plain versions for one case, bit-exact, plus the decode
+    against the input.  The two-dispatch cases pack two dispatches of one
+    stream each with the kernels: word-aligned (the device container), or
+    the second from the first's last bit, which is not a word boundary (the
+    host container, whose words must be the one-pack plain words); and
+    decode them.  Returns the uniform 8-bit case's decode time in ms (CUDA
+    events), else None."""
     inp = BitstreamInputs(*bitstream_case_data(name), dev)
     require(max_abs_err(inp.lookup(be.lookup_lj_lens), (inp.lj, inp.lens)) == 0, f"{name}: K7")
-    require(max_abs_err(inp.pack(be.pack_lj), inp.words) == 0, f"{name}: pack_lj")
+    inp.check(name)
     if name.startswith("two_dispatch"):
-        inp.words, inp.starts = inp.dispatched(inp.S)
+        inp.words, inp.starts = inp.dispatched(inp.S, host=False)
         require(inp.starts.numel() == 2 and int(inp.starts[1]) % 32 == 0,
                 f"{name}: not two word-aligned dispatches")
+    if name.startswith("host_two_dispatch"):
+        words, starts = inp.dispatched(inp.S, host=True)
+        require(int(starts[1]) % 32 != 0, f"{name}: the second dispatch starts on a word")
+        require(max_abs_err((words, starts), (inp.words, inp.starts)) == 0,
+                f"{name}: two host dispatches differ from one pack")
     out = inp.decode(bd.decode_streams)
     require(max_abs_err(out, inp.decode(bd.decode_streams_ref)) == 0, f"{name}: decode_streams")
     require(np.array_equal(out.cpu().numpy(), inp.arr), f"{name}: round trip")
@@ -550,7 +632,7 @@ def check_bitstream_case(name: str, dev: torch.device) -> float | None:
 
 
 # name -> tokens per stream; HuffWord cases of K6 (lj and length tables),
-# pack_lj and decode_streams_dual
+# the pack and decode_streams_dual
 HUFFWORD_BITSTREAM_CASES = {"hw_s16384": 1 << 14, "hw_odd_s1001": 1001,
                             "hw_nonword_s777": 777, "hw_one_token": 1 << 14,
                             "hw_bigvocab_s4097": 4097, "hw_deep32_s999": 999,
@@ -599,7 +681,7 @@ def huffword_bitstream_case(name: str):
     return ids, bool(wf), cbs, wv.n, nv.n, S
 
 
-class HuffwordBitstreamInputs:
+class HuffwordBitstreamInputs(PackInputs):
     """Everything the HuffWord bitstream kernels take for one token
     sequence, on one device; each plain version makes the next kernel's
     input."""
@@ -613,10 +695,8 @@ class HuffwordBitstreamInputs:
         self.ids_d = torch.from_numpy(ids_pad.view(np.int16 if self.small else np.int32)).to(dev)
         self.n0 = max(n_word, 1)
         self.lj_tbl, self.len_tbl = hw_model.bitstream_tables(cbs, n_word, n_nonword, dev)
-        self.lj = self.gather(lut.gather_entries_ref, self.lj_tbl)
-        self.lens = self.gather(lut.gather_entries_ref, self.len_tbl)
-        self.offsets, self.n_words, self.starts = _packed(self.lj, self.lens, S)
-        self.words = self.pack(be.pack_lj_ref)
+        super().__init__(self.gather(lut.gather_entries_ref, self.lj_tbl),
+                         self.gather(lut.gather_entries_ref, self.len_tbl), S)
         # the decoders' codebooks: those of the lengths a container stores
         cb_w, cb_n = (codebook_from_lengths(cb.lengths if k else np.zeros(0, np.int32))
                       for cb, k in zip(cbs, (n_word, n_nonword)))
@@ -630,9 +710,6 @@ class HuffwordBitstreamInputs:
     def gather(self, fn, tbl: torch.Tensor):
         return fn(self.ids_d, tbl, 0, self.n0, self.T, self.word_first)
 
-    def pack(self, fn):
-        return fn(self.lj, self.offsets, self.n_words)
-
     def decode(self, fn):
         return fn(self.words, self.starts, self.T, self.S, self.fc, self.off, *self.len_range)
 
@@ -642,16 +719,16 @@ class HuffwordBitstreamInputs:
 
 
 def check_huffword_bitstream_case(name: str, dev: torch.device) -> str | None:
-    """K6 with the lj and the length tables, pack_lj and decode_streams_dual
-    on the card against their plain versions for one case, bit-exact, plus
-    the token round trip.  Returns the uniform8 case's decode time (CUDA
+    """K6 with the lj and the length tables, the pack (pack_scan,
+    pack_tiles) and decode_streams_dual on the card against their plain
+    versions for one case, bit-exact, plus the token round trip.  Returns the uniform8 case's decode time (CUDA
     events) and its synchronisation rounds (the plain subsequence table's:
     the kernel runs the same rounds), else None."""
     inp = HuffwordBitstreamInputs(*huffword_bitstream_case(name), dev)
     for tbl, want, what in ((inp.lj_tbl, inp.lj, "lj"), (inp.len_tbl, inp.lens, "lengths")):
         require(max_abs_err(inp.gather(lut.gather_entries, tbl), want) == 0,
                 f"{name}: K6 {what}")
-    require(max_abs_err(inp.pack(be.pack_lj), inp.words) == 0, f"{name}: pack_lj")
+    inp.check(name)
     ranks = inp.decode(bd.decode_streams_dual)
     require(max_abs_err(ranks, inp.decode(bd.decode_streams_dual_ref)) == 0,
             f"{name}: decode_streams_dual")
@@ -777,7 +854,7 @@ def kernel_name(mangled: str) -> str:
     arguments (lanes per thread, entry words, u16/u32 element types)."""
     m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_kernel|"
                   r"decode_dual_kernel|decode_kernel|lut_gather_kernel|lookup_lj_lens_kernel|"
-                  r"pack_lj_kernel|decode_streams_sync_kernel)"
+                  r"pack_scan_kernel|pack_tiles_kernel|decode_streams_sync_kernel)"
                   r"(I.*E)?", mangled)
     if not m:
         return mangled
@@ -913,7 +990,7 @@ def bitstream_host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
         out["pad + H2D symbols"] = out.get("pad + H2D symbols", 0.0) + h2d["one"]
     words_d = torch.empty(len(f.payload) // 4, dtype=torch.int32, device=dev)
     words = clock(out, "D2H payload", lambda: words_d.cpu().numpy().view(np.uint32))
-    clock(out, "big-endian payload bytes", lambda: words.astype(">u4").tobytes())
+    clock(out, "words_to_bytes", lambda: bitio.words_to_bytes(words, 32 * words.size - 3))
     clock(out, "bytes_to_words + H2D payload",
           lambda: _i32_tensor(bitio.bytes_to_words(f.payload), dev))
     sym = torch.empty(arr.size, dtype=torch.uint8, device=dev)
@@ -941,12 +1018,46 @@ def measure(kname: str, kernel, plain_fn, nbytes: int, nops: int, launches: dict
     b_ms, b_by = bound(nbytes, nops)
     print(f"time: {kname} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
           f"{b_by}; {nbytes} B, {nops} ops"
-          + (f"; torch.take {lib_ms:.3f} ms" if lib_ms is not None else "")
+          + (f"; library {lib_ms:.3f} ms" if lib_ms is not None else "")
           + f") on {card}", flush=True)
     return {"name": kname, "route": "cuda", "source": "glz_tpu_torch/csrc/bitstream.cu",
             "replaces": REPLACES[kname], "launches": launches[kname], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
+
+
+def old_pack_module():
+    """tools/pack_phases.py, which holds the first port's pack step."""
+    spec = importlib.util.spec_from_file_location("pack_phases", ROOT / "tools" / "pack_phases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pack_step_times(inp: PackInputs, what: str, card: str) -> None:
+    """The whole pack step (pack_codes: the tile sums, their cumsum, the
+    total on the host, the zeroed words, the pack and the stream bits' diff)
+    on the card, against the first port's step (an int64 torch.cumsum, the
+    subtraction, the per-stream sum, the total, the zeroed words and
+    pack_lj_kernel, built from tools/pack_phases.py) on the same codes, in
+    turns: old, new, new, old.  Both must give the plain version's words."""
+    pack_phases = old_pack_module()
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR) as tmp:
+        lib = pack_phases.build_old(pathlib.Path(tmp))
+        old = lambda: pack_phases.old_pack_step(lib, inp.lj, inp.lens, inp.S)  # noqa: E731
+        new = lambda: be.pack_codes(inp.lj, inp.lens, inp.S)  # noqa: E731
+        for name, fn in (("old", old), ("new", new)):
+            words, total, sb = fn()
+            require(total == inp.total and max_abs_err((words, sb), (inp.words, inp.sb)) == 0,
+                    f"{what}: the {name} pack step differs from the plain version")
+        times = [cuda_ms(fn, reps=5) for fn in (old, new, new, old)]
+    b_ms, b_by = bound(8 * inp.lens.numel() + 4 * inp.n_words,
+                       OPS_PER_SYMBOL["pack_tiles"] * inp.lens.numel())
+    print(f"time: pack step ({what}: {inp.total} bits) {min(times[1:3]):.3f} ms "
+          f"(runs {times[1]:.3f}, {times[2]:.3f}); first port's cumsum + pack step "
+          f"{min(times[0], times[3]):.3f} ms (runs {times[0]:.3f}, {times[3]:.3f}); the "
+          f"function's bound {b_ms:.3f} ms by {b_by}; on {card}", flush=True)
 
 
 def bitstream_kernel_times(arr: np.ndarray, blob: bytes, launches: dict,
@@ -955,7 +1066,8 @@ def bitstream_kernel_times(arr: np.ndarray, blob: bytes, launches: dict,
     path's first dispatch (2^27 symbols) with its codebook, the stream
     decode on the whole container; each against its plain version, the
     decode also against the input.  K7's library yardstick is torch.take of
-    one table holding both values (lj | length << 32) on the same symbols."""
+    one table holding both values (lj | length << 32) on the same symbols;
+    pack_scan's is a sum over the lengths viewed as [tiles, PACK_TILE]."""
     f = container.read_container(blob)
     S, n = f.stream_symbols, f.n_symbols
     cb = codebook_from_lengths(container.decode_byte_codebook(f.codebook_blob))
@@ -969,8 +1081,17 @@ def bitstream_kernel_times(arr: np.ndarray, blob: bytes, launches: dict,
                     OPS_PER_SYMBOL["lookup_lj_lens"] * m, launches, card,
                     library=lambda: torch.take(both, idx))]
     del both, idx
-    rows.append(measure("pack_lj", lambda: inp.pack(be.pack_lj), lambda: inp.pack(be.pack_lj_ref),
-                        12 * m + 4 * inp.n_words, OPS_PER_SYMBOL["pack_lj"] * m, launches, card))
+    tiles = inp.tile_end.numel()
+    require(m % be.PACK_TILE == 0, f"main shape: {m} codes are not whole pack tiles")
+    rows.append(measure("pack_scan", lambda: inp.scan(be.pack_scan),
+                        lambda: inp.scan(be.pack_scan_ref), 4 * m + 8 * tiles,
+                        OPS_PER_SYMBOL["pack_scan"] * m, launches, card,
+                        library=lambda: inp.lens.view(-1, be.PACK_TILE).sum(1, dtype=torch.int64)))
+    rows.append(measure("pack_tiles", lambda: inp.pack(be.pack_tiles),
+                        lambda: inp.pack(be.pack_tiles_ref),
+                        8 * m + 8 * tiles + 4 * inp.n_words + 8 * (m // S + 1),
+                        OPS_PER_SYMBOL["pack_tiles"] * m, launches, card))
+    pack_step_times(inp, f"byte bitstream dispatch of {m} symbols", card)
     del inp
     words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
     sb = f.stream_bits.astype(np.int64)
@@ -1012,8 +1133,7 @@ def huffword_bitstream_kernel_times(blob: bytes, vocabs, launches: dict,
     _, _, wf, wv, nv, ids = vocabs
     cbs = [build_codebook(v.counts, cfg.DEFAULT.length_limit) for v in (wv, nv)]
     inp = HuffwordBitstreamInputs(ids, bool(wf), cbs, wv.n, nv.n, f.stream_symbols, dev)
-    total_bits = int(inp.offsets[-1] + inp.lens[-1].long())
-    require(bitio.words_to_bytes(inp.words.cpu().numpy().view(np.uint32), total_bits)
+    require(bitio.words_to_bytes(inp.words.cpu().numpy().view(np.uint32), inp.total)
             == f.payload, "huffword bitstream main shape: payload differs from the container's")
     T, n_pad = inp.T, inp.ids_d.numel()
     id_bytes = 2 if inp.small else 4
@@ -1025,12 +1145,8 @@ def huffword_bitstream_kernel_times(blob: bytes, vocabs, launches: dict,
                            OPS_PER_SYMBOL["lut_gather"] * n_pad)
         print(f"time: lut_gather/bitstream {what} {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}) "
               f"on {card}", flush=True)
-    err = max_abs_err(inp.pack(be.pack_lj), inp.words)
-    require(err == 0, f"huffword bitstream main shape: pack_lj differs by {err}")
-    ms = cuda_ms(lambda: inp.pack(be.pack_lj), reps=5)
-    b_ms, b_by = bound(12 * n_pad + 4 * inp.n_words, OPS_PER_SYMBOL["pack_lj"] * n_pad)
-    print(f"time: pack_lj/huffword {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}; {T} tokens) "
-          f"on {card}", flush=True)
+    inp.check("huffword bitstream main shape")
+    pack_step_times(inp, f"HuffWord bitstream, {T} tokens", card)
 
     def same_as_tokens(ranks):
         require(np.array_equal(inp.token_ids(ranks), ids),
@@ -1059,7 +1175,7 @@ def huffword_bitstream_kernel_times(blob: bytes, vocabs, launches: dict,
     return rows
 
 
-def round_trip(data, mode: int, conf: cfg.GlzConfig):
+def round_trip(data, mode: int, conf: cfg.GlzConfig, backend: str = "host"):
     """(blob, output, compress s, decompress s, launches) of one timed
     round trip through the entry points, the launch counts zeroed just
     before and read just after; peak device memory is reset before."""
@@ -1067,7 +1183,7 @@ def round_trip(data, mode: int, conf: cfg.GlzConfig):
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    blob = gt.compress(data, mode=mode, conf=conf)
+    blob = gt.compress(data, mode=mode, backend=backend, conf=conf)
     torch.cuda.synchronize()
     t_c = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1110,11 +1226,14 @@ def main() -> int:
     t0 = time.perf_counter()
     for case in HUFFWORD_CASES:
         check_huffword_case(case, dev)
+    for case in K5_RANDOM_CASES:
+        check_k5_random(case, dev)
     torch.cuda.synchronize()
     print(f"kernels: lut_gather (gather_entries, map_ranks), lane_totals_entries, "
-          f"encode_entries, decode_dual bit-exact vs plain, tokens round-trip, on "
-          f"{len(HUFFWORD_CASES)}/{len(HUFFWORD_CASES)} cases "
-          f"({', '.join(HUFFWORD_CASES)}); {time.perf_counter() - t0:.1f} s", flush=True)
+          f"encode_entries, decode_dual bit-exact vs plain, "
+          f"tokens round-trip, on {len(HUFFWORD_CASES)}/{len(HUFFWORD_CASES)} cases "
+          f"({', '.join(HUFFWORD_CASES)}); decode_dual on random words at "
+          f"{', '.join(K5_RANDOM_CASES)}; {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     uniform_ms = [check_bitstream_case(case, dev) for case in BITSTREAM_CASES]
@@ -1122,9 +1241,10 @@ def main() -> int:
     hw_uniform = [check_huffword_bitstream_case(case, dev) for case in HUFFWORD_BITSTREAM_CASES]
     hw_uniform = next(line for line in hw_uniform if line is not None)
     torch.cuda.synchronize()
-    print(f"kernels: lookup_lj_lens, pack_lj, decode_streams bit-exact vs plain, round trip, "
+    print(f"kernels: lookup_lj_lens, pack_scan, pack_tiles (from bit 0 and bit {PACK_PHASE}), "
+          f"decode_streams bit-exact vs plain, round trip, "
           f"on {len(BITSTREAM_CASES)}/{len(BITSTREAM_CASES)} cases "
-          f"({', '.join(BITSTREAM_CASES)}); lut_gather (lj, lengths), pack_lj, "
+          f"({', '.join(BITSTREAM_CASES)}); lut_gather (lj, lengths), pack_scan, pack_tiles, "
           f"decode_streams_dual on {len(HUFFWORD_BITSTREAM_CASES)}/"
           f"{len(HUFFWORD_BITSTREAM_CASES)} cases ({', '.join(HUFFWORD_BITSTREAM_CASES)}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1179,25 +1299,33 @@ def main() -> int:
     print("host: HuffWord " + ", ".join(f"{k} {v:.1f} ms" for k, v in hsteps.items())
           + f" (each re-run alone at {hn >> 20} MiB; container {len(hblob)} B)", flush=True)
 
-    # ---- 4c. byte bitstream path: the same 512 MiB under DEFAULT with checksum
+    # ---- 4c. byte bitstream path: the same 512 MiB under DEFAULT with checksum,
+    # through glz_tpu's default front door (backend "host"), then the
+    # device backend's container
     bconf = dataclasses.replace(cfg.DEFAULT, checksum=True)
     gt.decompress(gt.compress(arr[: 1 << 20], conf=bconf))  # warm-up
-    bblob, out, t_c, t_d, blaunches = round_trip(arr, cfg.MODE_BYTE, bconf)
-    require(out == arr.tobytes(), "bitstream path: round trip mismatch")
-    require(all(blaunches[k] > 0 for k in BITSTREAM_KERNELS),
-            f"bitstream path missed a kernel: {blaunches}")
-    del out
+    bblobs = {}
+    for backend in ("host", "device"):
+        bblob, out, t_c, t_d, blaunches = round_trip(arr, cfg.MODE_BYTE, bconf, backend)
+        require(out == arr.tobytes(), f"bitstream path ({backend}): round trip mismatch")
+        require(all(blaunches[k] > 0 for k in BITSTREAM_KERNELS),
+                f"bitstream path ({backend}) missed a kernel: {blaunches}")
+        del out
+        bf = container.read_container(bblob)
+        dispatch = (cb_model.MAX_DISPATCH_SYMBOLS // bf.stream_symbols) * bf.stream_symbols
+        print(f"main: bitstream {n >> 20} MiB DEFAULT+checksum, backend {backend!r}, on {card}: "
+              f"{bf.n_streams} streams of {bf.stream_symbols} symbols in {-(-n // dispatch)} "
+              f"dispatches; compress {t_c * 1e3:.1f} ms ({n / t_c / 1e9:.3f} GB/s), decompress "
+              f"{t_d * 1e3:.1f} ms ({n / t_d / 1e9:.3f} GB/s), ratio {len(bblob) / n:.4f}, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, launches "
+              f"{blaunches}", flush=True)
+        bblobs[backend] = (bblob, blaunches)
+    bblob, blaunches = bblobs["host"]
     bf = container.read_container(bblob)
-    dispatch = (cb_model.MAX_DISPATCH_SYMBOLS // bf.stream_symbols) * bf.stream_symbols
-    print(f"main: bitstream {n >> 20} MiB DEFAULT+checksum on {card}: {bf.n_streams} streams "
-          f"of {bf.stream_symbols} symbols in {-(-n // dispatch)} dispatches; compress "
-          f"{t_c * 1e3:.1f} ms ({n / t_c / 1e9:.3f} GB/s), decompress {t_d * 1e3:.1f} ms "
-          f"({n / t_d / 1e9:.3f} GB/s), ratio {len(bblob) / n:.4f}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, launches {blaunches}",
-          flush=True)
     bsteps = bitstream_host_steps(arr, bblob, bconf, dev)
     print("host: bitstream " + ", ".join(f"{k} {v:.1f} ms" for k, v in bsteps.items())
           + f" (each re-run alone at {n >> 20} MiB; container {len(bblob)} B)", flush=True)
+    del bblobs
 
     # ---- 4d. HuffWord bitstream path: phase 4b's text under DEFAULT with checksum
     gt.decompress(gt.compress(text[: 1 << 20], mode=mode, conf=bconf))  # warm-up
@@ -1278,6 +1406,9 @@ def main() -> int:
     rows += huffword_kernel_times(text, hf, vocabs, hlaunches, dev, card)
     rows += bitstream_kernel_times(arr, bblob, blaunches, dev, card)
     rows += huffword_bitstream_kernel_times(hbblob, vocabs, hblaunches, dev, card)
+    regs = [line for line in ptxas_summary(_kernels.build_log())
+            if line.startswith(("pack_scan_kernel", "pack_tiles_kernel", "decode_dual_kernel"))]
+    print(f"registers (ptxas -v) of the kernels redesigned last: {'; '.join(regs)}", flush=True)
 
     # ---- 6. pinned digests
     text = (ROOT / "tests" / "fixtures" / "realtext.txt").read_bytes()[: 1 << 20]
@@ -1291,8 +1422,8 @@ def main() -> int:
         digest = hashlib.sha256(blob).hexdigest()
         require(digest == HUFFWORD_PINNED[key], f"pinned digest {key}: {digest}")
         require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")
-    for key, (pconf, pmode) in bitstream_pinned_configs().items():
-        blob = gt.compress(text, mode=pmode, conf=pconf)
+    for key, (pconf, pmode, backend) in bitstream_pinned_configs().items():
+        blob = gt.compress(text, mode=pmode, backend=backend, conf=pconf)
         digest = hashlib.sha256(blob).hexdigest()
         require(digest == BITSTREAM_PINNED[key], f"pinned digest {key}: {digest}")
         require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")

@@ -10,14 +10,18 @@ dictionaries) in both payload layouts: lockstep (the THROUGHPUT preset) and
 bitstream (DEFAULT, RATIO).  Lane totals, the reverse-sweep encode, the
 lockstep decodes and the vocabulary gather (csrc/lockstep.cu), and the byte
 lookup, the bit pack and the stream decodes (csrc/bitstream.cu) run as
-hand-written CUDA kernels.  Entry points run on the card unless the caller
-passes device='cpu', which runs the kernels' plain PyTorch versions.
+hand-written CUDA kernels.  The entry points take glz_tpu's arguments and
+defaults, so the same call writes the same file; they run on the card
+unless the caller passes device='cpu', which runs the kernels' plain
+PyTorch versions.
 
 Public API:
-    compress(data, mode=MODE_BYTE, conf=THROUGHPUT, device=None)
+    compress(data, mode=MODE_BYTE, backend="host", conf=DEFAULT, device=None)
                                                  -> bytes (.glz container)
-    decompress(blob, device=None)                -> bytes
-    compress_huffword_shared(datas, conf=THROUGHPUT, device=None)
+    decompress(blob, backend="host", variant=DECODER_TABLE, device=None)
+                                                 -> bytes
+    compress_huffword_shared(datas, conf=DEFAULT, backend="host",
+                             pipeline=True, device=None)
                                                  -> list[bytes] (one shared
                                                     dual codebook)
     codebook_from_lengths(lengths)               -> Codebook

@@ -2,7 +2,8 @@
 //
 //   K7 lookup_lj_lens_kernel     <- glz_tpu/ops/pallas_lut.py:_lut256_kernel, as
 //                                   glz_tpu/ops/encode.py:lookup_lj_lens calls it
-//      pack_lj_kernel            <- the XLA scatter of glz_tpu/ops/encode.py:pack_lj
+//      pack_scan_kernel,         <- the XLA cumsum and scatter of
+//      pack_tiles_kernel            glz_tpu/ops/encode.py:pack_lj
 //      decode_streams_sync_kernel<false, ...>
 //                                <- the XLA loop of glz_tpu/ops/decode.py:decode_block
 //                                   (byte mode)
@@ -75,34 +76,6 @@ __global__ void __launch_bounds__(kLookupThreads) lookup_lj_lens_kernel(
         lens[i] = valid ? len_t[sym[i]] : 0u;
       }
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The bit pack: one thread per code.  With o = offsets[i] and ph = o & 31,
-//   words[o >> 5]     |= lj[i] >> ph
-//   words[o >> 5 + 1] |= lj[i] << (32 - ph)        only when ph > 0
-// by atomicOr into a zeroed buffer (zero values and words past n_words are
-// skipped).  The XLA version is a cumsum plus a scatter-add; the cumsum stays
-// in PyTorch (int64), this is the scatter.  Bound by bytes (4 + 8 bytes in
-// per code, the words out once); neighbouring codes share words, so the
-// atomics to one word serialise in L2.
-// ---------------------------------------------------------------------------
-constexpr int kPackThreads = 256;
-
-__global__ void __launch_bounds__(kPackThreads) pack_lj_kernel(
-    const uint32_t* __restrict__ lj, const int64_t* __restrict__ offsets, int64_t n,
-    uint32_t* __restrict__ words, int64_t n_words) {
-  for (int64_t i = global_thread(); i < n; i += grid_stride()) {
-    const uint32_t c = lj[i];
-    if (c == 0u) continue;
-    const int64_t o = offsets[i];
-    const uint32_t ph = static_cast<uint32_t>(o) & 31u;
-    const int64_t w = o >> 5;
-    const uint32_t lo = c >> ph;
-    const uint32_t hi = ph ? (c << (32u - ph)) : 0u;
-    if (lo && w < n_words) atomicOr(words + w, lo);
-    if (hi && w + 1 < n_words) atomicOr(words + w + 1, hi);
   }
 }
 
@@ -230,6 +203,138 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int* warp_tot, int* t
   const int before = __shfl_sync(0xffffffffu, wt, (warp + 31) & 31);
   *total = __shfl_sync(0xffffffffu, wt, 31);
   return (warp ? before : 0) + inc - x;
+}
+
+// ---------------------------------------------------------------------------
+// The bit pack: glz_tpu/ops/encode.py:pack_lj's function.  Codes lj[i]
+// (left-justified, u32) of lens[i] bits are laid end to end from bit phase0
+// (< 32) of words[0]; stream k's bits are those of codes [k*S, (k+1)*S).
+// Two kernels and a cumsum between them:
+//   pack_scan_kernel   tile_end[b] = the bits of tile b (4,096 codes)
+//   torch.cumsum       tile_end[b] = the bits of tiles 0..b (n/4,096 values)
+//   pack_tiles_kernel  the words, and each stream's first bit
+// Bound by bytes: the function reads 8 bytes a code and writes the words
+// once (4.4 bits a code on the byte corpus: ~0.55 bytes).  The first port
+// (PERF.md) ran a torch int64 cumsum, a subtraction and a per-stream sum
+// over all n codes, read the 8-byte offsets, and did one or two atomicOr a
+// code in L2, where ~7 codes share a word and their atomics serialise.
+// Here each block packs one tile: a thread takes 16 consecutive codes (four
+// 16-byte loads each of lj and lens), a block scan of the threads' bit
+// counts places its run, and it lays its codes into the tile's words in
+// shared memory: whole words with plain stores (no other thread touches a
+// word that starts and ends inside its run), its first and last word with
+// a shared-memory atomicOr.  Then the block writes the tile's words out in
+// order (coalesced), plain stores but for the tile's first and last word,
+// which it shares with the neighbouring tiles and ORs into the zeroed
+// output.  The only traffic past the function's is the second read of lens
+// by pack_scan_kernel and the output's zero fill.  Shifts stay below 32.
+// ---------------------------------------------------------------------------
+constexpr int kPackThreads = 256;
+constexpr int kPackRun = 16;                        // codes a thread
+constexpr int kPackTile = kPackThreads * kPackRun;  // codes a block
+constexpr int kPackTileWords = kPackTile + 1;       // 32-bit codes from any phase
+
+// The 16 values of a thread's run (0 past n), in 16-byte loads where the
+// run is whole (src 16-byte aligned; first is a multiple of 16).
+__device__ __forceinline__ void load_run(const uint32_t* __restrict__ src, int64_t first,
+                                         int64_t n, uint32_t (&v)[kPackRun]) {
+  if (first + kPackRun <= n) {
+    const uint4* p = reinterpret_cast<const uint4*>(src + first);
+#pragma unroll
+    for (int q = 0; q < kPackRun / 4; ++q) {
+      const uint4 x = __ldcs(p + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPackRun; ++i) v[i] = first + i < n ? src[first + i] : 0u;
+  }
+}
+
+__global__ void __launch_bounds__(kPackThreads) pack_scan_kernel(
+    const uint32_t* __restrict__ lens, int64_t n, int64_t* __restrict__ tile_bits) {
+  __shared__ int warp_sum[kPackThreads / 32];
+  uint32_t l[kPackRun];
+  load_run(lens, static_cast<int64_t>(blockIdx.x) * kPackTile + threadIdx.x * kPackRun, n, l);
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < kPackRun; ++i) s += static_cast<int>(l[i]);
+  s = __reduce_add_sync(0xffffffffu, s);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kPackThreads / 32; ++w) t += warp_sum[w];
+    tile_bits[blockIdx.x] = t;
+  }
+}
+
+__global__ void __launch_bounds__(kPackThreads) pack_tiles_kernel(
+    const uint32_t* __restrict__ lj, const uint32_t* __restrict__ lens, int64_t n,
+    const int64_t* __restrict__ tile_end, int phase0, int64_t S, uint32_t* __restrict__ words,
+    int64_t n_words, int64_t* __restrict__ starts) {
+  __shared__ uint32_t tile_words[kPackTileWords];
+  __shared__ int warp_tot[kPackThreads / 32];
+  const int64_t b = blockIdx.x;
+  const int64_t first = b * kPackTile + threadIdx.x * kPackRun;
+  uint32_t l[kPackRun], c[kPackRun];
+  load_run(lens, first, n, l);
+  load_run(lj, first, n, c);
+  int run = 0;
+#pragma unroll
+  for (int i = 0; i < kPackRun; ++i) run += static_cast<int>(l[i]);
+  int total;
+  const int pre = block_exclusive_scan<kPackThreads>(run, warp_tot, &total);
+  const int64_t tile_bit = b ? tile_end[b - 1] : 0;  // the tile's first bit, in the dispatch
+  const int64_t lo = tile_bit + phase0;               // ... and in the words
+  const int64_t w0 = lo >> 5;                         // the tile's first word
+  const int span = total ? static_cast<int>(((lo + total - 1) >> 5) - w0 + 1) : 0;
+  for (int i = threadIdx.x; i < span; i += kPackThreads) tile_words[i] = 0u;
+  // the first bit of each stream that starts in this run
+  for (int64_t at = (first + S - 1) / S * S; at < first + kPackRun && at < n; at += S) {
+    int part = 0;
+#pragma unroll
+    for (int i = 0; i < kPackRun; ++i) part += i < at - first ? static_cast<int>(l[i]) : 0;
+    starts[at / S] = tile_bit + pre + part;
+  }
+  if (b == gridDim.x - 1 && threadIdx.x == 0) starts[n / S] = tile_end[b];
+  __syncthreads();
+  // this run's codes into the tile's words; bit positions from word w0's first
+  const int pos = static_cast<int>(lo & 31) + pre;
+  const int first_w = pos >> 5;
+  int wi = first_w;
+  uint32_t ph = static_cast<uint32_t>(pos) & 31u;
+  uint32_t acc = 0u;
+#pragma unroll
+  for (int i = 0; i < kPackRun; ++i) {
+    const uint32_t ln = l[i];
+    if (ln == 0u) continue;
+    acc |= c[i] >> ph;
+    if (ph + ln >= 32u) {  // the word is full: whole inside the run unless it is the first
+      if (wi == first_w) atomicOr(tile_words + wi, acc); else tile_words[wi] = acc;
+      ++wi;
+      acc = ph ? c[i] << (32u - ph) : 0u;
+      ph = ph + ln - 32u;
+    } else {
+      ph += ln;
+    }
+  }
+  if (ph) atomicOr(tile_words + wi, acc);  // the run's last word, shared with the next run
+  __syncthreads();
+  for (int i = threadIdx.x; i < span; i += kPackThreads) {
+    const int64_t w = w0 + i;
+    const uint32_t v = tile_words[i];
+    if (w >= n_words) break;
+    if (i == 0 || i == span - 1) {
+      if (v) atomicOr(words + w, v);
+    } else {
+      words[w] = v;
+    }
+  }
 }
 
 // One code of either form at the window v, in parity par: its length, and
@@ -565,14 +670,30 @@ int glz_lookup_lj_lens(const void* sym, long long n, long long n_valid, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: n_words u32, zeroed by the caller.
-int glz_pack_lj(const void* lj, const void* offsets, long long n, void* words,
-                long long n_words, void* stream) {
-  if (n <= 0 || n_words <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  pack_lj_kernel<<<blocks_for(n, kPackThreads), kPackThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(lj), static_cast<const int64_t*>(offsets), n,
-      static_cast<uint32_t*>(words), n_words);
+// lens 16-byte aligned; tile_bits: ceil(n / 4096) int64.
+int glz_pack_scan(const void* lens, long long n, void* tile_bits, void* stream) {
+  if (n <= 0 || reinterpret_cast<uintptr_t>(lens) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  pack_scan_kernel<<<static_cast<unsigned>((n + kPackTile - 1) / kPackTile), kPackThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(lens), n,
+                                                          static_cast<int64_t*>(tile_bits));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lj, lens 16-byte aligned, n a multiple of S; tile_end: the inclusive
+// cumsum of glz_pack_scan's tile bits; words: n_words u32, zeroed by the
+// caller; starts: n / S + 1 int64 (each stream's first bit, then the total).
+int glz_pack_tiles(const void* lj, const void* lens, long long n, const void* tile_end,
+                   int phase0, long long S, void* words, long long n_words, void* starts,
+                   void* stream) {
+  if (n <= 0 || S <= 0 || n % S != 0 || phase0 < 0 || phase0 > 31 || n_words < 0 ||
+      reinterpret_cast<uintptr_t>(lj) % 16 != 0 || reinterpret_cast<uintptr_t>(lens) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  pack_tiles_kernel<<<static_cast<unsigned>((n + kPackTile - 1) / kPackTile), kPackThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(lj), static_cast<const uint32_t*>(lens), n,
+      static_cast<const int64_t*>(tile_end), phase0, S, static_cast<uint32_t*>(words), n_words,
+      static_cast<int64_t*>(starts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,7 @@
 //   K4 encode_kernel<LPT, true>    <- the same factory, u32-entry mode
 //   K3 decode_kernel               <- glz_tpu/ops/pallas_decode.py:make_decode_kernel
 //   K5 decode_dual_kernel          <- glz_tpu/ops/pallas_decode.py:make_decode_kernel_dual
+//                                     (one block, or a cluster of blocks, per group)
 //   K6 lut_gather_kernel           <- glz_tpu/ops/pallas_lut.py:_lut_big_kernel_factory
 //                                     with its callers' index math (models/huffword.py)
 //
@@ -33,6 +34,7 @@
 // Shifts by 32 are undefined in CUDA: every site where the JAX kernels
 // select around a 32-bit shift keeps that select.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -491,38 +493,119 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K5: the HuffWord lockstep decode.  The first port's form of K3 (the canonical scan,
-// loads and stores in the step) with two canonical codebooks that
-// alternate by step parity: S is even and lane starts are multiples of S,
-// so step parity is token parity, and step t scans codebook t & 1 (set 0 is
+// K5: the HuffWord lockstep decode: K3 with two codebooks that alternate by
+// step parity.  S is even and lane starts are multiples of S, so step
+// parity is token parity, and step t decodes with codebook t & 1 (set 0 is
 // the even tokens' dictionary).  The output is the token's canonical rank
-// (v >> (32-len)) + off, unmasked, one u32 per token in file order; K6 maps
+// (v >> (32-len)) + offsets[len], one u32 per token in file order; K6 maps
 // ranks to token ids.  Inactive tokens write rank 0.  A codebook of an
-// empty dictionary has min_len = max_len = 0 and is only ever scanned by
-// inactive tokens.  It is operation-bound (the canonical scan) and
-// serial in t with a block barrier per step; both codebooks sit in shared
-// memory, where every lane reads the same entry (broadcast).
+// empty dictionary has min_len = max_len = 0 and is only ever used by
+// inactive tokens.  Bound by bytes (the payload read once, the ranks
+// written once), but serial in t with the group's refill scan every step.
+// Timed apart on an H100 (tools/k5_phases.py, PERF.md), the first port's
+// step lost most to its 4-byte rank stores at a stride of 4S bytes, then
+// its canonical scan, its refill loads and the block scan, as K3's did.  So
+// K5 takes K3's design:
+//   * codes: one probe of the dual tables each block builds
+//     (decode_table.cuh: build_dual_table, decode_dual); the rank comes
+//     from the window and offsets[len], so ranks above 65,535 need nothing
+//     more;
+//   * ranks: each lane's ranks go to shared memory and leave as 16-byte
+//     stores every dual_stage<LPT>() steps (a rank is 4 bytes): every 8
+//     steps, a whole 32-byte sector, where a thread has one lane, else every
+//     4; the staging is step-major (step, lane, thread), so a warp's
+//     staging stores and its reads back are to consecutive words;
+//   * refills: K3's ring of kRingWords words filled with cp.async ahead of
+//     the group's cursor.
+// Geometry.  A group of G = rows*128 lanes is one block of 1,024 threads
+// with LPT = rows/8 lanes each (C = 1, as K3 runs), or a cluster of C =
+// rows/8 blocks, each owning a contiguous 1/C of the lanes with one lane a
+// thread.  A cluster spreads a group over C SMs (the HuffWord benchmark's
+// 24 groups of rows 32 take 96 SMs instead of 24), and pays for it each
+// step: every block writes its refill count into every block's shared
+// memory and the cluster synchronises, so each block knows the counts
+// before its own.  Each block of a cluster fills its own ring with the
+// group's whole word stream (the other blocks' words come from L2).  The
+// entry launches the faster geometry at each rows, as tools/k5_phases.py
+// timed both on an H100 (PERF.md): one block at rows 8 and 16, the cluster
+// at rows 32 and 64.  Shared memory a block: the 64 KiB ring, 32 KiB of
+// staged ranks and the two tables (2 x 4 KiB at 12 bits).
 // ---------------------------------------------------------------------------
+// Steps of ranks staged per lane.
 template <int LPT>
+__host__ __device__ constexpr int dual_stage() {
+  return LPT == 1 ? 8 : 4;
+}
+
+// Dynamic shared memory of K5 before its tables: the ring and the staging.
+template <int LPT>
+constexpr size_t dual_smem() {
+  return sizeof(uint32_t) *
+         (kRingWords + static_cast<size_t>(kThreads) * LPT * dual_stage<LPT>());
+}
+
+// Writes the ranks of steps [t0, t] of this thread's lanes, t0 = t rounded
+// down to a multiple of dual_stage<LPT>(), from the staging (rank of step
+// w, lane j at stage[(w * LPT + j) * kThreads + thread]): 16-byte stores
+// (4-byte stores for a partial last piece, or where S % 4 != 0 leaves the
+// lane unaligned).
+template <int LPT>
+__device__ __forceinline__ void flush_ranks(const uint32_t* stage, uint32_t* __restrict__ dst,
+                                            int S, int t) {
+  constexpr int kStage = dual_stage<LPT>();
+  const int t0 = t & ~(kStage - 1);
+  const bool whole = t - t0 == kStage - 1 && (S & 3) == 0;
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    uint32_t o[kStage];
+#pragma unroll
+    for (int w = 0; w < kStage; ++w) o[w] = stage[(w * LPT + j) * kThreads + threadIdx.x];
+    uint32_t* d = dst + j * S + t0;
+    if (whole) {
+#pragma unroll
+      for (int q = 0; q < kStage; q += 4)
+        *reinterpret_cast<uint4*>(d + q) = make_uint4(o[q], o[q + 1], o[q + 2], o[q + 3]);
+    } else {
+#pragma unroll
+      for (int w = 0; w < kStage; ++w)
+        if (w <= t - t0) d[w] = o[w];
+    }
+  }
+}
+
+template <int LPT, int C>
 __global__ void __launch_bounds__(kThreads, 1) decode_dual_kernel(
     const uint32_t* __restrict__ payload, int64_t n_words,
-    const int64_t* __restrict__ gstart, const int32_t* __restrict__ gcount,
-    const uint32_t* __restrict__ fc_g, const uint32_t* __restrict__ off_g,
-    int min0, int max0, int min1, int max1, int S, uint32_t* __restrict__ out) {
-  __shared__ uint32_t fc[2][kCodeTable];
-  __shared__ uint32_t offs[2][kCodeTable];
+    const int64_t* __restrict__ gstart, const int32_t* __restrict__ gcount, int table_bits,
+    const uint32_t* __restrict__ fc_g, const uint32_t* __restrict__ off_g, int min0, int max0,
+    int min1, int max1, int S, uint32_t* __restrict__ out) {
+  constexpr int kStage = dual_stage<LPT>();
+  extern __shared__ uint4 dyn_smem[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(dyn_smem);  // kRingWords
+  uint32_t* stage = ring + kRingWords;                     // kStage x LPT x kThreads
+  uint8_t* lut = reinterpret_cast<uint8_t*>(ring + kRingWords + kThreads * LPT * kStage);
+  __shared__ glz::DualTable tbl;
   __shared__ int warp_tot[2][kWarps];
-  if (threadIdx.x < 2 * kCodeTable) {
-    fc[threadIdx.x / kCodeTable][threadIdx.x % kCodeTable] = fc_g[threadIdx.x];
-    offs[threadIdx.x / kCodeTable][threadIdx.x % kCodeTable] = off_g[threadIdx.x];
-  }
-  __syncthreads();
+  __shared__ int cta_tot[2][C];  // the step's refill count of each block of the cluster
+  glz::build_dual_table(tbl, lut, table_bits, fc_g, off_g, min0, max0, min1, max1);
 
-  constexpr int G = LPT * kThreads;
-  const int g = blockIdx.x;
-  const int lane_in_group = threadIdx.x * LPT;
+  constexpr int G = C * LPT * kThreads;
+  int cta = 0;
+  if constexpr (C > 1) cta = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const int g = blockIdx.x / C;
+  const int lane_in_group = (cta * kThreads + static_cast<int>(threadIdx.x)) * LPT;
   const int rem = lane_count(gcount[g], static_cast<int64_t>(lane_in_group) * S, LPT * S);
   uint32_t* dst = out + (static_cast<int64_t>(g) * G + lane_in_group) * S;
+
+  int64_t base = gstart[g];
+  int64_t issued = (base & ~static_cast<int64_t>(3)) + kRingWords;
+  fill_ring(ring, payload, n_words, issued - kRingWords, issued);
+  cp_async_commit();
+  cp_async_wait<0>();
+  // every block of the cluster has started before any writes another's
+  // shared memory
+  if constexpr (C > 1) cooperative_groups::this_cluster().sync(); else __syncthreads();
+  int64_t avail = issued, pending = issued;  // words below avail are in the ring
 
   // per lane: window words a, b; pq = phase | qm << 8
   uint32_t a[LPT], b[LPT], pq[LPT];
@@ -534,51 +617,71 @@ __global__ void __launch_bounds__(kThreads, 1) decode_dual_kernel(
     pq[j] = 31u << 8;
     if (min(max(rem - j * S, 0), S) > 0) need |= 1u << j;
   }
-  int64_t base = gstart[g];
   int parity = 0;
 
   for (int t = 0; t < S; ++t) {
     const int p = t & 1;
-    const int min_len = p ? min1 : min0;
-    const int max_len = p ? max1 : max0;
-    const uint32_t* fcp = fc[p];
-    const uint32_t* offp = offs[p];
     // ---- refill: refilling lanes take sequential words in lane order
     int total;
-    const int pre = block_exclusive_scan(__popc(need), warp_tot[parity], &total);
+    int pre = block_exclusive_scan(__popc(need), warp_tot[parity], &total);
+    if constexpr (C > 1) {
+      auto cluster = cooperative_groups::this_cluster();
+      if (threadIdx.x < C)
+        cluster.map_shared_rank(&cta_tot[parity][0], static_cast<int>(threadIdx.x))[cta] = total;
+      cluster.sync();
+      int before = 0, all = 0;
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        const int v = cta_tot[parity][r];
+        before += r < cta ? v : 0;
+        all += v;
+      }
+      pre += before;
+      total = all;
+    }
     parity ^= 1;
     int64_t idx = base + pre;
+    const int64_t target = (base & ~static_cast<int64_t>(3)) + kRingWords;
     base += total;
+    if (target > issued) {
+      fill_ring(ring, payload, n_words, issued, target);
+      issued = target;
+    }
+    cp_async_commit();
     uint32_t next_need = 0u;
 #pragma unroll
     for (int j = 0; j < LPT; ++j) {
       const uint32_t phase = pq[j] & 31u;
       const uint32_t qm = pq[j] >> 8;
       if (need & (1u << j)) {
-        const uint32_t w = idx < n_words ? payload[idx] : 0u;
+        const uint32_t word = idx < avail ? ring[idx & (kRingWords - 1)]
+                                          : (idx < n_words ? payload[idx] : 0u);
         ++idx;
-        if (phase == 0u) a[j] = w; else b[j] = w;
+        if (phase == 0u) a[j] = word; else b[j] = word;
       }
-      // ---- 32-bit window, left-justified
+      // ---- 32-bit window, left-justified; one table probe
       const uint32_t v = phase ? ((a[j] << phase) | (b[j] >> (32u - phase))) : a[j];
-      // ---- canonical length scan + fused offset select
-      uint32_t ln = static_cast<uint32_t>(min_len);
-      uint32_t off = offp[min_len];
-      for (int l = min_len; l < max_len; ++l) {
-        const bool c = v < fcp[l];
-        ln += c ? 1u : 0u;
-        off = c ? offp[l + 1] : off;
+      uint32_t r;
+      uint32_t ln = glz::decode_dual(tbl, lut, v, p, &r);
+      if (t >= min(max(rem - j * S, 0), S)) {  // inactive token
+        ln = 0u;
+        r = 0u;
       }
-      const bool active = t < min(max(rem - j * S, 0), S);
-      if (!active) ln = 0u;
-      dst[j * S + t] = active ? (v >> ((32u - ln) & 31u)) + off : 0u;
+      stage[((t & (kStage - 1)) * LPT + j) * kThreads + threadIdx.x] = r;
       // ---- advance
       if (phase + ln >= 32u) a[j] = b[j];
       if (qm + ln >= 32u) next_need |= 1u << j;
       pq[j] = ((phase + ln) & 31u) | (((qm + ln) & 31u) << 8);
     }
     need = next_need;
+    if ((t & (kStage - 1)) == kStage - 1 || t == S - 1)
+      flush_ranks<LPT>(stage, dst, S, t);
+    cp_async_wait<1>();
+    avail = pending;
+    pending = issued;
   }
+  // no block leaves while another may still write its shared memory
+  if constexpr (C > 1) cooperative_groups::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -728,28 +831,59 @@ int glz_decode_groups(const void* payload, long long n_words, const void* gstart
 }
 
 // fc, offsets: [2][34] u32, set 0 for even tokens.  A codebook's length
-// range is [0, 0] (an empty dictionary) or within [1, 32].
+// range is [0, 0] (an empty dictionary) or within [1, 32].  table_bits in
+// [1, 14] (the word table's; dual_bits).  S even; payload and out 16-byte
+// aligned.
 int glz_decode_dual(const void* payload, long long n_words, const void* gstart,
-                    const void* gcount, const void* fc, const void* offsets,
-                    int min0, int max0, int min1, int max1, int n_groups, int S,
-                    int rows, void* out, void* stream) {
+                    const void* gcount, int table_bits, const void* fc, const void* offsets,
+                    int min0, int max0, int min1, int max1, int n_groups, int S, int rows,
+                    void* out, void* stream) {
   auto bad_range = [](int lo, int hi) {
     return !((lo == 0 && hi == 0) || (1 <= lo && lo <= hi && hi <= kCodeTable - 2));
   };
-  if (n_groups <= 0 || S % 2 != 0 || bad_range(min0, max0) || bad_range(min1, max1))
+  if (n_groups <= 0 || S < 2 || S % 2 != 0 || bad_range(min0, max0) || bad_range(min1, max1) ||
+      table_bits < 1 || table_bits > glz::kMaxDualTableBits ||
+      reinterpret_cast<uintptr_t>(payload) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GLZ_DECODE_DUAL(LPT)                                                   \
-  decode_dual_kernel<LPT><<<n_groups, kThreads, 0, st>>>(                     \
-      static_cast<const uint32_t*>(payload), n_words,                          \
-      static_cast<const int64_t*>(gstart), static_cast<const int32_t*>(gcount), \
-      static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets), \
-      min0, max0, min1, max1, S, static_cast<uint32_t*>(out))
+  const size_t luts = (size_t{1} << glz::dual_bits(table_bits, max0)) +
+                      (size_t{1} << glz::dual_bits(table_bits, max1));
+  const uint32_t* pw = static_cast<const uint32_t*>(payload);
+  const int64_t* gs = static_cast<const int64_t*>(gstart);
+  const int32_t* gc = static_cast<const int32_t*>(gcount);
+  const uint32_t* f = static_cast<const uint32_t*>(fc);
+  const uint32_t* o = static_cast<const uint32_t*>(offsets);
+  uint32_t* ranks = static_cast<uint32_t*>(out);
+  const int64_t nw = n_words;
+#define GLZ_DECODE_DUAL(LPT, C)                                                         \
+  {                                                                                     \
+    auto kernel = decode_dual_kernel<LPT, C>;                                           \
+    const size_t smem = dual_smem<LPT>() + luts;                                        \
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                         static_cast<int>(smem));                       \
+    if (e != cudaSuccess) return static_cast<int>(e);                                   \
+    cudaLaunchConfig_t config = {};                                                     \
+    cudaLaunchAttribute attr[1];                                                        \
+    config.gridDim = dim3(static_cast<unsigned>(n_groups) * C);                         \
+    config.blockDim = dim3(kThreads);                                                   \
+    config.dynamicSmemBytes = smem;                                                     \
+    config.stream = st;                                                                 \
+    attr[0].id = cudaLaunchAttributeClusterDimension;                                   \
+    attr[0].val.clusterDim.x = C;                                                       \
+    attr[0].val.clusterDim.y = 1;                                                       \
+    attr[0].val.clusterDim.z = 1;                                                       \
+    config.attrs = attr;                                                                \
+    config.numAttrs = C > 1 ? 1 : 0;                                                    \
+    e = cudaLaunchKernelEx(&config, kernel, pw, nw, gs, gc, table_bits, f, o, min0, max0, \
+                           min1, max1, S, ranks);                                       \
+    if (e != cudaSuccess) return static_cast<int>(e);                                   \
+  }
   switch (rows) {
-    case 8: GLZ_DECODE_DUAL(1); break;
-    case 16: GLZ_DECODE_DUAL(2); break;
-    case 32: GLZ_DECODE_DUAL(4); break;
-    case 64: GLZ_DECODE_DUAL(8); break;
+    case 8: GLZ_DECODE_DUAL(1, 1); break;
+    case 16: GLZ_DECODE_DUAL(2, 1); break;
+    case 32: GLZ_DECODE_DUAL(1, 4); break;
+    case 64: GLZ_DECODE_DUAL(1, 8); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GLZ_DECODE_DUAL

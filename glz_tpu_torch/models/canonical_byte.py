@@ -10,13 +10,18 @@ The whole input is encoded in one launch per kernel.  The container does
 not depend on how the input is split into launches, because every split is
 a whole number of groups; all kernel index math is 64-bit.
 
-Bitstream: the byte lookup (K7), an int64 cumsum and the bit pack per
-dispatch, and the stream decode.  Here the dispatch split is part of the
-container: the input is encoded in dispatches of MAX_DISPATCH_SYMBOLS
-rounded down to whole streams, each dispatch's payload is padded to whole
-u32 words (stored big-endian), and the pad bits are added to the recorded
-bit count of the dispatch's last stream.  Decode never reads past a
-stream's symbol count, so the pads are invisible to it.
+Bitstream: the byte lookup (K7) and the bit pack (its scan and its pack)
+per dispatch of MAX_DISPATCH_SYMBOLS rounded down to whole streams, and the
+stream decode.  Two containers, as in the JAX package:
+  * compress_bytes_host (its backend="host", the default) writes the host
+    encoder's: an exact histogram, one bit stream across the dispatches,
+    each packed from the running bit offset (the word two dispatches share
+    is ORed on the card), and payload bytes up to the last code bit, the
+    last partial byte padded with 1s.  The split does not show in it;
+  * compress_bytes_device (backend="device") writes the device path's: each
+    dispatch's payload padded to whole u32 words (stored big-endian), the
+    pad bits added to the recorded bit count of the dispatch's last stream.
+Decode never reads past a stream's symbol count, so it reads both.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ import torch
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import bitio, container
 from glz_tpu_torch.core.api import _plan_streams, _verify
-from glz_tpu_torch.core.codebook import (Codebook, build_codebook,
-                                         canonical_codebook, sampled_histogram)
+from glz_tpu_torch.core.codebook import (Codebook, build_codebook, canonical_codebook,
+                                         histogram_bytes, sampled_histogram)
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.ops.decode import decode_streams
 from glz_tpu_torch.ops.encode import encode_block_fast
@@ -40,8 +45,8 @@ from glz_tpu_torch.ops.lockstep_encode import (MAX_FUSED_LEN,
                                                encode_payload_from_symbols)
 
 # Symbols per bitstream dispatch (rounded down to whole streams).  Not a
-# knob: it decides where the word-alignment pads go, so it is the JAX
-# package's value.
+# knob: it decides where the device container's word-alignment pads go, so
+# it is the JAX package's value.
 MAX_DISPATCH_SYMBOLS = 1 << 27
 
 
@@ -110,15 +115,16 @@ def group_tables(group_words: np.ndarray, n_symbols: int, G: int, S: int,
     return torch.from_numpy(starts).to(dev), _i32_tensor(counts, dev)
 
 
-def empty_container(conf: cfg.GlzConfig) -> bytes:
+def empty_container(conf: cfg.GlzConfig, lengths: np.ndarray | None = None) -> bytes:
     """The container of an empty input: bitstream layout, one stream of 0
-    bits, an all-zero codebook and no payload."""
+    bits, the code lengths (all zero when none are given) and no payload."""
     f = container.GlzFile(
         mode=cfg.MODE_BYTE,
         n_symbols=0,
         stream_symbols=conf.stream_symbols,
         stream_bits=np.zeros(1, dtype=np.uint64),
-        codebook_blob=container.encode_byte_codebook(np.zeros(256, np.uint8)),
+        codebook_blob=container.encode_byte_codebook(
+            np.zeros(256, np.uint8) if lengths is None else lengths.astype(np.uint8)),
         payload=b"",
         checksum=_crc(np.zeros(0, np.uint8), conf),
     )
@@ -212,7 +218,8 @@ def _symbols_on(chunk: np.ndarray, padded: int, dev: torch.device) -> torch.Tens
 
 def compress_bytes_device(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAULT,
                           codebook: Codebook | None = None, device=None) -> bytes:
-    """Layout-0 (bitstream) compression on the card (device=None) or, with
+    """Layout-0 (bitstream) compression into the device path's container
+    (word-aligned dispatches), on the card (device=None) or, with
     device='cpu', through the kernels' plain versions; a lockstep conf goes
     to compress_bytes_lockstep.  The container equals the JAX package's
     compress_bytes_device (its backend='device' path) byte for byte.
@@ -254,6 +261,63 @@ def compress_bytes_device(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DE
         stream_bits=np.concatenate(stream_bits_parts),
         codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
         payload=b"".join(payload_parts),
+        checksum=_crc(arr, conf),
+    )
+    return container.write_container(f)
+
+
+def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAULT,
+                        codebook: Codebook | None = None, device=None) -> bytes:
+    """Layout-0 (bitstream) compression into the host encoder's container
+    (glz_tpu/core/api.py:compress_bytes_host, glz_tpu's default), on the
+    card (device=None) or, with device='cpu', through the kernels' plain
+    versions.  The histogram is exact whatever conf.histogram_budget says.
+
+    Dispatch k is packed from bit pos_k (the bits of dispatches 0..k-1), so
+    its first word is the previous one's last when pos_k % 32 != 0: that
+    word stays on the card and is ORed into the next dispatch's first.
+
+    codebook: optional pre-built shared Codebook."""
+    dev = resolve_device(device)
+    arr = _as_array(data)
+    n = arr.size
+    if n == 0:
+        return empty_container(conf, None if codebook is None else codebook.lengths)
+    S = _plan_streams(n, conf)
+    dispatch = max((MAX_DISPATCH_SYMBOLS // S) * S, S)
+    cb = codebook if codebook is not None else build_codebook(histogram_bytes(arr),
+                                                              conf.length_limit)
+    lj_tbl = _i32_tensor(cb.left_justified_codes(), dev)
+    len_tbl = _i32_tensor(cb.lengths, dev)
+
+    word_parts: list[np.ndarray] = []
+    stream_bits_parts: list[np.ndarray] = []
+    pos = 0                # bits so far
+    carry = None           # the last, partial word so far (1 word, on the card)
+    for lo in range(0, n, dispatch):
+        n_valid = min(n, lo + dispatch) - lo
+        sym = _symbols_on(arr[lo : lo + n_valid], _round_up(n_valid, S), dev)
+        words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl, len_tbl, S,
+                                                           bit_offset=pos)
+        del sym
+        if carry is not None:
+            words[:1].bitwise_or_(carry)
+        pos += total_bits
+        whole = words.numel() - (1 if pos & 31 else 0)
+        carry = words[whole:] if pos & 31 else None
+        word_parts.append(words[:whole].cpu().numpy().view(np.uint32))
+        stream_bits_parts.append(stream_bits[: -(-n_valid // S)].cpu().numpy())
+        del words
+    if carry is not None:
+        word_parts.append(carry.cpu().numpy().view(np.uint32))
+
+    f = container.GlzFile(
+        mode=cfg.MODE_BYTE,
+        n_symbols=n,
+        stream_symbols=S,
+        stream_bits=np.concatenate(stream_bits_parts).astype(np.uint64),
+        codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
+        payload=bitio.words_to_bytes(np.concatenate(word_parts), pos),
         checksum=_crc(arr, conf),
     )
     return container.write_container(f)

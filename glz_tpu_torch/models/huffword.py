@@ -20,11 +20,14 @@ split into launches, because every split is a whole number of groups.
 Bitstream: streams of up to 2^14 tokens, one MSB-first bit stream whose
 last partial byte is padded with 1s.  Compress: on the card, K6 gathers
 each token's left-justified code and then its length (two launches: codes
-of 27-32 bits rule out the fused lj|len word), an int64 cumsum and the bit
-pack.  Decompress: the dual stream decode (a stream starts at the parity of
+of 27-32 bits rule out the fused lj|len word) and the bit pack (its scan
+and its pack).  Decompress: the dual stream decode (a stream starts at the parity of
 its first token, odd when S is odd) and K6's rank -> id gather.  The JAX
 package writes this layout on the host; the port runs the same codec on the
 card.  All kernel index math is 64-bit.
+
+backend="device" writes a lockstep container even under a bitstream conf,
+as the JAX package's compress_huffword does.
 """
 
 from __future__ import annotations
@@ -255,8 +258,8 @@ def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
     [n_streams]) of a layout-0 container.
 
     On the card: K6 gathers each token's left-justified code, then its
-    length, from its parity dictionary (0 past T); the int64 cumsum of the
-    lengths and the bit pack follow.  The payload is the words' big-endian
+    length, from its parity dictionary (0 past T); the bit pack (its scan
+    and its pack) follows.  The payload is the words' big-endian
     bytes up to the last code bit, the last partial byte padded with 1s."""
     dev = resolve_device(device)
     small = max(n_word, n_nonword) <= 0xFFFF
@@ -300,39 +303,42 @@ def _bitstream_container(data, conf: cfg.GlzConfig, T: int, word_first: bool, wv
     ))
 
 
-def compress_huffword(data: bytes | np.ndarray,
-                      conf: cfg.GlzConfig = cfg.THROUGHPUT, device=None) -> bytes:
+def compress_huffword(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAULT,
+                      backend: str = "host", device=None) -> bytes:
     """HuffWord compression on the card (device=None) or, with
-    device='cpu', through the kernels' plain versions, in conf.layout.
+    device='cpu', through the kernels' plain versions, into the container
+    glz_tpu's compress_huffword writes for the same arguments: lockstep when
+    backend is "device" or conf.layout is lockstep, else bitstream.
 
     Lockstep: code lengths are capped at 26 (the fused lj|len entry word);
     conf.stream_symbols of a byte preset selects 512 tokens per stream, and
     group_rows is capped by huffword_rows_cap with a warning.  Bitstream:
     code lengths are capped at conf.length_limit (up to 32)."""
-    if conf.layout == cfg.LAYOUT_LOCKSTEP:
+    lockstep = backend == "device" or conf.layout == cfg.LAYOUT_LOCKSTEP
+    if lockstep:
         _check_rows(conf)
     dev = resolve_device(device)
     _, _, word_first, wv, nv, ids = tok.build_vocabs(data)
-    if conf.layout == cfg.LAYOUT_LOCKSTEP:
+    if lockstep:
         return _compress_huffword_device(data, conf, word_first, wv, nv, ids, dev)
     cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), conf.length_limit)
            for v in (wv, nv)]
     return _bitstream_container(data, conf, ids.size, word_first, wv, nv, ids, cbs, dev)
 
 
-def compress_huffword_shared(datas: list[bytes],
-                             conf: cfg.GlzConfig = cfg.THROUGHPUT,
-                             pipeline: bool = True, device=None) -> list[bytes]:
+def compress_huffword_shared(datas: list[bytes], conf: cfg.GlzConfig = cfg.DEFAULT,
+                             backend: str = "host", pipeline: bool = True,
+                             device=None) -> list[bytes]:
     """Compress a multi-file corpus with ONE shared dual codebook.
 
     Each file's vocabularies are built independently, merged with
     tokenizer.merge_vocab_parts, and every file's token ids are remapped
     into the union before encoding.  Every returned container embeds the
     full shared codebook and decodes independently.  With pipeline=True two
-    files are in flight at once on a thread pool.  conf.layout selects the
-    container as in compress_huffword."""
+    files are in flight at once on a thread pool.  conf.layout and backend
+    select the container as in compress_huffword."""
     rows = _check_rows(conf)
-    lockstep = conf.layout == cfg.LAYOUT_LOCKSTEP
+    lockstep = backend == "device" or conf.layout == cfg.LAYOUT_LOCKSTEP
     dev = resolve_device(device)
     per = [tok.build_vocabs(d) for d in datas]
 

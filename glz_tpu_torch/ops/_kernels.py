@@ -35,8 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launches since the last reset_launch_counts(), by wrapper name.
 _LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0,
              "lane_totals_entries": 0, "encode_entries": 0, "decode_dual": 0,
-             "lut_gather": 0, "lookup_lj_lens": 0, "pack_lj": 0, "decode_streams": 0,
-             "decode_streams_dual": 0}
+             "lut_gather": 0, "lookup_lj_lens": 0, "pack_scan": 0, "pack_tiles": 0,
+             "decode_streams": 0, "decode_streams_dual": 0}
 _COUNT_LOCK = threading.Lock()  # the shared-codebook batch launches from two threads
 _LIB: ctypes.CDLL | None = None
 _BUILD_LOG = ""
@@ -50,11 +50,11 @@ _SIGNATURES = {
     "glz_encode_groups": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "glz_encode_entries": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "glz_decode_groups": [_P, _LL, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "glz_decode_dual": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P, _P],
+    "glz_decode_dual": [_P, _LL, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "glz_lut_gather": [_P, _I, _LL, _P, _LL, _LL, _LL, _LL, _LL, _P, _I, _P],
     "glz_lookup_lj_lens": [_P, _LL, _LL, _P, _P, _P, _P, _P],
-    "glz_pack_lj": [_P, _P, _LL, _P, _LL, _P],
+    "glz_pack_scan": [_P, _LL, _P, _P],
+    "glz_pack_tiles": [_P, _P, _LL, _P, _I, _LL, _P, _LL, _P, _P],
     "glz_decode_streams": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "glz_decode_streams_dual": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _I, _I, _I, _I, _I,
                                 _P, _P],

@@ -5,18 +5,19 @@ encode_block_fast.  A dispatch of u8 symbols becomes one MSB-first bit
 stream in u32 words, its streams stitched by construction:
 
     lj, lens = lj_tbl[sym], len_tbl[sym]   (0 past n_valid)     K7
-    offsets  = exclusive cumsum of lens (int64)                 torch.cumsum
-    words    = OR of each code's <= 2 touched words             pack kernel
+    offsets  = exclusive cumsum of lens          pack_scan + torch.cumsum
+    words    = the codes laid end to end at their offsets       pack_tiles
 
-The cumsum is outside any kernel, as it is XLA code outside any Pallas
-kernel in the JAX package.  u32 data (tables, lj, words) travels in int32
-tensors holding the bit pattern; the plain versions do u32 bit math in
-int64 and mask it to 32 bits, because CPU PyTorch has no u32 arithmetic.
-All offsets are 64-bit, so a dispatch may hold any number of bits.
+The pack may start at any bit of a payload (bit_offset), so dispatches of
+one stream follow each other without a pad.  u32 data (tables, lj, words)
+travels in int32 tensors holding the bit pattern; the plain versions do
+u32 bit math in int64 and mask it to 32 bits, because CPU PyTorch has no
+u32 arithmetic.  All offsets are 64-bit, so a dispatch may hold any number
+of bits.
 
 Each kernel has a plain PyTorch version (`*_ref`, CPU or CUDA tensors) and
 a wrapper that runs the plain version for CPU tensors and launches the CUDA
-kernel (csrc/bitstream.cu) for CUDA tensors.
+kernels (csrc/bitstream.cu) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -74,16 +75,27 @@ def lookup_lj_lens(sym: torch.Tensor, n_valid: int, lj_tbl: torch.Tensor,
 
 # ---- the bit pack ------------------------------------------------------------
 
-def _check_pack(lj: torch.Tensor, offsets: torch.Tensor, n_words: int) -> None:
-    _kernels.check(lj, "lj", torch.int32, (lj.numel(),), lj.device)
-    _kernels.check(offsets, "offsets", torch.int64, (lj.numel(),), lj.device)
-    if n_words < 0:
-        raise ValueError(f"n_words must not be negative, got {n_words}")
+# Codes per block of the pack kernels: 256 threads of 16 codes each.
+PACK_TILE = 4096
+
+
+def _check_pack(lj: torch.Tensor, lens: torch.Tensor, stream_symbols: int,
+                bit_offset: int) -> int:
+    """n, after checking the pack's inputs."""
+    n = lens.numel()
+    _kernels.check(lens, "lens", torch.int32, (n,), lens.device)
+    _kernels.check(lj, "lj", torch.int32, (n,), lens.device)
+    if stream_symbols < 1 or n % stream_symbols:
+        raise ValueError(f"pad the symbols to a multiple of stream_symbols "
+                         f"({stream_symbols}), got {n}")
+    if bit_offset < 0:
+        raise ValueError(f"bit_offset must not be negative, got {bit_offset}")
+    return n
 
 
 def pack_lj_ref(lj: torch.Tensor, offsets: torch.Tensor, n_words: int) -> torch.Tensor:
-    """Plain version of the pack: words int32 [n_words] (u32 bit patterns)
-    with, for every code i at bit offset o = offsets[i],
+    """The scatter of the plain pack: words int32 [n_words] (u32 bit
+    patterns) with, for every code i at bit offset o = offsets[i],
         words[o >> 5]     |= lj[i] >> (o & 31)
         words[o >> 5 + 1] |= lj[i] << (32 - (o & 31))   (only when o & 31 > 0)
     and parts that land at or past n_words dropped.  Codes hold no bits past
@@ -101,48 +113,119 @@ def pack_lj_ref(lj: torch.Tensor, offsets: torch.Tensor, n_words: int) -> torch.
     return to_i32(words)
 
 
-def pack_lj(lj: torch.Tensor, offsets: torch.Tensor, n_words: int) -> torch.Tensor:
-    """The bit pack (replaces the XLA scatter of glz_tpu/ops/encode.py:
-    pack_lj).  See pack_lj_ref for the function; CUDA tensors launch the
-    kernel.  lj: int32 [n] left-justified codes (0 where there is no
-    symbol); offsets: int64 [n] exclusive bit offsets."""
-    _check_pack(lj, offsets, n_words)
-    if _kernels.runs_plain(lj):
-        return pack_lj_ref(lj, offsets, n_words)
-    words = torch.zeros(n_words, dtype=torch.int32, device=lj.device)
-    if lj.numel() and n_words:
-        _kernels.launch("glz_pack_lj", "pack_lj", _kernels.ptr(lj), _kernels.ptr(offsets),
-                        lj.numel(), _kernels.ptr(words), n_words)
-    return words
-
-
-# ---- the pack with its offsets, and one byte dispatch ------------------------
-
-def pack_codes(lj: torch.Tensor, lens: torch.Tensor, stream_symbols: int
-               ) -> tuple[torch.Tensor, int, torch.Tensor]:
-    """Left-justified codes and their lengths (int32, 0 where there is no
-    symbol) -> (words int32 [ceil(total/32)], total_bits, stream_bits int64
-    [n // stream_symbols]): the int64 exclusive cumsum of the lengths, then
-    the pack, as glz_tpu/ops/encode.py:pack_lj computes them (the words past
-    the last code's are not returned; they are 0)."""
-    n = lens.numel()
-    if stream_symbols < 1 or n % stream_symbols:
-        raise ValueError(f"pad the symbols to a multiple of stream_symbols "
-                         f"({stream_symbols}), got {n}")
-    offsets = torch.cumsum(lens, 0, dtype=torch.int64)
-    total_bits = int(offsets[-1]) if n else 0
-    offsets.sub_(lens)
+def pack_codes_ref(lj: torch.Tensor, lens: torch.Tensor, stream_symbols: int,
+                   bit_offset: int = 0) -> tuple[torch.Tensor, int, torch.Tensor]:
+    """Plain version of the pack: the int64 exclusive cumsum of the lengths,
+    shifted by bit_offset & 31, then the scatter (pack_lj_ref).  See
+    pack_codes for the function."""
+    n = _check_pack(lj, lens, stream_symbols, bit_offset)
+    ends = torch.cumsum(lens, 0, dtype=torch.int64)
+    total_bits = int(ends[-1]) if n else 0
+    phase = bit_offset & 31
+    words = pack_lj_ref(lj, ends - lens + phase, (phase + total_bits + 31) >> 5)
     stream_bits = lens.view(-1, stream_symbols).sum(dim=1, dtype=torch.int64)
-    return pack_lj(lj, offsets, (total_bits + 31) >> 5), total_bits, stream_bits
+    return words, total_bits, stream_bits
 
+
+def pack_scan_ref(lens: torch.Tensor) -> torch.Tensor:
+    """Plain version of pack_scan: int64 [ceil(n / PACK_TILE)], the bits of
+    each tile of PACK_TILE codes (the last tile ragged)."""
+    n = lens.numel()
+    padded = torch.zeros(-(-n // PACK_TILE) * PACK_TILE, dtype=torch.int64, device=lens.device)
+    padded[:n] = lens
+    return padded.view(-1, PACK_TILE).sum(dim=1)
+
+
+def pack_scan(lens: torch.Tensor) -> torch.Tensor:
+    """The pack's first kernel (the tile sums of glz_tpu/ops/encode.py:
+    pack_lj's cumsum).  See pack_scan_ref; CUDA tensors launch the kernel.
+    lens: int32 [n], n >= 1."""
+    n = lens.numel()
+    _kernels.check(lens, "lens", torch.int32, (n,), lens.device)
+    if n == 0:
+        raise ValueError("no codes to scan")
+    if _kernels.runs_plain(lens):
+        return pack_scan_ref(lens)
+    if lens.data_ptr() % 16:  # the kernel reads 16 bytes at a time
+        lens = lens.clone()
+    tile_bits = torch.empty(-(-n // PACK_TILE), dtype=torch.int64, device=lens.device)
+    _kernels.launch("glz_pack_scan", "pack_scan", _kernels.ptr(lens), n,
+                    _kernels.ptr(tile_bits))
+    return tile_bits
+
+
+def pack_tiles_ref(lj: torch.Tensor, lens: torch.Tensor, tile_end: torch.Tensor, phase: int,
+                   stream_symbols: int, n_words: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of pack_tiles: (words int32 [n_words], starts int64
+    [n // stream_symbols + 1]).  The codes are laid end to end from bit
+    `phase` of words[0]; starts holds each stream's first bit (from the
+    first code's, without `phase`) and then the total.  tile_end (the
+    inclusive cumsum of pack_scan's tile bits) only places the kernel's
+    tiles: the function does not depend on it."""
+    ends = torch.cumsum(lens, 0, dtype=torch.int64)
+    offsets = ends - lens
+    words = pack_lj_ref(lj, offsets + phase, n_words)
+    return words, torch.cat([offsets[::stream_symbols], ends[-1:]])
+
+
+def pack_tiles(lj: torch.Tensor, lens: torch.Tensor, tile_end: torch.Tensor, phase: int,
+               stream_symbols: int, n_words: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pack's second kernel (the scatter of glz_tpu/ops/encode.py:
+    pack_lj, with each stream's first bit).  See pack_tiles_ref; CUDA
+    tensors launch the kernel, which also needs tile_end."""
+    n = _check_pack(lj, lens, stream_symbols, phase)
+    _kernels.check(tile_end, "tile_end", torch.int64, (-(-n // PACK_TILE),), lens.device)
+    if n == 0 or not 0 <= phase < 32 or n_words < (phase + 31) >> 5:
+        raise ValueError(f"bad pack geometry: {n} codes, phase {phase}, {n_words} words")
+    if _kernels.runs_plain(lens):
+        return pack_tiles_ref(lj, lens, tile_end, phase, stream_symbols, n_words)
+    lj, lens = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (lj, lens))
+    words = torch.zeros(n_words, dtype=torch.int32, device=lens.device)
+    starts = torch.empty(n // stream_symbols + 1, dtype=torch.int64, device=lens.device)
+    _kernels.launch("glz_pack_tiles", "pack_tiles", _kernels.ptr(lj), _kernels.ptr(lens), n,
+                    _kernels.ptr(tile_end), phase, stream_symbols, _kernels.ptr(words),
+                    n_words, _kernels.ptr(starts))
+    return words, starts
+
+
+def pack_codes(lj: torch.Tensor, lens: torch.Tensor, stream_symbols: int,
+               bit_offset: int = 0) -> tuple[torch.Tensor, int, torch.Tensor]:
+    """The bit pack (replaces glz_tpu/ops/encode.py:pack_lj, an XLA cumsum
+    and scatter): left-justified codes and their lengths (int32, 0 where
+    there is no symbol; n a multiple of stream_symbols) -> (words,
+    total_bits, stream_bits int64 [n // stream_symbols]).
+
+    The codes are laid end to end from bit `bit_offset` of a payload, and
+    `words` int32 [((bit_offset & 31) + total_bits + 31) >> 5] are that
+    payload's words from the one holding bit `bit_offset` (the bits before
+    it 0, the words past the last code's not returned: they are 0).  With
+    bit_offset 0 this is glz_tpu's pack_lj; pack_codes_ref is its plain
+    version, which CPU tensors run.  On the card the step is the tile sums
+    (pack_scan), a torch.cumsum over the n/4096 of them, the total on the
+    host (it sizes the words), and the pack (pack_tiles)."""
+    n = _check_pack(lj, lens, stream_symbols, bit_offset)
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=lens.device), 0,
+                torch.zeros(0, dtype=torch.int64, device=lens.device))
+    if _kernels.runs_plain(lens):
+        return pack_codes_ref(lj, lens, stream_symbols, bit_offset)
+    tile_end = torch.cumsum(pack_scan(lens), 0)
+    total_bits = int(tile_end[-1])
+    phase = bit_offset & 31
+    words, starts = pack_tiles(lj, lens, tile_end, phase, stream_symbols,
+                               (phase + total_bits + 31) >> 5)
+    return words, total_bits, torch.diff(starts)
+
+
+# ---- one byte dispatch --------------------------------------------------------
 
 def encode_block_fast(sym: torch.Tensor, n_valid: int, lj_tbl: torch.Tensor,
-                      len_tbl: torch.Tensor, stream_symbols: int
+                      len_tbl: torch.Tensor, stream_symbols: int, bit_offset: int = 0
                       ) -> tuple[torch.Tensor, int, torch.Tensor]:
-    """One dispatch of the byte bitstream encode: K7, then pack_codes.
-    Returns (words, total_bits, stream_bits) as
-    glz_tpu/ops/encode.py:encode_block_fast does.  sym: u8, padded with
-    anything to a multiple of stream_symbols (positions >= n_valid code
-    nothing)."""
+    """One dispatch of the byte bitstream encode: K7, then pack_codes from
+    bit `bit_offset`.  With bit_offset 0 it returns (words, total_bits,
+    stream_bits) as glz_tpu/ops/encode.py:encode_block_fast does.  sym: u8,
+    padded with anything to a multiple of stream_symbols (positions >=
+    n_valid code nothing)."""
     lj, lens = lookup_lj_lens(sym, n_valid, lj_tbl, len_tbl)
-    return pack_codes(lj, lens, stream_symbols)
+    return pack_codes(lj, lens, stream_symbols, bit_offset)

@@ -20,6 +20,9 @@ CODE_TABLE = 34  # fc_lj / offsets entries (MAX_CODE_LEN + 2)
 # K3's decode table indexes the window's first TABLE_BITS bits (chosen among
 # 10, 11 and 12 by chip_smoke.py's sweep, PERF.md)
 TABLE_BITS = 11
+# K5's word table indexes the window's first DUAL_TABLE_BITS bits (the
+# separators' table has as many bits as their longest code; PERF.md)
+DUAL_TABLE_BITS = 12
 
 
 def _decode_ref(payload: torch.Tensor, group_starts: torch.Tensor,
@@ -82,10 +85,13 @@ def _decode_ref(payload: torch.Tensor, group_starts: torch.Tensor,
         phase = (phase + ln) & 31
 
 
-def _check_decode(payload, group_starts, group_counts, S: int, rows: int) -> int:
-    """n_groups, after checking the inputs both decode kernels share."""
-    if S & (S - 1) or not 64 <= S <= 8192:
-        raise ValueError(f"S must be a power of two in [64, 8192], got {S}")
+def _check_decode(payload, group_starts, group_counts, S: int, rows: int,
+                  any_even_s: bool = False) -> int:
+    """n_groups, after checking the inputs both decode kernels share (S a
+    power of two in [64, 8192], or with any_even_s any even S there)."""
+    if (S % 2 if any_even_s else S & (S - 1)) or not 64 <= S <= 8192:
+        raise ValueError(f"S must be {'even' if any_even_s else 'a power of two'} "
+                         f"in [64, 8192], got {S}")
     if rows not in (8, 16, 32, 64):
         raise ValueError(f"rows must be 8, 16, 32 or 64, got {rows}")
     dev = payload.device
@@ -182,22 +188,24 @@ def decode_groups_dual(payload: torch.Tensor, group_starts: torch.Tensor,
     """K5 (replaces glz_tpu/ops/pallas_decode.py:decode_groups_dual).  See
     decode_groups_dual_ref for the function; CUDA tensors launch the kernel.
 
-    min_lens, max_lens: (even, odd) code length ranges, each [0, 0] for an
-    empty dictionary or within [1, 32]."""
+    S: even, in [64, 8192].  min_lens, max_lens: (even, odd) code length
+    ranges, each [0, 0] for an empty dictionary or within [1, 32]."""
     for lo, hi in zip(min_lens, max_lens):
         if not ((lo, hi) == (0, 0) or 1 <= lo <= hi <= 32):
             raise ValueError(f"bad code length range [{lo}, {hi}]")
     dev = payload.device
-    n_groups = _check_decode(payload, group_starts, group_counts, S, rows)
+    n_groups = _check_decode(payload, group_starts, group_counts, S, rows, any_even_s=True)
     _kernels.check(fc_lj, "fc_lj", torch.int32, (2, CODE_TABLE), dev)
     _kernels.check(offsets, "offsets", torch.int32, (2, CODE_TABLE), dev)
     if _kernels.runs_plain(payload):
         return decode_groups_dual_ref(payload, group_starts, group_counts, fc_lj,
                                       offsets, S, min_lens, max_lens, rows)
     out = torch.empty(n_groups * rows * LANES * S, dtype=torch.int32, device=dev)
+    if payload.data_ptr() % 16:  # the kernel copies 16-byte pieces
+        payload = payload.clone()
     _kernels.launch("glz_decode_dual", "decode_dual", _kernels.ptr(payload),
                     payload.numel(), _kernels.ptr(group_starts),
-                    _kernels.ptr(group_counts), _kernels.ptr(fc_lj),
+                    _kernels.ptr(group_counts), DUAL_TABLE_BITS, _kernels.ptr(fc_lj),
                     _kernels.ptr(offsets), min_lens[0], max_lens[0], min_lens[1],
                     max_lens[1], n_groups, S, rows, _kernels.ptr(out))
     return out

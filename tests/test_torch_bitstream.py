@@ -1,9 +1,11 @@
 """glz_tpu_torch's bitstream (layout 0) codec against glz_tpu on the CPU.
 
-The contract is the bytes.  In byte mode the port writes the container of
-glz_tpu's device path, canonical_byte.compress_bytes_device (word-aligned
-dispatches of MAX_DISPATCH_SYMBOLS symbols rounded down to whole streams);
-in HuffWord mode that of glz_tpu.compress(..., mode=MODE_HUFFWORD) and
+The contract is the bytes.  In byte mode these tests hold the port's
+backend="device" container to glz_tpu's device path,
+canonical_byte.compress_bytes_device (word-aligned dispatches of
+MAX_DISPATCH_SYMBOLS symbols rounded down to whole streams; the default
+backend="host" container is tests/test_torch_front_door.py's); in HuffWord
+mode the port writes that of glz_tpu.compress(..., mode=MODE_HUFFWORD) and
 compress_huffword_shared under a bitstream configuration.  The port decodes
 every layout-0 container either package writes, the host encoder's
 included, and glz_tpu decodes the port's.  glz_tpu runs as its own tests
@@ -40,7 +42,10 @@ def _confs(base: str = "DEFAULT", **kw):
 
 
 def _port_compress(data, conf, mode=cfg.MODE_BYTE):
-    return glz_tpu_torch.compress(data, mode=mode, conf=conf, device="cpu")
+    """Byte mode through the device backend, HuffWord through the host
+    backend (its bitstream container)."""
+    backend = "device" if mode == cfg.MODE_BYTE else "host"
+    return glz_tpu_torch.compress(data, mode=mode, backend=backend, conf=conf, device="cpu")
 
 
 def _port_decompress(blob):
@@ -243,11 +248,15 @@ def test_huffword_shared_matches_reference(text_100kb, realtext, pipeline):
 # ---- pinned digests ---------------------------------------------------------------
 
 def test_pinned_digests(realtext):
-    """The digests chip_smoke.py checks on the card are glz_tpu's."""
+    """The digests chip_smoke.py checks on the card are glz_tpu's, with the
+    same mode and backend (the host containers' are pinned by
+    tests/test_torch_front_door.py)."""
     text = realtext[: 1 << 20]
     tpu_confs = {k: tpu_cfg.GlzConfig(**dataclasses.asdict(c))
-                 for k, (c, _) in chip_smoke.bitstream_pinned_configs().items()}
-    for key, (port_conf, mode) in chip_smoke.bitstream_pinned_configs().items():
+                 for k, (c, _, _) in chip_smoke.bitstream_pinned_configs().items()}
+    for key, (port_conf, mode, backend) in chip_smoke.bitstream_pinned_configs().items():
+        if backend == "host" and mode == cfg.MODE_BYTE:
+            continue
         if mode == HW:
             tpu_blob = glz_tpu.compress(text, mode=tpu_cfg.MODE_HUFFWORD, conf=tpu_confs[key])
         else:

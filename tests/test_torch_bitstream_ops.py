@@ -88,14 +88,17 @@ def test_lookup_matches_reference(realtext, name):
 
 @pytest.mark.parametrize("name,S", [("text", 4096), ("text", 1000), ("deep32", 1 << 16)])
 def test_pack_matches_reference(realtext, name, S):
-    """pack_codes (int64 cumsum + the pack's plain version) against the XLA
-    pack_lj and encode_block on the same codes; S = 1000 is not a power of
-    two (the TPU path takes encode_block, without K7, there)."""
+    """pack_codes and its plain version pack_codes_ref (an int64 cumsum and
+    the scatter, which CPU tensors run) against the XLA pack_lj and
+    encode_block on the same codes; S = 1000 is not a power of two (the TPU
+    path takes encode_block, without K7, there)."""
     arr, n_valid, cb = byte_case(name, realtext)
     sym = np.zeros(-(-n_valid // S) * S, np.uint8)
     sym[:n_valid] = arr[:n_valid]
     lj, lens = be.lookup_lj_lens(torch.from_numpy(sym), n_valid, *tables(cb))
     words, total_bits, stream_bits = be.pack_codes(lj, lens, S)
+    ref = be.pack_codes_ref(lj, lens, S)
+    assert ref[1] == total_bits and torch.equal(ref[0], words) and torch.equal(ref[2], stream_bits)
     for want_words, want_total, want_sb in (
             tpu_encode.pack_lj(jnp.asarray(u32(lj)), jnp.asarray(u32(lens)), S),
             tpu_encode.encode_block(jnp.asarray(sym), jnp.int32(n_valid),
@@ -108,12 +111,78 @@ def test_pack_matches_reference(realtext, name, S):
         assert np.array_equal(stream_bits.numpy(), np.asarray(want_sb).astype(np.int64))
 
 
+@pytest.mark.parametrize("name,S,phase", [("text", 4096, 0), ("text", 1000, 13),
+                                          ("deep32", 1 << 16, 31), ("deep32", 4096, 77)])
+def test_pack_kernels_plain_versions(realtext, name, S, phase):
+    """The pack's two kernels' plain versions (pack_scan_ref: the tile bit
+    sums; pack_tiles_ref: the words and each stream's first bit), which
+    chip_smoke.py holds the kernels against, against the function's plain
+    version pack_codes_ref from bit `phase` (the bits before it 0), on codes
+    of up to 32 bits padded with zero-length codes past n_valid."""
+    arr, n_valid, cb = byte_case(name, realtext)
+    sym = np.zeros(-(-n_valid // S) * S + 3 * S, np.uint8)  # whole tiles of zero codes
+    sym[:n_valid] = arr[:n_valid]
+    lj, lens = be.lookup_lj_lens(torch.from_numpy(sym), n_valid, *tables(cb))
+    tile_bits = be.pack_scan(lens)
+    want = np.add.reduceat(u32(lens).astype(np.int64), np.arange(0, lens.numel(), be.PACK_TILE))
+    assert np.array_equal(tile_bits.numpy(), want) and not tile_bits[-1]
+    words, total, sb = be.pack_codes_ref(lj, lens, S, phase)
+    tile_end = torch.cumsum(tile_bits, 0)
+    got_words, starts = be.pack_tiles(lj, lens, tile_end, phase & 31, S, words.numel())
+    assert torch.equal(got_words, words)
+    assert torch.equal(torch.diff(starts), sb) and int(starts[-1]) == total
+    assert torch.equal(starts[:-1], torch.cumsum(sb, 0) - sb)
+    assert not sb[-3:].any()
+    assert phase & 31 == 0 or u32(words)[0] >> (32 - (phase & 31)) == 0
+
+
+@pytest.mark.parametrize("name,split", [("text", 0.37), ("deep32", 0.61)])
+def test_pack_from_a_bit_offset(realtext, name, split):
+    """Two dispatches packed one after the other, the second from the
+    first's last bit (not a word boundary), their shared word ORed: the
+    words of the JAX package's host encoder for the whole input, from
+    codes of up to 32 bits; from pack_codes and from the card's step
+    (pack_scan, the cumsum of its tile sums, pack_tiles) run on the two
+    kernels' plain versions."""
+    arr, n_valid, cb = byte_case(name, realtext)
+    arr, S = arr[:n_valid], 1 << 12
+    want, want_total, want_sb = tpu_encode_streams(arr, tpu_canonical(cb.lengths), S)
+    cut = int(n_valid * split) // S * S
+    for pack in (be.pack_codes, pack_by_tiles):
+        words, at, sbits = [], 0, []
+        for chunk in (arr[:cut], arr[cut:]):
+            sym = np.zeros(-(-chunk.size // S) * S, np.uint8)
+            sym[: chunk.size] = chunk
+            lj, lens = be.lookup_lj_lens(torch.from_numpy(sym), chunk.size, *tables(cb))
+            w, total, sb = pack(lj, lens, S, at)
+            w = u32(w).copy()
+            if at & 31:
+                w[0] |= words[-1][-1]
+                words[-1] = words[-1][:-1]
+            words.append(w)
+            sbits.append(sb.numpy())
+            at += total
+        assert at % 32 and at == want_total
+        assert np.array_equal(np.concatenate(words), want)
+        assert np.array_equal(np.concatenate(sbits), want_sb.astype(np.int64))
+
+
+def pack_by_tiles(lj, lens, S, bit_offset):
+    """pack_codes' step on the card, on the CPU: the two kernels' wrappers,
+    which run their plain versions for CPU tensors."""
+    tile_end = torch.cumsum(be.pack_scan(lens), 0)
+    total, phase = int(tile_end[-1]), bit_offset & 31
+    words, starts = be.pack_tiles(lj, lens, tile_end, phase, S, (phase + total + 31) >> 5)
+    return words, total, torch.diff(starts)
+
+
 def test_pack_ref_drops_words_past_the_end():
-    """A code's parts at or past n_words are dropped, as the XLA scatter's
-    mode='drop' does; zero codes write nothing."""
+    """A code's parts at or past n_words are dropped by the plain pack's
+    scatter, as the XLA scatter's mode='drop' does; zero codes write
+    nothing."""
     lj = torch.tensor([-(1 << 31), 0x7FFFFFFF, 0, -(1 << 31)], dtype=torch.int32)
     offsets = torch.tensor([0, 33, 40, 95], dtype=torch.int64)
-    words = u32(be.pack_lj(lj, offsets, 3))
+    words = u32(be.pack_lj_ref(lj, offsets, 3))
     assert list(words) == [0x80000000, 0x3FFFFFFF, 0x80000001]
 
 
