@@ -20,13 +20,16 @@ more; any failure exits non-zero before the last):
        steps);
      - HuffWord path: K6 lut_gather at both call sites (gather_entries,
        map_ranks), the entry-word lane totals, K4 encode_entries and K5
-       decode_dual (one block a group at rows 8 and 16, a cluster of rows/8
-       blocks at rows 32 and 64) on
+       decode_dual (each at the geometry its entry launches at the case's
+       rows) on
        rows 8/16/32 at S 64/512, rows 64 at S 64 and 256 and rows 8 at S
        1024 (ragged token counts), nonword-first text, single-symbol
        dictionaries, one token (an empty dictionary) and a >64K-word
-       vocabulary (u32 ids); each case also round-trips its tokens; and K5
-       alone on random words at S 66 (rows 8) and 130 (rows 64);
+       vocabulary (u32 ids); each case also round-trips its tokens; K5
+       alone on random words at S 66 (rows 8) and 130 (rows 64); K4 alone
+       at rows 8/16/32/64 (each geometry its entry launches), ragged or
+       single-symbol; K1 alone at every S from 64 to 8192 with a ragged
+       n_valid and garbage past it, and with a depth-26 codebook;
   3c. bitstream kernels: K7 lookup_lj_lens, the pack (pack_scan, pack_tiles,
      from bit 0 and from bit 13, and the whole step) and decode_streams on
      byte cases (ragged n_valid with garbage past it, S 1000 (not a power
@@ -59,7 +62,8 @@ more; any failure exits non-zero before the last):
      again at each swept decode table size (and the stream decodes'
      subsequence length), each against the input or the plain version, and
      the share of the main corpora's symbols (tokens) the tables resolve in
-     one probe; the registers and spills of the pack's and K5's kernels;
+     one probe; the registers and spills of K1, K4 (each geometry launched),
+     K2 and K5;
   6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
      under ten configurations must have the SHA-256 that the JAX
      reference writes (pinned by tests/test_torch_canonical_byte.py,
@@ -364,6 +368,34 @@ def check_case(name: str, dev: torch.device) -> None:
             f"{name}: round trip")
 
 
+# K1 alone at every S it takes (name -> (S, rows)): 1.5 groups less 7
+# bytes, so a lane and a 16-byte chunk end mid-way, garbage bytes past
+# n_valid; one with a depth-26 codebook
+K1_CASES = {"k1_s64_r64": (64, 64), "k1_s128_r8": (128, 8), "k1_s256_r32": (256, 32),
+            "k1_s512_r16": (512, 16), "k1_s1024_r64": (1024, 64), "k1_s2048_r8": (2048, 8),
+            "k1_s4096_r16": (4096, 16), "k1_s8192_r32": (8192, 32),
+            "k1_deep26_s512_r64": (512, 64)}
+
+
+def check_k1_case(name: str, dev: torch.device) -> None:
+    """K1 on the card against lane_totals_ref, bit-exact."""
+    S, rows = K1_CASES[name]
+    group = rows * LANES * S
+    n = group + group // 2 - 7
+    if "deep26" in name:
+        arr, cb = deep_case(n)
+    else:
+        arr = make_corpus(n, seed=S + rows)
+        cb = build_codebook(histogram_bytes(arr), ke.MAX_FUSED_LEN)
+    host = np.full(2 * group, 0xAB, np.uint8)
+    host[:n] = arr
+    sym = torch.from_numpy(host).to(dev)
+    tbl = entry_table(cb, dev)
+    err = max_abs_err(ke.lane_totals(sym, tbl, n, S, rows),
+                      ke.lane_totals_ref(sym, tbl, n, S, rows))
+    require(err == 0, f"{name}: K1 differs from its plain version by {err}")
+
+
 # name -> (S, rows); word-corpus cases hold about 1.5 groups of tokens
 HUFFWORD_CASES = {f"hw_r{r}_s{s}": (s, r) for r in (8, 16, 32) for s in (64, 512)}
 HUFFWORD_CASES["hw_r64_s64"] = (64, 64)
@@ -378,6 +410,29 @@ HUFFWORD_CASES["hw_r64_s256"] = (256, 64)
 # K5 alone on random payload words at even S that is not a power of two
 # (lanes not 16-byte aligned when S % 4 == 2): (S, rows)
 K5_RANDOM_CASES = {"k5_random_r8_s66": (66, 8), "k5_random_r64_s130": (130, 64)}
+
+
+# K4 alone at each rows, so at each geometry its entry launches (name ->
+# (S, rows)): word text with a ragged token count, or one word and one
+# separator (both dictionaries single-symbol)
+K4_CASES = {"k4_r8_s512": (512, 8), "k4_r16_s256": (256, 16), "k4_r32_s512": (512, 32),
+            "k4_r64_s128": (128, 64), "k4_single_r32_s512": (512, 32),
+            "k4_single_r64_s64": (64, 64)}
+
+
+def check_k4_case(name: str, dev: torch.device) -> None:
+    """K4 on the card against encode_entries_ref, bit-exact, its cursors
+    ending at 0."""
+    S, rows = K4_CASES[name]
+    tokens = int(rows * LANES * S * 1.3) + 17
+    if "single" in name:
+        text = b"word " * (tokens // 2)
+    else:  # the word corpus has ~2.14 bytes per token
+        text = make_word_corpus(int(tokens * 2.14), seed=S * 10 + rows)
+    inp = HuffwordInputs(text, S, rows, dev)
+    pay, cend = inp.encode(ke.encode_entries)
+    err = max_abs_err((pay, cend), (inp.payload, torch.zeros_like(cend)))
+    require(err == 0, f"{name}: K4 differs from its plain version by {err}")
 
 
 def huffword_case_text(name: str) -> bytes:
@@ -851,18 +906,18 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a compiled kernel: the function and its template
-    arguments (lanes per thread, entry words, u16/u32 element types)."""
-    m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_kernel|"
-                  r"decode_dual_kernel|decode_kernel|lut_gather_kernel|lookup_lj_lens_kernel|"
-                  r"pack_scan_kernel|pack_tiles_kernel|decode_streams_sync_kernel)"
-                  r"(I.*E)?", mangled)
+    arguments (lanes per thread, blocks per group, bytes or dual, u16/u32
+    element types)."""
+    m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_entries_kernel|"
+                  r"encode_kernel|decode_dual_kernel|decode_kernel|lut_gather_kernel|"
+                  r"lookup_lj_lens_kernel|pack_scan_kernel|pack_tiles_kernel|"
+                  r"decode_streams_sync_kernel)(I.*E)?", mangled)
     if not m:
         return mangled
     args = m.group(2) or ""
     widths = {"t": "u16", "j": "u32"}
     parts = re.findall(r"Li(\d+)E", args)
-    flags = {"Lb1E": "dual" if m.group(1) == "decode_streams_sync_kernel" else "entries",
-             "Lb0E": "bytes"}
+    flags = {"Lb1E": "dual", "Lb0E": "bytes"}
     parts += [v for k, v in flags.items() if k in args]
     if m.group(1) == "lut_gather_kernel":
         parts = [widths[c] for c in re.findall(r"[tj]", args[1:-1])]
@@ -1228,12 +1283,18 @@ def main() -> int:
         check_huffword_case(case, dev)
     for case in K5_RANDOM_CASES:
         check_k5_random(case, dev)
+    for case in K4_CASES:
+        check_k4_case(case, dev)
+    for case in K1_CASES:
+        check_k1_case(case, dev)
     torch.cuda.synchronize()
     print(f"kernels: lut_gather (gather_entries, map_ranks), lane_totals_entries, "
           f"encode_entries, decode_dual bit-exact vs plain, "
           f"tokens round-trip, on {len(HUFFWORD_CASES)}/{len(HUFFWORD_CASES)} cases "
           f"({', '.join(HUFFWORD_CASES)}); decode_dual on random words at "
-          f"{', '.join(K5_RANDOM_CASES)}; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{', '.join(K5_RANDOM_CASES)}; encode_entries alone on {', '.join(K4_CASES)}; "
+          f"lane_totals alone on {', '.join(K1_CASES)}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     t0 = time.perf_counter()
     uniform_ms = [check_bitstream_case(case, dev) for case in BITSTREAM_CASES]
@@ -1407,8 +1468,10 @@ def main() -> int:
     rows += bitstream_kernel_times(arr, bblob, blaunches, dev, card)
     rows += huffword_bitstream_kernel_times(hbblob, vocabs, hblaunches, dev, card)
     regs = [line for line in ptxas_summary(_kernels.build_log())
-            if line.startswith(("pack_scan_kernel", "pack_tiles_kernel", "decode_dual_kernel"))]
-    print(f"registers (ptxas -v) of the kernels redesigned last: {'; '.join(regs)}", flush=True)
+            if line.startswith(("lane_totals_kernel", "encode_entries_kernel", "encode_kernel",
+                                "decode_dual_kernel"))]
+    print(f"registers (ptxas -v) of K1, K4 (each geometry launched), K2 and K5: "
+          f"{'; '.join(regs)}", flush=True)
 
     # ---- 6. pinned digests
     text = (ROOT / "tests" / "fixtures" / "realtext.txt").read_bytes()[: 1 << 20]

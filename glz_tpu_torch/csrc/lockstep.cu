@@ -6,9 +6,10 @@
 //   K1 lane_totals_kernel          <- glz_tpu/ops/pallas_encode.py:make_totals_kernel
 //      lane_totals_entries_kernel  <- glz_tpu/ops/pallas_encode.py:prepare_entry_words
 //                                     (XLA code there; the HuffWord form of K1)
-//   K2 encode_kernel<LPT, false>   <- glz_tpu/ops/pallas_encode.py:make_encode_kernel
+//   K2 encode_kernel<LPT>          <- glz_tpu/ops/pallas_encode.py:make_encode_kernel
 //                                     (byte-LUT mode)
-//   K4 encode_kernel<LPT, true>    <- the same factory, u32-entry mode
+//   K4 encode_entries_kernel<C>    <- the same factory, u32-entry mode
+//                                     (a cluster of C = rows/8 blocks per group)
 //   K3 decode_kernel               <- glz_tpu/ops/pallas_decode.py:make_decode_kernel
 //   K5 decode_dual_kernel          <- glz_tpu/ops/pallas_decode.py:make_decode_kernel_dual
 //                                     (one block, or a cluster of blocks, per group)
@@ -22,8 +23,10 @@
 //
 // Group coupling.  All G = rows*128 lanes of a group share one payload
 // cursor, and every step's exclusive rank over the lanes that load (decode)
-// or emit (encode) a word couples them.  One block of 1024 threads runs one
-// group; each thread owns LPT = rows/8 *contiguous* lanes, so a lane's rank
+// or emit (encode) a word couples them.  In K2 and K3 one block of 1024
+// threads runs one group (K4 spreads it over a cluster of rows/8 blocks,
+// one lane a thread, and K5 may spread it over a cluster of blocks); each
+// thread owns LPT = rows/8 *contiguous* lanes, so a lane's rank
 // is the block's exclusive prefix over threads plus the thread-local prefix
 // and flat lane order is kept.  The block prefix is a warp shuffle scan plus
 // a scan of the 32 warp totals, double-buffered in shared memory so each
@@ -34,6 +37,7 @@
 // Shifts by 32 are undefined in CUDA: every site where the JAX kernels
 // select around a 32-bit shift keeps that select.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,7 +47,7 @@
 namespace {
 
 constexpr int kLanes = 128;        // lanes per group row
-constexpr int kThreads = 1024;     // one block per group
+constexpr int kThreads = 1024;     // a lockstep kernel's block
 constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kLenMask = 63;  // entry word = lj | len (len <= 26)
 constexpr int kCodeTable = glz::kCodeLevels;  // fc_lj / offsets entries
@@ -98,36 +102,104 @@ __device__ __forceinline__ void store_lane_total(int tot, int last, int64_t flat
 //   ctot[g, l] = sum_t len(sym_t), len = tbl[b] & 63, 0 where the flat index
 //                (g*G + l)*S + t >= n_valid;
 //   gw[g]     += sum_l [ctot > 0] * ((ctot - len_last + 31) / 32 + 1).
-// Bound by reading the n symbol bytes once: each thread owns one lane and
-// reads it 16 bytes at a time; the 256-entry length table is in shared
-// memory; gw is reduced per warp and added with one atomic per warp (gw must
-// be zero on entry).
+// Bound by reading the n symbol bytes once.  Timed apart on an H100
+// (tools/k1_phases.py, PERF.md), the first port (a thread a lane, reading
+// it 16 bytes at a time, so a warp load touched 32 lines S bytes apart)
+// lost 0.63 of 0.75 ms to its loads and 0.35 to a validity test on every
+// byte; the length table's bank conflicts cost nothing measurable.  So:
+//   * loads: the threads of a warp read consecutive 16-byte chunks (a warp
+//     load is 512 contiguous bytes), four rows of 512 bytes in flight a
+//     thread; a lane's total is a segmented shuffle reduction within a row
+//     (min(S/16, 32) threads a lane), summed over the lane's rows where
+//     S > 512.  A warp takes whole lanes (units of max(S, 2048) bytes), so
+//     the thread holding a lane's last chunk ends up with the total and the
+//     last byte's length, and stores the total;
+//   * validity: tested once a chunk; a chunk wholly below n_valid sums its
+//     16 lengths unmasked.
+// A block's units lie in one group: each warp adds its lanes' word counts
+// to gw with one atomic at the end (gw must be zero on entry; a block sum
+// and one atomic a block measured no faster).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256) lane_totals_kernel(
+constexpr int kTotThreads = 512;
+constexpr int kTotWarps = kTotThreads / 32;
+constexpr int kTotRows = 4;  // 512-byte rows a warp loads at once
+
+__global__ void __launch_bounds__(kTotThreads) lane_totals_kernel(
     const uint8_t* __restrict__ sym, const uint32_t* __restrict__ tbl,
     int64_t n_valid, int S, int G, int32_t* __restrict__ ctot,
     int32_t* __restrict__ gw) {
   __shared__ uint8_t lens[256];
-  lens[threadIdx.x] = static_cast<uint8_t>(tbl[threadIdx.x] & kLenMask);
+  if (threadIdx.x < 256) lens[threadIdx.x] = static_cast<uint8_t>(tbl[threadIdx.x] & kLenMask);
   __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int g = blockIdx.x;
-  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-  const int64_t flat_lane = static_cast<int64_t>(g) * G + lane;
-  const int64_t first = flat_lane * S;
-  const int count = lane_count(n_valid, first, S);
-  const uint4* src = reinterpret_cast<const uint4*>(sym + first);
-  int tot = 0;
-  for (int i = 0; i * 16 < count; ++i) {
-    const uint4 q = src[i];
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  const int s_log = __ffs(S) - 1;                 // S is a power of two
+  const int seg = min(S >> 4, 32);                // threads a lane within a row
+  const int unit = max(S, kTotRows * 512);        // bytes a warp takes at a time
+  const int n_units = static_cast<int>(static_cast<int64_t>(G) * S / unit);
+  const int64_t group_first = static_cast<int64_t>(g) * G * S;
+  int words = 0;
+  for (int u = blockIdx.y * kTotWarps + warp; u < n_units; u += gridDim.y * kTotWarps) {
+    int acc = 0;  // the running total of the lane whose rows this warp is in
+    for (int r0 = 0; r0 < unit; r0 += kTotRows * 512) {
+      const int64_t row0 = group_first + static_cast<int64_t>(u) * unit + r0;
+      uint4 q[kTotRows];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int l = lens[(w[j >> 2] >> (8 * (j & 3))) & 255u];
-      tot += (i * 16 + j < count) ? l : 0;
+      for (int r = 0; r < kTotRows; ++r)
+        q[r] = *reinterpret_cast<const uint4*>(sym + row0 + r * 512 + lane * 16);
+#pragma unroll
+      for (int r = 0; r < kTotRows; ++r) {
+        const int64_t f = row0 + r * 512 + lane * 16;  // this thread's chunk
+        const uint32_t w[4] = {q[r].x, q[r].y, q[r].z, q[r].w};
+        const int64_t valid = n_valid - f;
+        int sum = 0, last = 0;
+        if (valid >= 16) {
+#pragma unroll
+          for (int k = 0; k < 16; ++k) sum += lens[(w[k >> 2] >> (8 * (k & 3))) & 255u];
+          last = lens[w[3] >> 24];
+        } else {
+#pragma unroll
+          for (int k = 0; k < 16; ++k)
+            sum += k < valid ? lens[(w[k >> 2] >> (8 * (k & 3))) & 255u] : 0;
+        }
+        if (seg == 32) {  // one reduction: 8% faster than the shuffles (probe)
+          sum = __reduce_add_sync(0xffffffffu, sum);
+        } else {
+          for (int o = seg >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        }
+        acc += sum;
+        if (((f + 16) & (S - 1)) == 0) {  // the lane's last chunk
+          ctot[f >> s_log] = acc;
+          words += acc > 0 ? (acc - last + 31) / 32 + 1 : 0;
+        }
+        if (((row0 + (r + 1) * 512) & (S - 1)) == 0) acc = 0;  // the row ends a lane
+      }
     }
   }
-  const int last = (count == S) ? lens[sym[first + S - 1]] : 0;
-  store_lane_total(tot, last, flat_lane, g, ctot, gw);
+  words = __reduce_add_sync(0xffffffffu, words);
+  if (lane == 0) atomicAdd(gw + g, words);
+}
+
+// The blocks of lane_totals_kernel the current card holds at once, queried
+// once a card.
+cudaError_t lane_totals_resident(int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> resident[kMaxDevices];
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const bool cached = device < kMaxDevices;
+  *blocks = cached ? resident[device].load(std::memory_order_relaxed) : 0;
+  if (*blocks > 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lane_totals_kernel, kTotThreads, 0);
+  if (e != cudaSuccess) return e;
+  *blocks = sms * per_sm;
+  if (cached) resident[device].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 // K1 on the HuffWord path: the symbols are u32 lj|len entry words, already
@@ -185,13 +257,6 @@ __global__ void __launch_bounds__(256) lane_totals_entries_kernel(
 //   * lookups: each lane's entry is looked up once a step and held across
 //     the step's barrier (looking it up on both sides of the barrier, to
 //     save eight registers, measured slower).
-//
-// K4 (kEntries) is the same sweep on the HuffWord path, whose symbols are
-// u32 lj|len entry words gathered by K6 (0 past the valid token count, so
-// n_valid is not needed).  It keeps the first port's body: it reads one
-// entry per lane per step into the register K2 uses for 4 staged bytes, so
-// both forms hold the same state.  Its bound is bytes as well (4n entry
-// bytes in).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -213,9 +278,9 @@ constexpr size_t encode_smem() {
   return sizeof(uint4) * kThreads * LPT;
 }
 
-template <int LPT, bool kEntries>
+template <int LPT>
 __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
-    const void* __restrict__ sym, const uint32_t* __restrict__ tbl,
+    const uint8_t* __restrict__ sym, const uint32_t* __restrict__ tbl,
     int64_t n_valid, const int32_t* __restrict__ ctot,
     const int32_t* __restrict__ gw, const int32_t* __restrict__ grow, int S,
     uint32_t* __restrict__ out, int32_t* __restrict__ cursor_end) {
@@ -223,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
   uint4* stage = enc_smem + threadIdx.x * LPT;  // this thread's LPT x 16 staged bytes
   __shared__ uint32_t ent[256];
   __shared__ int warp_tot[2][kWarps];
-  if (!kEntries && threadIdx.x < 256) ent[threadIdx.x] = tbl[threadIdx.x];
+  if (threadIdx.x < 256) ent[threadIdx.x] = tbl[threadIdx.x];
   __syncthreads();
 
   constexpr int G = LPT * kThreads;
@@ -231,9 +296,8 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
   const int64_t lane0 = static_cast<int64_t>(g) * G + threadIdx.x * LPT;
   const int64_t first = lane0 * S;
   // valid symbols of this thread's LPT lanes, lane j: clamp(rem - j*S, 0, S)
-  const int rem = kEntries ? 0 : lane_count(n_valid, first, LPT * S);
-  const uint32_t* ent_src = static_cast<const uint32_t*>(sym) + first;
-  const uint8_t* byte_src = static_cast<const uint8_t*>(sym) + first;
+  const int rem = lane_count(n_valid, first, LPT * S);
+  const uint8_t* byte_src = sym + first;
   // lane j's 16-byte chunk at byte offset c goes to slot (j + thread) % LPT
   auto stage_chunk = [&](int c) {
 #pragma unroll
@@ -242,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
                  byte_src + static_cast<int64_t>(j) * S + c);
     cp_async_commit();
   };
-  if (!kEntries) stage_chunk(S - 16);
+  stage_chunk(S - 16);
 
   uint32_t w0[LPT], w1[LPT], q[LPT];
   int cur[LPT];
@@ -261,26 +325,21 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
 
   for (int t = S - 1; t >= 0; --t) {
     const int sh = 8 * (t & 3);
-    if (kEntries) {
+    if ((t & 15) == 15) cp_async_wait<0>();
+    if ((t & 3) == 3) {
 #pragma unroll
-      for (int j = 0; j < LPT; ++j) q[j] = ent_src[static_cast<int64_t>(j) * S + t];
-    } else {
-      if ((t & 15) == 15) cp_async_wait<0>();
-      if ((t & 3) == 3) {
-#pragma unroll
-        for (int j = 0; j < LPT; ++j)
-          q[j] = reinterpret_cast<const uint32_t*>(stage + ((j + threadIdx.x) & (LPT - 1)))
-              [(t & 15) >> 2];
-      }
-      // the chunk's last word was read (and used) a step ago: stage the next
-      if ((t & 15) == 2 && t > 16) stage_chunk((t & ~15) - 16);
+      for (int j = 0; j < LPT; ++j)
+        q[j] = reinterpret_cast<const uint32_t*>(stage + ((j + threadIdx.x) & (LPT - 1)))
+            [(t & 15) >> 2];
     }
+    // the chunk's last word was read (and used) a step ago: stage the next
+    if ((t & 15) == 2 && t > 16) stage_chunk((t & ~15) - 16);
     // entry of lane j's symbol t (0 past the lane's valid count), looked up
     // once and held across the step's barrier
     uint32_t e[LPT];
 #pragma unroll
     for (int j = 0; j < LPT; ++j)
-      e[j] = kEntries ? q[j] : (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;
+      e[j] = (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;
     if (t != S - 1) {
       // ---- emission for forward step t+1
       uint32_t need = 0u;
@@ -335,6 +394,204 @@ __global__ void __launch_bounds__(kThreads, 1) encode_kernel(
     }
   }
   if (threadIdx.x == 0) cursor_end[g] = cursor;
+}
+
+// ---------------------------------------------------------------------------
+// K4: K2's reverse sweep on the HuffWord path, whose symbols are u32 lj|len
+// entry words gathered by K6 (0 past the valid token count, so n_valid is
+// not needed): the same function as encode_kernel, bound by bytes as well
+// (4n entry bytes in, the payload out).  Timed apart on an H100
+// (tools/k4_phases.py, PERF.md), the first port's body (K2's sweep reading
+// one entry a lane a step at a stride of 4S bytes, in the step that used
+// it) lost 1.01 of 1.76 ms to those loads and 0.40 to the block scan every
+// step; with both gone and the stores folded, the steps' work alone took
+// 0.53 ms on the 24 SMs of the HuffWord cell's 24 groups.  But which steps
+// of a lane emit a word depends only on the lane's own code lengths, so K4
+// sweeps in rounds of kEntRound steps, with no barrier inside a round:
+//   * phase A walks the round's lengths and stores each warp's count of
+//     emitting lanes at each step in shared memory;
+//   * one exchange a round: after a block barrier, warp i scans step i's
+//     warp counts into each warp's offset within the block, the block's
+//     step totals go into every block of the cluster's shared memory
+//     (map_shared_rank) and the cluster synchronises; then each warp has,
+//     per step, the group cursor (which descends by the cluster's total, as
+//     in encode_kernel) and the emissions of the blocks before its own;
+//   * phase B sweeps the round again (the windows, the words, their
+//     stores), a word's position its warp's offset plus its lane's rank
+//     among the warp's emitting lanes.
+// The forward step 0 words (every lane with a step-0 symbol) take one more
+// exchange, of one step.  Input: the round's entries are staged in shared
+// memory with cp.async (16 bytes, 4 steps, a copy) and both phases read them
+// there; the next round's copies are issued after the barrier that ends
+// this round's phase A, so they land while this round is swept.  A thread
+// reads back only its own lane's entries, in a layout where a warp's
+// 16-byte reads are consecutive.
+// Geometry.  A group of G = rows*128 lanes is a cluster of C = rows/8
+// blocks of 1,024 threads (one block at rows 8), block b owning lanes
+// [b*G/C, (b+1)*G/C), one lane a thread.  tools/k4_phases.py timed this
+// on an H100 against one block a group with rows/8 lanes a thread (its own
+// copy of that kernel, PERF.md): the cluster was faster at rows 16, 32 and
+// 64, by 1.7x, 3.1x and 6.1x.
+// ---------------------------------------------------------------------------
+// Steps a round (rounds of 8, twice the exchanges, measured 8% slower), and
+// the staged entries of two rounds: 128 KiB a block.
+constexpr int kEntRound = 16;
+constexpr int kEntChunks = kEntRound / 4;  // staged 16-byte chunks a lane a round
+constexpr size_t kEntSmem = sizeof(uint4) * 2 * kEntChunks * kThreads;
+
+// Entry k (0-3, ascending step) of a staged 16-byte chunk.
+__device__ __forceinline__ uint32_t chunk_entry(const uint4& q, int k) {
+  return k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1) encode_entries_kernel(
+    const uint32_t* __restrict__ ent, const int32_t* __restrict__ ctot,
+    const int32_t* __restrict__ gw, const int32_t* __restrict__ grow, int S,
+    uint32_t* __restrict__ out, int32_t* __restrict__ cursor_end) {
+  constexpr int W = kEntRound;
+  extern __shared__ uint4 enc_smem[];  // [2][kEntChunks][kThreads]
+  __shared__ int cnt[W][kWarps];  // warp w's emitting lanes at step i, then its offset
+  __shared__ int xch[2][W][C];    // each block's emissions at each step, by round parity
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t below = (1u << lane) - 1u;  // the warp's threads before this one
+  int cta = 0;
+  if constexpr (C > 1) cta = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  constexpr int G = C * kThreads;
+  const int g = blockIdx.x / C;
+  const int64_t flat_lane =
+      static_cast<int64_t>(g) * G + cta * kThreads + static_cast<int>(threadIdx.x);
+  const uint32_t* src = ent + flat_lane * S;
+  // the entries of steps [t_lo, t_lo + W) of this thread's lane into buffer b
+  auto stage_round = [&](int b, int t_lo) {
+#pragma unroll
+    for (int c = 0; c < kEntChunks; ++c)
+      cp_async16(enc_smem + (b * kEntChunks + c) * kThreads + threadIdx.x, src + t_lo + 4 * c);
+    cp_async_commit();
+  };
+  stage_round(0, S - W);
+
+  uint32_t w0 = 0u, w1 = 0u;
+  int cur = ctot[flat_lane], cur_a = cur;  // the bit counts of phase B and of phase A
+  const int gwords = gw[g];
+  int cursor = gwords;
+  uint32_t* dst = out + static_cast<int64_t>(grow[g]) * kLanes;
+  // every block of the cluster has started before any writes another's
+  // shared memory
+  if constexpr (C > 1) cooperative_groups::this_cluster().sync();
+
+  // Called by every thread once every warp has stored its counts of `steps`
+  // steps in cnt (and passed a block barrier).  cnt[i][w] becomes warp w's
+  // offset among the block's emissions at step i, and lane i < steps
+  // returns step i's base: the cursor after step i, floored at 0, plus the
+  // emissions of the cluster's blocks before this one.  The cursor descends
+  // by the steps' total.
+  auto exchange = [&](int steps, int par) -> int {
+    if (warp < steps) {
+      const int v = cnt[warp][lane];
+      int inc = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += y;
+      }
+      cnt[warp][lane] = inc - v;
+      const int tot = __shfl_sync(0xffffffffu, inc, 31);
+      if constexpr (C > 1) {
+        if (lane < C)
+          cooperative_groups::this_cluster().map_shared_rank(&xch[par][warp][0], lane)[cta] = tot;
+      } else if (lane == 0) {
+        xch[par][warp][0] = tot;
+      }
+    }
+    if constexpr (C > 1) cooperative_groups::this_cluster().sync(); else __syncthreads();
+    int all = 0, before = 0;
+    if (lane < steps) {
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        const int v = xch[par][lane][r];
+        all += v;
+        before += r < cta ? v : 0;
+      }
+    }
+    int cum = all;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, cum, o);
+      if (lane >= o) cum += y;
+    }
+    const int base = max(cursor - cum, 0) + before;
+    cursor -= __shfl_sync(0xffffffffu, cum, 31);
+    return base;
+  };
+
+  const int rounds = S / W;
+  bool step0 = false;  // the lane has a step-0 symbol
+  for (int k = 0; k < rounds; ++k) {
+    const int t_lo = S - (k + 1) * W;  // the round's steps, t_lo + W - 1 down to t_lo
+    const int b = k & 1;
+    cp_async_wait<0>();
+    // this thread's chunk c at stage[c * kThreads]
+    const uint4* stage = enc_smem + b * kEntChunks * kThreads + threadIdx.x;
+    uint4 q;
+    // ---- phase A: each warp's count of emitting lanes at each step
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const int p = W - 1 - i;  // step t_lo + p
+      if ((p & 3) == 3) q = stage[(p >> 2) * kThreads];
+      const int cp = cur_a - static_cast<int>(chunk_entry(q, p & 3) & kLenMask);
+      bool need = ((cur_a + 31) >> 5) > ((cp + 31) >> 5);
+      cur_a = cp;
+      if (k == 0 && i == 0) need = false;  // step S-1 emits nothing
+      const int n = __reduce_add_sync(0xffffffffu, need ? 1 : 0);
+      if (lane == 0) cnt[i][warp] = n;
+    }
+    __syncthreads();
+    if (k + 1 < rounds) stage_round(b ^ 1, t_lo - W);
+    const int base = exchange(W, k & 1);
+    // ---- phase B: the sweep, each word stored at its known position
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const int p = W - 1 - i;
+      if ((p & 3) == 3) q = stage[(p >> 2) * kThreads];
+      const uint32_t e = chunk_entry(q, p & 3);
+      const int cp = cur - static_cast<int>(e & kLenMask);
+      bool need = ((cur + 31) >> 5) > ((cp + 31) >> 5);
+      if (k == 0 && i == 0) need = false;
+      // ---- emission for forward step t_lo + p + 1
+      const int pos = __shfl_sync(0xffffffffu, base, i) + cnt[i][warp] +
+                      __popc(__ballot_sync(0xffffffffu, need) & below);
+      if (need) {
+        const uint32_t d = (32u - (static_cast<uint32_t>(cur) & 31u)) & 31u;
+        const uint32_t word = d ? ((w0 << d) | (w1 >> (32u - d))) : w0;
+        if (pos < gwords) dst[pos] = word;
+      }
+      // ---- prepend the step's code: shift the window right by ln
+      const uint32_t ln = e & kLenMask;
+      if (ln > 0u) {
+        const uint32_t lj = e & ~kLenMask;
+        const bool big = ln >= 32u;
+        const uint32_t lnc = ln & 31u;
+        const uint32_t sl = (32u - ln) & 31u;
+        const uint32_t rs1 = big ? 0u : (w1 >> lnc);
+        const uint32_t rs0 = big ? 0u : (w0 >> lnc);
+        w1 = (w0 << sl) | rs1;
+        w0 = lj | rs0;
+      }
+      cur -= static_cast<int>(ln);
+      if (p == 0 && t_lo == 0 && ln > 0u) step0 = true;
+    }
+  }
+  // ---- forward step 0: word 0 of every lane with a step-0 symbol
+  const uint32_t mask0 = __ballot_sync(0xffffffffu, step0);
+  if (lane == 0) cnt[0][warp] = __popc(mask0);
+  __syncthreads();
+  const int base0 = exchange(1, rounds & 1);
+  const int pos = __shfl_sync(0xffffffffu, base0, 0) + cnt[0][warp] + __popc(mask0 & below);
+  if (step0 && pos < gwords) dst[pos] = w0;
+  if (cta == 0 && threadIdx.x == 0) cursor_end[g] = cursor;
 }
 
 // ---------------------------------------------------------------------------
@@ -727,72 +984,106 @@ int glz_lane_totals_entries(const void* ent, int n_groups, int S, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// sym 16-byte aligned; S a power of two, at least 16.
 int glz_lane_totals(const void* sym, const void* tbl, long long n_valid,
                     int n_groups, int S, int rows, void* ctot, void* gw,
                     void* stream) {
   const int G = rows * kLanes;
-  if (n_groups <= 0 || S % 16 != 0 || G % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_groups, G / 256);
-  lane_totals_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_groups <= 0 || S < 16 || (S & (S - 1)) != 0 || G % 256 != 0 ||
+      reinterpret_cast<uintptr_t>(sym) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // as many blocks as the card holds at once, spread over the groups
+  int resident = 0;
+  const cudaError_t e = lane_totals_resident(&resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t units = static_cast<int64_t>(G) * S / (S > kTotRows * 512 ? S : kTotRows * 512);
+  const int64_t most = (units + kTotWarps - 1) / kTotWarps;  // blocks a group can use
+  int64_t per_group = resident / n_groups;
+  per_group = per_group < 1 ? 1 : (per_group > most ? most : per_group);
+  const dim3 grid(n_groups, static_cast<unsigned>(per_group));
+  lane_totals_kernel<<<grid, kTotThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(sym), static_cast<const uint32_t*>(tbl),
       n_valid, S, G, static_cast<int32_t*>(ctot), static_cast<int32_t*>(gw));
   return static_cast<int>(cudaGetLastError());
 }
 
-// entries != 0: `sym` holds u32 lj|len entry words (K4) and tbl/n_valid are
-// unused; else u8 symbols looked up in the 256-entry tbl (K2).  sym 16-byte
-// aligned; S a multiple of 16.
-static int encode_groups(const void* sym, const void* tbl, long long n_valid,
-                         const void* ctot, const void* gw, const void* grow,
-                         int n_groups, int S, int rows, void* out,
-                         void* cursor_end, void* stream, bool entries) {
-  if (n_groups <= 0 || S % 16 != 0 || reinterpret_cast<uintptr_t>(sym) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // K2 stages its input in dynamic shared memory
-#define GLZ_ENCODE(LPT, E)                                                     \
-  {                                                                            \
-    const int smem = E ? 0 : static_cast<int>(encode_smem<LPT>());             \
-    const cudaError_t e = cudaFuncSetAttribute(                                \
-        encode_kernel<LPT, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
-    if (e != cudaSuccess) return static_cast<int>(e);                          \
-    encode_kernel<LPT, E><<<n_groups, kThreads, smem, st>>>(                   \
-        sym, static_cast<const uint32_t*>(tbl), n_valid,                       \
-        static_cast<const int32_t*>(ctot), static_cast<const int32_t*>(gw),    \
-        static_cast<const int32_t*>(grow), S, static_cast<uint32_t*>(out),     \
-        static_cast<int32_t*>(cursor_end));                                    \
-  }
-#define GLZ_ENCODE_ROWS(E)                                                     \
-  switch (rows) {                                                              \
-    case 8: GLZ_ENCODE(1, E); break;                                           \
-    case 16: GLZ_ENCODE(2, E); break;                                          \
-    case 32: GLZ_ENCODE(4, E); break;                                          \
-    case 64: GLZ_ENCODE(8, E); break;                                          \
-    default: return static_cast<int>(cudaErrorInvalidValue);                   \
-  }
-  if (entries) {
-    GLZ_ENCODE_ROWS(true)
-  } else {
-    GLZ_ENCODE_ROWS(false)
-  }
-#undef GLZ_ENCODE_ROWS
-#undef GLZ_ENCODE
-  return static_cast<int>(cudaGetLastError());
-}
-
+// sym 16-byte aligned; S a multiple of 16.
 int glz_encode_groups(const void* sym, const void* tbl, long long n_valid,
                       const void* ctot, const void* gw, const void* grow,
                       int n_groups, int S, int rows, void* out,
                       void* cursor_end, void* stream) {
-  return encode_groups(sym, tbl, n_valid, ctot, gw, grow, n_groups, S, rows, out,
-                       cursor_end, stream, false);
+  if (n_groups <= 0 || S % 16 != 0 || reinterpret_cast<uintptr_t>(sym) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // K2 stages its input in dynamic shared memory
+#define GLZ_ENCODE(LPT)                                                        \
+  {                                                                            \
+    const int smem = static_cast<int>(encode_smem<LPT>());                     \
+    const cudaError_t e = cudaFuncSetAttribute(                                \
+        encode_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
+    if (e != cudaSuccess) return static_cast<int>(e);                          \
+    encode_kernel<LPT><<<n_groups, kThreads, smem, st>>>(                      \
+        static_cast<const uint8_t*>(sym), static_cast<const uint32_t*>(tbl),   \
+        n_valid, static_cast<const int32_t*>(ctot),                            \
+        static_cast<const int32_t*>(gw), static_cast<const int32_t*>(grow), S, \
+        static_cast<uint32_t*>(out), static_cast<int32_t*>(cursor_end));       \
+  }
+  switch (rows) {
+    case 8: GLZ_ENCODE(1); break;
+    case 16: GLZ_ENCODE(2); break;
+    case 32: GLZ_ENCODE(4); break;
+    case 64: GLZ_ENCODE(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GLZ_ENCODE
+  return static_cast<int>(cudaGetLastError());
 }
 
+// ent: u32 lj|len entry words, 16-byte aligned; S a multiple of 16.
 int glz_encode_entries(const void* ent, const void* ctot, const void* gw,
                        const void* grow, int n_groups, int S, int rows, void* out,
                        void* cursor_end, void* stream) {
-  return encode_groups(ent, nullptr, 0, ctot, gw, grow, n_groups, S, rows, out,
-                       cursor_end, stream, true);
+  if (n_groups <= 0 || S % 16 != 0 || reinterpret_cast<uintptr_t>(ent) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* e_in = static_cast<const uint32_t*>(ent);
+  const int32_t* ct = static_cast<const int32_t*>(ctot);
+  const int32_t* gwp = static_cast<const int32_t*>(gw);
+  const int32_t* gr = static_cast<const int32_t*>(grow);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  int32_t* ce = static_cast<int32_t*>(cursor_end);
+  // a cluster of rows/8 blocks a group (one block at rows 8)
+#define GLZ_ENCODE_ENTRIES(C)                                                           \
+  {                                                                                     \
+    auto kernel = encode_entries_kernel<C>;                                             \
+    const size_t smem = kEntSmem;                                                       \
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                         static_cast<int>(smem));                       \
+    if (e != cudaSuccess) return static_cast<int>(e);                                   \
+    cudaLaunchConfig_t config = {};                                                     \
+    cudaLaunchAttribute attr[1];                                                        \
+    config.gridDim = dim3(static_cast<unsigned>(n_groups) * C);                         \
+    config.blockDim = dim3(kThreads);                                                   \
+    config.dynamicSmemBytes = smem;                                                     \
+    config.stream = st;                                                                 \
+    attr[0].id = cudaLaunchAttributeClusterDimension;                                   \
+    attr[0].val.clusterDim.x = C;                                                       \
+    attr[0].val.clusterDim.y = 1;                                                       \
+    attr[0].val.clusterDim.z = 1;                                                       \
+    config.attrs = attr;                                                                \
+    config.numAttrs = C > 1 ? 1 : 0;                                                    \
+    e = cudaLaunchKernelEx(&config, kernel, e_in, ct, gwp, gr, S, o, ce);               \
+    if (e != cudaSuccess) return static_cast<int>(e);                                   \
+  }
+  switch (rows) {
+    case 8: GLZ_ENCODE_ENTRIES(1); break;
+    case 16: GLZ_ENCODE_ENTRIES(2); break;
+    case 32: GLZ_ENCODE_ENTRIES(4); break;
+    case 64: GLZ_ENCODE_ENTRIES(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GLZ_ENCODE_ENTRIES
+  return static_cast<int>(cudaGetLastError());
 }
 
 // fc, offsets: u32[34]; symtab: u32[256]; table_bits in [1, 12]; payload

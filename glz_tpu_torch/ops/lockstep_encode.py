@@ -91,7 +91,8 @@ def _check_sweep_inputs(sym: torch.Tensor, ctot: torch.Tensor, gw: torch.Tensor,
     _kernels.check(ctot, "ctot", torch.int32, (n_groups, rows, LANES), sym.device)
     _kernels.check(gw, "gw", torch.int32, (n_groups,), sym.device)
     _kernels.check(grow, "grow", torch.int32, (n_groups,), sym.device)
-    if int(gw.min()) < 0 or int((grow.long() * LANES + gw.long()).max()) > n_words:
+    lo, hi = torch.stack([gw.min().long(), (grow.long() * LANES + gw.long()).max()]).tolist()
+    if lo < 0 or hi > n_words:
         raise ValueError(f"group segments (grow*128 + gw) exceed the {n_words}-word payload")
 
 

@@ -32,6 +32,7 @@ from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container as port_container
 from glz_tpu_torch.models import canonical_byte as port_model
 from glz_tpu_torch.models import huffword as port_hw
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HW = cfg.MODE_HUFFWORD
 

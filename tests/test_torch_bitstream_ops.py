@@ -41,6 +41,7 @@ from glz_tpu_torch.ops import decode as bd
 from glz_tpu_torch.ops import decode_table as dt
 from glz_tpu_torch.ops import encode as be
 from glz_tpu_torch.utils import tokenizer as tok
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 N = 1 << 18  # symbols of a byte case: a multiple of lut256's 64 KiB tile

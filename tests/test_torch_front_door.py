@@ -29,6 +29,7 @@ import glz_tpu_torch
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container as port_container
 from glz_tpu_torch.models import canonical_byte as port_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = {"byte": cfg.MODE_BYTE, "huffword": cfg.MODE_HUFFWORD}
 

@@ -53,6 +53,23 @@ def test_k5_on_random_words(cuda, case):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.K4_CASES))
+def test_k4_matches_plain_version(cuda, case):
+    """K4 bit-exact against encode_entries_ref at rows 8, 16, 32 and 64 (each
+    geometry its entry launches), on word text with a ragged token count and
+    on single-symbol dictionaries."""
+    chip_smoke.check_k4_case(case, cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.K1_CASES))
+def test_k1_matches_plain_version(cuda, case):
+    """K1 bit-exact against lane_totals_ref at every S from 64 to 8192 with
+    a ragged n_valid (garbage bytes past it), and with a depth-26 codebook."""
+    chip_smoke.check_k1_case(case, cuda)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("case", list(chip_smoke.BITSTREAM_CASES))
 def test_bitstream_kernels_match_plain_versions(cuda, case):
     """K7, the pack (pack_scan, pack_tiles, from bit 0 and from a bit that

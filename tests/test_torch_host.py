@@ -21,6 +21,7 @@ from glz_tpu_torch.core import codebook as port_codebook
 from glz_tpu_torch.core import container as port_container
 from glz_tpu_torch.models.canonical_byte import decode_tables
 from glz_tpu_torch.ops import decode_table
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("limit", [None, 26, 12])

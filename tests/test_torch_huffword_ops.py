@@ -32,6 +32,7 @@ from glz_tpu_torch.ops import lockstep_decode as kd
 from glz_tpu_torch.ops import lockstep_encode as ke
 from glz_tpu_torch.ops import lut
 from glz_tpu_torch.utils import tokenizer as tok
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 LANES = 128

@@ -28,6 +28,7 @@ from glz_tpu_torch.models.canonical_byte import decode_tables, entry_table, grou
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops import lockstep_decode as kd
 from glz_tpu_torch.ops import lockstep_encode as ke
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 LANES = 128

@@ -12,6 +12,7 @@ import pytest
 from glz_tpu.utils import tokenizer as tpu_tok
 
 from glz_tpu_torch.utils import tokenizer as port_tok
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _inputs(name, text_1mb, realtext, rng):

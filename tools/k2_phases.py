@@ -59,23 +59,24 @@ VARIANTS = {"base": "", "no_load": "-DK2_NO_LOAD", "no_lookup": "-DK2_NO_LOOKUP"
             "no_load+no_lookup+no_emit+no_scan":
                 "-DK2_NO_LOAD -DK2_NO_LOOKUP -DK2_NO_EMIT -DK2_NO_SCAN"}
 # csrc/lockstep.cu edits that undo one change of the redesigned kernel:
-# (marker, replacement) pairs, each marker found exactly once.
-STAGE_READ = ("          q[j] = reinterpret_cast<const uint32_t*>(stage + ((j + threadIdx.x) & "
-              "(LPT - 1)))\n              [(t & 15) >> 2];")
+# (marker, replacement) pairs, each marker found exactly once in its body.
+K2_KERNEL = "__global__ void __launch_bounds__(kThreads, 1) encode_kernel("
+STAGE_READ = ("        q[j] = reinterpret_cast<const uint32_t*>(stage + ((j + threadIdx.x) & "
+              "(LPT - 1)))\n            [(t & 15) >> 2];")
 ENTRY_ONCE = """    uint32_t e[LPT];
 #pragma unroll
     for (int j = 0; j < LPT; ++j)
-      e[j] = kEntries ? q[j] : (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;"""
+      e[j] = (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;"""
 NOW_VARIANTS = {
     # the input loaded in the step that uses it, as the first port did
-    "no_stage": [(STAGE_READ, "          q[j] = reinterpret_cast<const uint32_t*>(byte_src + "
+    "no_stage": [(STAGE_READ, "        q[j] = reinterpret_cast<const uint32_t*>(byte_src + "
                               "static_cast<int64_t>(j) * S)[t >> 2];"),
-                 ("  if (!kEntries) stage_chunk(S - 16);", ""),
-                 ("      if ((t & 15) == 2 && t > 16) stage_chunk((t & ~15) - 16);", "")],
+                 ("  stage_chunk(S - 16);", ""),
+                 ("    if ((t & 15) == 2 && t > 16) stage_chunk((t & ~15) - 16);", "")],
     # each entry looked up twice a step (before the barrier and after), as
     # the first port did to save registers
     "entry_twice": [(ENTRY_ONCE, """    auto e_at = [&](int j) -> uint32_t {
-      return kEntries ? q[j] : (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;
+      return (t < min(max(rem - j * S, 0), S)) ? ent[(q[j] >> sh) & 255u] : 0u;
     };"""),
                     ("static_cast<int>(e[j] & kLenMask);", "static_cast<int>(e_at(j) & kLenMask);"),
                     ("      const uint32_t ln = e[j] & kLenMask;", "      const uint32_t e_j = e_at(j);\n"
@@ -323,14 +324,17 @@ def main() -> int:
         # csrc/lockstep.cu as it is, and with each of its changes undone
         src = (_kernels.CSRC / "lockstep.cu").read_text()
         texts = {"now": (src, "")}
+        # the edits apply to encode_kernel's body only (K4's repeats some lines)
+        start = src.index(K2_KERNEL)
+        end = src.index("\n}\n", start) + 3
         for name, edits in NOW_VARIANTS.items():
-            text = src
+            body = src[start:end]
             for marker, replacement in edits:
-                if text.count(marker) != 1:
+                if body.count(marker) != 1:
                     raise RuntimeError(f"lockstep.cu no longer has the probe's marker:\n{marker}")
-                text = text.replace(marker, replacement)
-            texts[name] = (text, "")
-        now = _compile(pathlib.Path(tmp), texts, "glz_encode_groups", "encode_kernel<8,bytes>")
+                body = body.replace(marker, replacement)
+            texts[name] = (src[:start] + body + src[end:], "")
+        now = _compile(pathlib.Path(tmp), texts, "glz_encode_groups", "encode_kernel<8>")
         rows = ctypes.c_int(conf.group_rows)
         for lib in now.values():
             lib.glz_encode_groups.argtypes = _kernels._SIGNATURES["glz_encode_groups"]
