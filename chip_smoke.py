@@ -6,7 +6,8 @@
 Four paths: the byte-mode lockstep codec (THROUGHPUT), the HuffWord
 lockstep codec, and the bitstream (layout 0) codec in byte and HuffWord
 mode (DEFAULT), the byte one through glz_tpu's default front door
-(backend "host") and the device backend.  Phases (each prints one line or
+(backend "host") and the device backend; then the multi-file batch and the
+.glzb archive, which run every kernel again.  Phases (each prints one line or
 more; any failure exits non-zero before the last):
   1. environment: torch, the card, nvidia-smi, nvcc;
   2. build: compile csrc/lockstep.cu and csrc/bitstream.cu (which share
@@ -54,6 +55,15 @@ more; any failure exits non-zero before the last):
      launch counts read just after each, and the host steps re-run alone;
   4d. HuffWord bitstream path: phase 4b's text under DEFAULT with checksum
      (streams of 16,384 tokens), launch counts read just after;
+  4e. batch path: twelve members at the Silesia corpus's published sizes
+     (211,938,580 bytes, made from seeds): compress_batch/decompress_batch
+     under THROUGHPUT and DEFAULT, pipelined (two files in flight on two
+     threads) and serial in turns, the containers equal either way; the
+     shared-codebook batch under THROUGHPUT and under DEFAULT with backend
+     "device"; compress_archive/decompress_archive in byte mode under both
+     presets and in HuffWord lockstep mode (S 512, rows 32) on three text
+     members; each with its times, launch counts, peak device memory, and
+     the archive's size against the per-file containers;
   5. kernel times at each main path's shapes (CUDA events), each kernel
      held against its plain version on the same inputs (the stream decodes
      also against the input); the whole pack step against the first
@@ -65,10 +75,12 @@ more; any failure exits non-zero before the last):
      one probe; the registers and spills of K1, K4 (each geometry launched),
      K2 and K5;
   6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
-     under ten configurations must have the SHA-256 that the JAX
-     reference writes (pinned by tests/test_torch_canonical_byte.py,
-     tests/test_torch_huffword.py, tests/test_torch_bitstream.py and
-     tests/test_torch_front_door.py).
+     under ten configurations, its normal-tree container, and archives of
+     its four quarters in byte DEFAULT, byte THROUGHPUT and HuffWord
+     lockstep (S 64) must have the SHA-256 that the JAX reference writes
+     (pinned by tests/test_torch_canonical_byte.py,
+     tests/test_torch_huffword.py, tests/test_torch_bitstream.py,
+     tests/test_torch_front_door.py and tests/test_torch_batch.py).
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -150,6 +162,14 @@ BITSTREAM_PINNED = {
     "byte_default_host": "6e3eff1670f7dc5a595737ca1c8e8e91248f2c9d5c88636bd401327a36f59065",
     "byte_ratio_host": "5a1f850548aeb05d8b643941d299de2e7c95e25e9abe540f97da1699abdf86b8",
 }
+# SHA-256 of glz_tpu's compress_archive of quarters(realtext.txt[:1 MiB]),
+# and of its normal-tree container of the whole 1 MiB.
+ARCHIVE_PINNED = {
+    "archive_byte_default": "dd28b497790472d01099b9f11e1594b9cadefefd917ebd2b81ddd9ce96485ffb",
+    "archive_byte_throughput": "692f6cefa731c8a0156610ba1d04e175b36741c4805cd4c4185d304f5f35965c",
+    "archive_hw_s64": "ccf5d4df7be035bd3b40025211b86a2c04b3bf595bb8b2fd0118378488961866",
+    "normal_tree": "d24c317dde15dc1828e932b07bc25716bcecbadddde931aad436b9ea5a059ae5",
+}
 
 REPLACES = {
     "lane_totals": "glz_tpu/ops/pallas_encode.py:449",
@@ -165,6 +185,16 @@ REPLACES = {
     "decode_streams": "glz_tpu/ops/decode.py:37",
     "decode_streams_dual": "glz_tpu/models/huffword.py:502",
 }
+# Phase 4e's members: the Silesia corpus's twelve files at their published
+# sizes in bytes, made from seeds (the real files are not in the
+# repository): the text ones by make_word_corpus, the others i.i.d. bytes
+# of a per-member Dirichlet(0.1) law, so their statistics differ widely.
+SILESIA = {"dickens": 10_192_446, "mozilla": 51_220_480, "mr": 9_970_564,
+           "nci": 33_553_445, "ooffice": 6_152_192, "osdb": 10_085_684,
+           "reymont": 6_627_202, "samba": 21_606_400, "sao": 7_251_944,
+           "webster": 41_458_703, "xml": 5_345_280, "x-ray": 8_474_240}
+SILESIA_TEXT = ("dickens", "nci", "reymont", "webster", "xml")
+HUFFWORD_ARCHIVE_MEMBERS = ("dickens", "reymont", "xml")  # 22,164,928 bytes
 BYTE_KERNELS = ("lane_totals", "encode_groups", "decode_groups")
 HUFFWORD_KERNELS = ("lut_gather", "lane_totals_entries", "encode_entries", "decode_dual")
 BITSTREAM_KERNELS = ("lookup_lj_lens", "pack_scan", "pack_tiles", "decode_streams")
@@ -214,6 +244,21 @@ def bitstream_pinned_configs() -> dict[str, tuple[cfg.GlzConfig, int, str]]:
             "byte_ratio_host": (ratio, cfg.MODE_BYTE, "host")}
 
 
+def archive_pinned_configs() -> dict[str, tuple[int, cfg.GlzConfig]]:
+    """(mode, configuration) of the archive digests and the normal-tree one."""
+    return {"archive_byte_default": (cfg.MODE_BYTE, cfg.DEFAULT),
+            "archive_byte_throughput": (cfg.MODE_BYTE, cfg.THROUGHPUT),
+            "archive_hw_s64": (cfg.MODE_HUFFWORD,
+                               cfg.GlzConfig(stream_symbols=64, layout=cfg.LAYOUT_LOCKSTEP)),
+            "normal_tree": (cfg.MODE_NORMAL_TREE, cfg.DEFAULT)}
+
+
+def quarters(data: bytes) -> list[bytes]:
+    """Four equal slices of `data` (the archive digests' members)."""
+    q = len(data) // 4
+    return [data[i * q : (i + 1) * q] for i in range(4)]
+
+
 def make_word_corpus(n_bytes: int, seed: int = 0x3AD) -> bytes:
     """English-like text: Zipf(1.1) draws from 20,000 words, each followed
     by one of six separators (the repository's HuffWord benchmark recipe,
@@ -233,6 +278,19 @@ def make_word_corpus(n_bytes: int, seed: int = 0x3AD) -> bytes:
         parts.append(s.encode())
         size += len(parts[-1])
     return b"".join(parts)[:n_bytes]
+
+
+def silesia_members() -> dict[str, bytes]:
+    """Phase 4e's twelve members (SILESIA), each made from its own seed."""
+    out = {}
+    for k, (name, size) in enumerate(SILESIA.items()):
+        if name in SILESIA_TEXT:
+            out[name] = make_word_corpus(size, seed=0x5E5 + k)
+        else:
+            rng = np.random.default_rng(0x5E5 + k)
+            p = rng.dirichlet(np.full(256, 0.1))
+            out[name] = rng.choice(256, size=size, p=p).astype(np.uint8).tobytes()
+    return out
 
 
 def big_vocab_text(n_distinct: int = 70_000, n_repeats: int = 10_000,
@@ -1248,6 +1306,85 @@ def round_trip(data, mode: int, conf: cfg.GlzConfig, backend: str = "host"):
     return blob, out, t_c, t_d, _kernels.launch_counts()
 
 
+def batch_run(label: str, files: list[bytes], compress, decompress, card: str,
+              kernels: tuple[str, ...]):
+    """One timed compress and decompress of a batch or an archive through the
+    entry points, each ending in a synchronize, the launch counts zeroed
+    just before and read just after, and peak device memory reset before.
+    Fails unless the files come back and every kernel in `kernels` ran.
+    Returns (compress's output, its size in bytes)."""
+    n = sum(map(len, files))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = compress(files)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = decompress(out)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+    require(back == files, f"{label}: round trip mismatch")
+    require(all(k in launches for k in kernels), f"{label} missed a kernel: {launches}")
+    size = len(out) if isinstance(out, bytes) else sum(map(len, out))
+    print(f"batch: {label}, {len(files)} files, {n} B, on {card}: compress {t_c * 1e3:.1f} ms "
+          f"({n / t_c / 1e9:.3f} GB/s), decompress {t_d * 1e3:.1f} ms ({n / t_d / 1e9:.3f} "
+          f"GB/s), output {size} B (ratio {size / n:.4f}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, launches {launches}",
+          flush=True)
+    return out, size
+
+
+def batch_phase(card: str) -> None:
+    """Phase 4e: the multi-file batch, the shared-codebook batch and the
+    .glzb archive on the SILESIA members."""
+    t0 = time.perf_counter()
+    members = silesia_members()
+    files = list(members.values())
+    print(f"batch: {len(files)} members ({', '.join(f'{k} {len(v)}' for k, v in members.items())}"
+          f"; {sum(map(len, files))} B) made in {time.perf_counter() - t0:.1f} s", flush=True)
+    per_file = {}
+    for preset, kernels in (("THROUGHPUT", BYTE_KERNELS), ("DEFAULT", BITSTREAM_KERNELS)):
+        pconf = getattr(cfg, preset)
+        blobs = []
+        for pipeline in (True, False, False, True):  # in turns
+            out, size = batch_run(
+                f"compress_batch/decompress_batch {preset} pipeline={pipeline}", files,
+                lambda fs: gt.compress_batch(fs, conf=pconf, pipeline=pipeline),
+                lambda bs: gt.decompress_batch(bs, pipeline=pipeline), card, kernels)
+            blobs.append(out)
+        require(all(b == blobs[0] for b in blobs),
+                f"compress_batch {preset}: the pipelined containers differ from the serial")
+        per_file[preset] = size
+        del blobs, out
+    batch_run("compress_batch THROUGHPUT shared_codebook", files,
+              lambda fs: gt.compress_batch(fs, conf=cfg.THROUGHPUT, shared_codebook=True),
+              gt.decompress_batch, card, BYTE_KERNELS)
+    batch_run("compress_batch DEFAULT shared_codebook backend='device'", files,
+              lambda fs: gt.compress_batch(fs, backend="device", shared_codebook=True),
+              gt.decompress_batch, card, BITSTREAM_KERNELS)
+    for preset, kernels in (("THROUGHPUT", BYTE_KERNELS), ("DEFAULT", BITSTREAM_KERNELS)):
+        pconf = getattr(cfg, preset)
+        _, size = batch_run(f"compress_archive/decompress_archive {preset}", files,
+                            lambda fs: gt.compress_archive(fs, conf=pconf),
+                            gt.decompress_archive, card, kernels)
+        print(f"archive: {preset} {size} B against {per_file[preset]} B of per-file "
+              f"containers ({size - per_file[preset]:+d} B)", flush=True)
+    hw_files = [members[k] for k in HUFFWORD_ARCHIVE_MEMBERS]
+    del members, files
+    hconf = huffword_conf()
+    _, size = batch_run(
+        f"compress_archive/decompress_archive HuffWord S {hconf.stream_symbols} rows "
+        f"{hconf.group_rows} ({', '.join(HUFFWORD_ARCHIVE_MEMBERS)})", hw_files,
+        lambda fs: gt.compress_archive(fs, mode=cfg.MODE_HUFFWORD, conf=hconf),
+        gt.decompress_archive, card, HUFFWORD_KERNELS)
+    per = sum(map(len, gt.compress_batch(hw_files, mode=cfg.MODE_HUFFWORD, conf=hconf)))
+    print(f"archive: HuffWord {size} B against {per} B of per-file containers "
+          f"({size - per:+d} B)", flush=True)
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -1403,6 +1540,9 @@ def main() -> int:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
           f"launches {hblaunches}", flush=True)
 
+    # ---- 4e. the batch path: twelve Silesia-sized members
+    batch_phase(card)
+
     # ---- 5. kernel times at the main path's shapes
     cb = build_codebook(sampled_histogram(arr, conf.histogram_budget), ke.MAX_FUSED_LEN)
     inp = KernelInputs(arr, n, conf.stream_symbols, conf.group_rows, cb, dev)
@@ -1490,8 +1630,18 @@ def main() -> int:
         digest = hashlib.sha256(blob).hexdigest()
         require(digest == BITSTREAM_PINNED[key], f"pinned digest {key}: {digest}")
         require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")
-    print(f"digests: {', '.join([*PINNED, *HUFFWORD_PINNED, *BITSTREAM_PINNED])} match "
-          f"the reference", flush=True)
+    for key, (pmode, pconf) in archive_pinned_configs().items():
+        if pmode == cfg.MODE_NORMAL_TREE:
+            blob = gt.compress(text, mode=pmode, conf=pconf)
+            require(gt.decompress(blob) == text, f"pinned digest {key}: round trip")
+        else:
+            blob = gt.compress_archive(quarters(text), mode=pmode, conf=pconf)
+            require(gt.decompress_archive(blob) == quarters(text),
+                    f"pinned digest {key}: round trip")
+        digest = hashlib.sha256(blob).hexdigest()
+        require(digest == ARCHIVE_PINNED[key], f"pinned digest {key}: {digest}")
+    print(f"digests: {', '.join([*PINNED, *HUFFWORD_PINNED, *BITSTREAM_PINNED, *ARCHIVE_PINNED])} "
+          f"match the reference", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,28 +1,28 @@
-"""compress()/decompress(): the front door, with glz_tpu's signatures and
-defaults (glz_tpu/core/api.py).
+"""The front door, with glz_tpu's signatures and defaults
+(glz_tpu/core/api.py): compress()/decompress(), the multi-file batch and
+the .glzb archive.
 
 The port carries byte mode and HuffWord mode in both payload layouts:
-bitstream (layout 0) and lockstep (layout 2).  `backend` picks the
-container as glz_tpu's does: "host" (the default) writes the host
-encoder's byte container (one bit stream, payload bytes up to the last
-code bit), "device" the device path's (word-aligned dispatches), and a
-HuffWord "device" request writes a lockstep container.  Every backend runs
-on the card; device='cpu' runs the kernels' plain versions.  The
-normal-tree mode raises NotImplementedError naming the slice that brings
-it.
+bitstream (layout 0) and lockstep (layout 2), and the normal-tree mode (a
+host codec, as in glz_tpu).  `backend` picks the container as glz_tpu's
+does: "host" (the default) writes the host encoder's byte container (one
+bit stream, payload bytes up to the last code bit), "device" the device
+path's (word-aligned dispatches), and a HuffWord "device" request writes a
+lockstep container.  Every backend runs on the card; device='cpu' runs the
+kernels' plain versions.  Every entry point passes `device` down to each
+call it makes.
 """
 
 from __future__ import annotations
 
+import struct
 import zlib
+
+import numpy as np
 
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container
 
-# Slices of the port (ROADMAP.md, queue A) that bring the other routes.
-_LATER_MODES = {
-    cfg.MODE_NORMAL_TREE: "the rest of the front-door slice (ROADMAP A1)",
-}
 BACKENDS = ("host", "device")
 VARIANTS = (cfg.DECODER_BITWALK, cfg.DECODER_FAST, cfg.DECODER_TABLE, cfg.DECODER_DEVICE)
 
@@ -77,9 +77,10 @@ def compress(data: bytes, mode: int = cfg.MODE_BYTE, backend: str = "host",
     if mode == cfg.MODE_HUFFWORD:
         from glz_tpu_torch.models.huffword import compress_huffword
         return compress_huffword(data, conf, backend=backend, device=device)
+    if mode == cfg.MODE_NORMAL_TREE:
+        from glz_tpu_torch.models.normal_tree import compress_normal_tree
+        return compress_normal_tree(data, conf, device=device)
     if mode != cfg.MODE_BYTE:
-        if mode in _LATER_MODES:
-            raise NotImplementedError(f"mode {mode} comes with {_LATER_MODES[mode]}")
         raise ValueError(f"unsupported mode {mode}")
     from glz_tpu_torch.models import canonical_byte as cb_model
     if conf.layout == cfg.LAYOUT_LOCKSTEP:
@@ -106,7 +107,176 @@ def decompress(blob: bytes, backend: str = "host", variant: str = cfg.DECODER_TA
         return decompress_huffword(blob, device=device)
     if f.mode == cfg.MODE_BYTE:
         return decompress_bytes_device(blob, device=device)
-    if f.mode in _LATER_MODES:
-        raise NotImplementedError(
-            f"container mode {f.mode} comes with {_LATER_MODES[f.mode]}")
+    if f.mode == cfg.MODE_NORMAL_TREE:
+        from glz_tpu_torch.models.normal_tree import decompress_normal_tree
+        return decompress_normal_tree(blob, device=device)
     raise ValueError(f"unsupported container mode {f.mode}")
+
+
+# ---- the multi-file batch ----------------------------------------------------
+
+def compress_batch(datas: list[bytes], mode: int = cfg.MODE_BYTE, backend: str = "host",
+                   conf: cfg.GlzConfig = cfg.DEFAULT, pipeline: bool = True,
+                   shared_codebook: bool = False, device=None) -> list[bytes]:
+    """Compress independent inputs (a multi-file corpus), as
+    glz_tpu.compress_batch does with the same arguments.
+
+    shared_codebook=False (the default): each file gets its own codebook and
+    container, compress()'s for the same arguments.  With pipeline=True two
+    files are in flight at once on a thread pool, so one file's host phases
+    (histogram, codebook, container, crc32) run while the other's kernels
+    do; the kernels of both go to the default stream.  Results come back in
+    input order and equal the serial loop's.
+
+    shared_codebook=True: ONE codebook is built from the frequencies of the
+    whole file list and every container uses it.  Each container still
+    embeds the codebook and decodes alone; compress_archive stores it once.
+    conf.layout and backend select the container as in compress()."""
+    check_backend(backend)
+    if shared_codebook:
+        return _compress_batch_shared(datas, mode, backend, conf, pipeline, device)
+    return _pipelined(
+        lambda d: compress(d, mode=mode, backend=backend, conf=conf, device=device),
+        datas, pipeline)
+
+
+def _compress_batch_shared(datas, mode, backend, conf, pipeline, device) -> list[bytes]:
+    if mode == cfg.MODE_HUFFWORD:
+        from glz_tpu_torch.models.huffword import compress_huffword_shared
+        return compress_huffword_shared(datas, conf, backend=backend, pipeline=pipeline,
+                                        device=device)
+    if mode != cfg.MODE_BYTE:
+        raise ValueError("shared_codebook supports byte and huffword modes")
+    from glz_tpu_torch.core.codebook import build_codebook, sampled_histogram
+    from glz_tpu_torch.models import canonical_byte as cb_model
+
+    hist = np.zeros(256, np.int64)
+    for d in datas:
+        hist += sampled_histogram(np.frombuffer(d, np.uint8), conf.histogram_budget)
+    if conf.layout == cfg.LAYOUT_LOCKSTEP:
+        from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN
+        encode = cb_model.compress_bytes_lockstep
+        limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+    else:
+        encode = (cb_model.compress_bytes_device if backend == "device"
+                  else cb_model.compress_bytes_host)
+        limit = conf.length_limit
+    cb = build_codebook(hist, limit)
+    return _pipelined(lambda d: encode(d, conf, codebook=cb, device=device), datas, pipeline)
+
+
+def decompress_batch(blobs: list[bytes], backend: str = "host", pipeline: bool = True,
+                     device=None) -> list[bytes]:
+    """Decompress containers with compress_batch's 2-deep pipeline (one
+    file's host phases, detokenize and crc32, while the other's kernels
+    run)."""
+    return _pipelined(lambda b: decompress(b, backend=backend, device=device), blobs,
+                      pipeline)
+
+
+# ---- .glzb archive: a shared-codebook batch with the codebook stored ONCE -----
+#
+# Entry containers are whole .glz files whose codebook bytes are factored
+# out: the archive stores the longest common SUFFIX of every container's
+# codebook blob once (byte mode: the whole blob; HuffWord: everything after
+# the per-file word_first byte), and each entry keeps only its per-file
+# prefix.  Rebuilding an entry is byte splicing, so every entry decodes
+# through the ordinary container path.
+#
+# Layout (little-endian), glz_tpu's byte for byte:
+#   0:4  magic b"GLZB"; 4:1 version (1); 5:1 mode; 6:2 reserved
+#   8:4  n_files (u32); 12:4 shared codebook size (u32); 16:.. shared blob
+#   then per file: u32 prefix_len, u64 body_len, prefix, body
+#   (body = the .glz container bytes with the codebook section removed)
+
+ARCHIVE_MAGIC = b"GLZB"
+_ARCHIVE_HEADER = "<4sBBHII"
+_ENTRY_HEADER = "<IQ"
+
+
+def common_suffix_len(blobs: list[bytes]) -> int:
+    """Length of the longest suffix that every blob ends with (0 for no
+    blobs): one backward scan of each blob against the first, so O(total
+    length).  glz_tpu searches downward from the shortest length instead,
+    O(L^2); the result is the same."""
+    if not blobs:
+        return 0
+    first = np.frombuffer(blobs[0], np.uint8)
+    shared = min(len(b) for b in blobs)
+    for b in blobs[1:]:
+        if not shared:
+            break
+        tail = np.frombuffer(b, np.uint8)[len(b) - shared:][::-1]
+        differ = np.flatnonzero(tail != first[first.size - shared:][::-1])
+        if differ.size:
+            shared = int(differ[0])
+    return shared
+
+
+def compress_archive(datas: list[bytes], mode: int = cfg.MODE_BYTE, backend: str = "host",
+                     conf: cfg.GlzConfig = cfg.DEFAULT, device=None) -> bytes:
+    """Shared-codebook multi-file archive (.glzb), as glz_tpu.compress_archive
+    writes it: one codebook for the whole corpus, n_files - 1 fewer
+    codebook copies than per-file containers."""
+    blobs = compress_batch(datas, mode=mode, backend=backend, conf=conf,
+                           shared_codebook=True, device=device)
+    cbs = [container.read_container(b).codebook_blob for b in blobs]
+    shared_len = common_suffix_len(cbs)
+    shared = cbs[0][len(cbs[0]) - shared_len:] if shared_len else b""
+    parts = [struct.pack(_ARCHIVE_HEADER, ARCHIVE_MAGIC, 1, mode, 0, len(blobs), shared_len),
+             shared]
+    cb_off = container.HEADER_SIZE
+    for b, c in zip(blobs, cbs):
+        prefix = c[: len(c) - shared_len]
+        body = b[:cb_off] + b[cb_off + len(c):]
+        parts += [struct.pack(_ENTRY_HEADER, len(prefix), len(body)), prefix, body]
+    return b"".join(parts)
+
+
+def archive_peek_layout(blob: bytes | memoryview) -> int:
+    """Payload layout of a .glzb archive's first entry, from its headers
+    only (every entry of an archive shares one layout).  Reads no payload
+    and touches no card, so it takes no `device`."""
+    mv = memoryview(blob)
+    if len(mv) < 16 or bytes(mv[:4]) != ARCHIVE_MAGIC:
+        raise ValueError("not a .glzb archive")
+    _m, _v, _mode, _r, n_files, shared_len = struct.unpack_from(_ARCHIVE_HEADER, mv, 0)
+    if n_files == 0:
+        return container.LAYOUT_BITSTREAM
+    off = 16 + shared_len
+    if off + 12 > len(mv):
+        raise ValueError("corrupt .glzb archive: truncated before entry 0")
+    plen, _blen = struct.unpack_from(_ENTRY_HEADER, mv, off)
+    off += 12 + plen
+    return container.peek_layout(mv[off : off + container.HEADER_SIZE])
+
+
+def decompress_archive(blob: bytes, backend: str = "host", device=None) -> list[bytes]:
+    """Decode every file of a .glzb archive (the inverse of
+    compress_archive): each entry is rebuilt by splicing the shared codebook
+    back and decoded through decompress_batch."""
+    mv = memoryview(blob)
+    if len(mv) < 16 or bytes(mv[:4]) != ARCHIVE_MAGIC:
+        raise ValueError("not a .glzb archive")
+    _m, version, _mode, _r, n_files, shared_len = struct.unpack_from(_ARCHIVE_HEADER, mv, 0)
+    if version != 1:
+        raise ValueError(f"unsupported .glzb version {version}")
+    off = 16
+    if off + shared_len > len(mv):
+        raise ValueError("corrupt .glzb archive: truncated shared codebook")
+    shared = bytes(mv[off : off + shared_len])
+    off += shared_len
+    cb_off = container.HEADER_SIZE
+    out = []
+    for k in range(n_files):
+        if off + 12 > len(mv):
+            raise ValueError(f"corrupt .glzb archive: truncated entry {k}")
+        plen, blen = struct.unpack_from(_ENTRY_HEADER, mv, off)
+        off += 12
+        if off + plen + blen > len(mv):
+            raise ValueError(f"corrupt .glzb archive: truncated entry {k}")
+        prefix = bytes(mv[off : off + plen])
+        body = bytes(mv[off + plen : off + plen + blen])
+        off += plen + blen
+        out.append(body[:cb_off] + prefix + shared + body[cb_off:])
+    return decompress_batch(out, backend=backend, device=device)

@@ -4,7 +4,7 @@
 // same function:
 //
 //   K1 lane_totals_kernel          <- glz_tpu/ops/pallas_encode.py:make_totals_kernel
-//      lane_totals_entries_kernel  <- glz_tpu/ops/pallas_encode.py:prepare_entry_words
+//   K1e lane_totals_entries_kernel <- glz_tpu/ops/pallas_encode.py:prepare_entry_words
 //                                     (XLA code there; the HuffWord form of K1)
 //   K2 encode_kernel<LPT>          <- glz_tpu/ops/pallas_encode.py:make_encode_kernel
 //                                     (byte-LUT mode)
@@ -85,16 +85,17 @@ __device__ __forceinline__ int lane_count(int64_t limit, int64_t first, int S) {
   return r <= 0 ? 0 : (r >= S ? S : static_cast<int>(r));
 }
 
-// A lane's bit total, and its refill word count added to its group's: one
-// atomic per warp (gw must be zero on entry).  The lanes of a warp belong
-// to one group (G is a multiple of 256).
-__device__ __forceinline__ void store_lane_total(int tot, int last, int64_t flat_lane,
-                                                 int g, int32_t* __restrict__ ctot,
-                                                 int32_t* __restrict__ gw) {
-  ctot[flat_lane] = tot;
-  int words = tot > 0 ? (tot - last + 31) / 32 + 1 : 0;
-  words = __reduce_add_sync(0xffffffffu, words);
-  if ((threadIdx.x & 31) == 0) atomicAdd(gw + g, words);
+// The sum of `x` over aligned segments of `seg` threads of a warp (seg a
+// power of two, at most 32), in every thread of the segment.
+__device__ __forceinline__ int segment_sum(int x, int seg) {
+  if (seg == 32) return __reduce_add_sync(0xffffffffu, x);  // 8% faster than the shuffles (probe)
+  for (int o = seg >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// A lane's refill word count from its bit total and its last code's length.
+__device__ __forceinline__ int refill_words(int tot, int last) {
+  return tot > 0 ? (tot - last + 31) / 32 + 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -163,15 +164,10 @@ __global__ void __launch_bounds__(kTotThreads) lane_totals_kernel(
           for (int k = 0; k < 16; ++k)
             sum += k < valid ? lens[(w[k >> 2] >> (8 * (k & 3))) & 255u] : 0;
         }
-        if (seg == 32) {  // one reduction: 8% faster than the shuffles (probe)
-          sum = __reduce_add_sync(0xffffffffu, sum);
-        } else {
-          for (int o = seg >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        }
-        acc += sum;
+        acc += segment_sum(sum, seg);
         if (((f + 16) & (S - 1)) == 0) {  // the lane's last chunk
           ctot[f >> s_log] = acc;
-          words += acc > 0 ? (acc - last + 31) / 32 + 1 : 0;
+          words += refill_words(acc, last);
         }
         if (((row0 + (r + 1) * 512) & (S - 1)) == 0) acc = 0;  // the row ends a lane
       }
@@ -181,46 +177,86 @@ __global__ void __launch_bounds__(kTotThreads) lane_totals_kernel(
   if (lane == 0) atomicAdd(gw + g, words);
 }
 
-// The blocks of lane_totals_kernel the current card holds at once, queried
-// once a card.
-cudaError_t lane_totals_resident(int* blocks) {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> resident[kMaxDevices];
+// ---------------------------------------------------------------------------
+// K1e, K1 on the HuffWord path: the symbols are u32 lj|len entry words, already
+// 0 past the valid token count, so a length is the entry's low 6 bits and
+// no validity test is needed.  Bound by reading the 4n entry bytes once.
+// The first port (a thread a lane, reading it 16 bytes at a time) had K1's
+// strided loads: the threads of a warp were 4S bytes apart.  So it has
+// K1's design: a warp load is 512 contiguous bytes (128 entries), four
+// rows in flight a thread; a lane is min(S/4, 32) threads of a row, or
+// several rows where S > 128; a warp takes whole lanes (units of max(S,
+// 512) entries), so the thread holding a lane's last chunk holds its total
+// and its last entry.  The grid is K1's.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kTotThreads) lane_totals_entries_kernel(
+    const uint32_t* __restrict__ ent, int S, int G, int32_t* __restrict__ ctot,
+    int32_t* __restrict__ gw) {
+  constexpr int kRow = 128;                       // entries a warp loads at once
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = blockIdx.x;
+  const int s_log = __ffs(S) - 1;                 // S is a power of two
+  const int seg = min(S >> 2, 32);                // threads a lane within a row
+  const int unit = max(S, kTotRows * kRow);       // entries a warp takes at a time
+  const int n_units = static_cast<int>(static_cast<int64_t>(G) * S / unit);
+  const int64_t group_first = static_cast<int64_t>(g) * G * S;
+  int words = 0;
+  for (int u = blockIdx.y * kTotWarps + warp; u < n_units; u += gridDim.y * kTotWarps) {
+    int acc = 0;  // the running total of the lane whose rows this warp is in
+    for (int r0 = 0; r0 < unit; r0 += kTotRows * kRow) {
+      const int64_t row0 = group_first + static_cast<int64_t>(u) * unit + r0;
+      uint4 q[kTotRows];
+#pragma unroll
+      for (int r = 0; r < kTotRows; ++r)
+        q[r] = *reinterpret_cast<const uint4*>(ent + row0 + r * kRow + lane * 4);
+#pragma unroll
+      for (int r = 0; r < kTotRows; ++r) {
+        const int64_t f = row0 + r * kRow + lane * 4;  // this thread's chunk
+        const int sum = static_cast<int>((q[r].x & kLenMask) + (q[r].y & kLenMask) +
+                                         (q[r].z & kLenMask) + (q[r].w & kLenMask));
+        acc += segment_sum(sum, seg);
+        if (((f + 4) & (S - 1)) == 0) {  // the lane's last chunk
+          ctot[f >> s_log] = acc;
+          words += refill_words(acc, static_cast<int>(q[r].w & kLenMask));
+        }
+        if (((row0 + (r + 1) * kRow) & (S - 1)) == 0) acc = 0;  // the row ends a lane
+      }
+    }
+  }
+  words = __reduce_add_sync(0xffffffffu, words);
+  if (lane == 0) atomicAdd(gw + g, words);
+}
+
+// The blocks of a kernel of kTotThreads threads that the current card holds
+// at once, queried once a card into `cache` (one array a kernel).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, std::atomic<int>* cache, int* blocks) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   const bool cached = device < kMaxDevices;
-  *blocks = cached ? resident[device].load(std::memory_order_relaxed) : 0;
+  *blocks = cached ? cache[device].load(std::memory_order_relaxed) : 0;
   if (*blocks > 0) return cudaSuccess;
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lane_totals_kernel, kTotThreads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTotThreads, 0);
   if (e != cudaSuccess) return e;
   *blocks = sms * per_sm;
-  if (cached) resident[device].store(*blocks, std::memory_order_relaxed);
+  if (cached) cache[device].store(*blocks, std::memory_order_relaxed);
   return cudaSuccess;
 }
 
-// K1 on the HuffWord path: the symbols are u32 lj|len entry words, already
-// 0 past the valid token count, so the length is the entry's low 6 bits and
-// no n_valid term is needed.  Each thread reads its lane 16 bytes (4
-// entries) at a time; bound by reading the 4n entry bytes once.
-__global__ void __launch_bounds__(256) lane_totals_entries_kernel(
-    const uint32_t* __restrict__ ent, int S, int G, int32_t* __restrict__ ctot,
-    int32_t* __restrict__ gw) {
-  const int g = blockIdx.x;
-  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-  const int64_t flat_lane = static_cast<int64_t>(g) * G + lane;
-  const uint4* src = reinterpret_cast<const uint4*>(ent + flat_lane * S);
-  int tot = 0;
-  for (int i = 0; i < S / 4; ++i) {
-    const uint4 q = src[i];
-    tot += static_cast<int>((q.x & kLenMask) + (q.y & kLenMask) + (q.z & kLenMask) +
-                            (q.w & kLenMask));
-  }
-  const int last = static_cast<int>(ent[flat_lane * S + S - 1] & kLenMask);
-  store_lane_total(tot, last, flat_lane, g, ctot, gw);
+// The grid of K1 and its HuffWord form: as many blocks as the card holds at
+// once, spread over the groups, but no more a group than it has warp units.
+dim3 totals_grid(int resident, int n_groups, int64_t units) {
+  const int64_t most = (units + kTotWarps - 1) / kTotWarps;  // blocks a group can use
+  int64_t per_group = resident / n_groups;
+  per_group = per_group < 1 ? 1 : (per_group > most ? most : per_group);
+  return dim3(n_groups, static_cast<unsigned>(per_group));
 }
 
 // ---------------------------------------------------------------------------
@@ -973,12 +1009,20 @@ extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 
+// ent 16-byte aligned; S a power of two, at least 4.
 int glz_lane_totals_entries(const void* ent, int n_groups, int S, int rows,
                             void* ctot, void* gw, void* stream) {
   const int G = rows * kLanes;
-  if (n_groups <= 0 || S % 4 != 0 || G % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_groups, G / 256);
-  lane_totals_entries_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_groups <= 0 || S < 4 || (S & (S - 1)) != 0 || G % 256 != 0 ||
+      reinterpret_cast<uintptr_t>(ent) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<int> cache[kMaxDevices];
+  int resident = 0;
+  const cudaError_t e = resident_blocks(lane_totals_entries_kernel, cache, &resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t units = static_cast<int64_t>(G) * S / (S > kTotRows * 128 ? S : kTotRows * 128);
+  lane_totals_entries_kernel<<<totals_grid(resident, n_groups, units), kTotThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(ent), S, G, static_cast<int32_t*>(ctot),
       static_cast<int32_t*>(gw));
   return static_cast<int>(cudaGetLastError());
@@ -992,16 +1036,13 @@ int glz_lane_totals(const void* sym, const void* tbl, long long n_valid,
   if (n_groups <= 0 || S < 16 || (S & (S - 1)) != 0 || G % 256 != 0 ||
       reinterpret_cast<uintptr_t>(sym) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // as many blocks as the card holds at once, spread over the groups
+  static std::atomic<int> cache[kMaxDevices];
   int resident = 0;
-  const cudaError_t e = lane_totals_resident(&resident);
+  const cudaError_t e = resident_blocks(lane_totals_kernel, cache, &resident);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t units = static_cast<int64_t>(G) * S / (S > kTotRows * 512 ? S : kTotRows * 512);
-  const int64_t most = (units + kTotWarps - 1) / kTotWarps;  // blocks a group can use
-  int64_t per_group = resident / n_groups;
-  per_group = per_group < 1 ? 1 : (per_group > most ? most : per_group);
-  const dim3 grid(n_groups, static_cast<unsigned>(per_group));
-  lane_totals_kernel<<<grid, kTotThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  lane_totals_kernel<<<totals_grid(resident, n_groups, units), kTotThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(sym), static_cast<const uint32_t*>(tbl),
       n_valid, S, G, static_cast<int32_t*>(ctot), static_cast<int32_t*>(gw));
   return static_cast<int>(cudaGetLastError());

@@ -37,7 +37,8 @@ _LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0,
              "lane_totals_entries": 0, "encode_entries": 0, "decode_dual": 0,
              "lut_gather": 0, "lookup_lj_lens": 0, "pack_scan": 0, "pack_tiles": 0,
              "decode_streams": 0, "decode_streams_dual": 0}
-_COUNT_LOCK = threading.Lock()  # the shared-codebook batch launches from two threads
+_COUNT_LOCK = threading.Lock()  # the pipelined batch launches from two threads
+_LIB_LOCK = threading.Lock()    # ... and its first files build and load from both
 _LIB: ctypes.CDLL | None = None
 _BUILD_LOG = ""
 
@@ -110,15 +111,18 @@ def build_log() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library, built and loaded once by the first caller
+    (others wait for it)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        with _LIB_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIB = lib
     return _LIB
 
 

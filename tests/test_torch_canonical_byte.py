@@ -162,6 +162,12 @@ def test_imports_nothing_of_jax_or_glz_tpu():
         "    for mode in (cfg.MODE_BYTE, cfg.MODE_HUFFWORD):\n"
         "        blob = glz_tpu_torch.compress(text, mode=mode, conf=conf, device='cpu')\n"
         "        assert glz_tpu_torch.decompress(blob, device='cpu') == text\n"
+        "blob = glz_tpu_torch.compress(text, mode=cfg.MODE_NORMAL_TREE, device='cpu')\n"
+        "assert glz_tpu_torch.decompress(blob, device='cpu') == text\n"
+        "for mode in (cfg.MODE_BYTE, cfg.MODE_HUFFWORD):\n"
+        "    arc = glz_tpu_torch.compress_archive([text, text[:99]], mode=mode, device='cpu')\n"
+        "    assert glz_tpu_torch.decompress_archive(arc, device='cpu') == [text, text[:99]]\n"
+        "import chip_smoke, glz_tpu_torch.models\n"
         "bad = [m for m in sys.modules if m.startswith('jax') or m == 'glz_tpu'\n"
         "       or m.startswith('glz_tpu.')]\n"
         "assert not bad, bad\n"
@@ -186,8 +192,8 @@ def test_default_device_needs_a_card(monkeypatch):
 
 def test_other_modes_and_layouts_are_later_slices(text_100kb):
     """The bitstream layout round-trips in both modes and both packages read
-    each other's default containers; only the normal-tree mode is a later
-    slice."""
+    each other's default containers, and so does the normal-tree mode: no
+    mode is left to a later slice."""
     for mode in (cfg.MODE_BYTE, cfg.MODE_HUFFWORD):
         blob = glz_tpu_torch.compress(text_100kb, mode=mode, conf=cfg.DEFAULT, device="cpu")
         assert port_container.read_container(blob).layout == port_container.LAYOUT_BITSTREAM
@@ -195,5 +201,9 @@ def test_other_modes_and_layouts_are_later_slices(text_100kb):
         assert glz_tpu.decompress(blob) == text_100kb
         assert _port_decompress(glz_tpu.compress(text_100kb[:5000], mode=mode)) \
             == text_100kb[:5000]
-    with pytest.raises(NotImplementedError, match="front-door slice"):
-        glz_tpu_torch.compress(text_100kb, mode=cfg.MODE_NORMAL_TREE, device="cpu")
+    data = text_100kb[:5000]
+    blob = glz_tpu_torch.compress(data, mode=cfg.MODE_NORMAL_TREE, device="cpu")
+    assert blob == glz_tpu.compress(data, mode=cfg.MODE_NORMAL_TREE)
+    assert _port_decompress(blob) == data
+    with pytest.raises(ValueError, match="unsupported mode"):
+        glz_tpu_torch.compress(data, mode=7, device="cpu")

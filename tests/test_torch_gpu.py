@@ -187,3 +187,36 @@ def test_huffword_shared_on_the_card(cuda, text_100kb, realtext):
     blobs = glz_tpu_torch.compress_huffword_shared(files, conf)
     assert blobs == glz_tpu_torch.compress_huffword_shared(files, conf, device="cpu")
     assert [glz_tpu_torch.decompress(b) for b in blobs] == files
+
+
+@pytest.mark.parametrize("preset", ["THROUGHPUT", "DEFAULT"])
+def test_pipelined_batch_on_the_card(cuda, text_100kb, realtext, preset):
+    """Two files in flight on two threads write the serial loop's
+    containers and the CPU's, and decode on the card either way."""
+    conf = getattr(glz_tpu_torch.config, preset)
+    files = [chip_smoke.make_corpus(3 << 20).tobytes(), text_100kb, b"",
+             realtext[:300_000], chip_smoke.make_word_corpus(1 << 20)]
+    blobs = glz_tpu_torch.compress_batch(files, conf=conf)
+    assert blobs == glz_tpu_torch.compress_batch(files, conf=conf, pipeline=False)
+    assert blobs == glz_tpu_torch.compress_batch(files, conf=conf, device="cpu")
+    assert glz_tpu_torch.decompress_batch(blobs) == files
+    assert glz_tpu_torch.decompress_batch(blobs, pipeline=False) == files
+
+
+def test_lockstep_archive_on_the_card(cuda, text_100kb, realtext):
+    """Byte and HuffWord lockstep archives round-trip on the card and equal
+    the CPU's; the pinned archive and normal-tree digests hold."""
+    files = [realtext[:200_000], text_100kb, realtext[200_000:260_000]]
+    hw = glz_tpu_torch.config.MODE_HUFFWORD
+    for mode, conf in ((glz_tpu_torch.config.MODE_BYTE, glz_tpu_torch.config.THROUGHPUT),
+                       (hw, chip_smoke.huffword_conf(64, 8))):
+        arc = glz_tpu_torch.compress_archive(files, mode=mode, conf=conf)
+        assert arc == glz_tpu_torch.compress_archive(files, mode=mode, conf=conf, device="cpu")
+        assert glz_tpu_torch.decompress_archive(arc) == files
+    text = realtext[: 1 << 20]
+    for key, (mode, conf) in chip_smoke.archive_pinned_configs().items():
+        blob = (glz_tpu_torch.compress(text, mode=mode, conf=conf)
+                if mode == glz_tpu_torch.config.MODE_NORMAL_TREE
+                else glz_tpu_torch.compress_archive(chip_smoke.quarters(text), mode=mode,
+                                                    conf=conf))
+        assert hashlib.sha256(blob).hexdigest() == chip_smoke.ARCHIVE_PINNED[key], key

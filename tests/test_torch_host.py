@@ -88,8 +88,26 @@ def test_config_matches_reference():
 
 @pytest.mark.parametrize("total_bits", [0, 1, 7, 8, 31, 32, 33, 1000, 32 * 64])
 def test_bitio_matches_reference(rng, total_bits):
-    """words_to_bytes (ones- and zero-padding of the last partial byte) and
-    bytes_to_words (big-endian words, zero-padded tail)."""
+    """words_to_bytes (ones- and zero-padding of the last partial byte),
+    bytes_to_words (big-endian words, zero-padded tail), pack_codes_msb and
+    BitWriter (the .crs writer's: codes of 0-32 bits, flushed with 0s or
+    1s)."""
+    lens = rng.integers(0, 33, total_bits // 7 + 1, dtype=np.uint64)
+    codes = rng.integers(0, 1 << 32, lens.size, dtype=np.uint64) & ((np.uint64(1) << lens) - 1)
+    got_words, got_bits = port_bitio.pack_codes_msb(codes, lens)
+    want_words, want_bits = tpu_bitio.pack_codes_msb(codes, lens)
+    assert got_bits == want_bits == int(lens.sum())
+    assert got_words.dtype == np.uint32 and np.array_equal(got_words, want_words)
+    for pad in (0, 1):
+        writers = port_bitio.BitWriter(), tpu_bitio.BitWriter()
+        for w in writers:
+            for c, n in zip(codes.tolist(), lens.tolist()):
+                w.write_bits(c, n)
+        assert writers[0].left_bits() == writers[1].left_bits()
+        for w in writers:
+            w.flush_bits(pad)
+            w.write_bytes(b"\x5a")
+        assert writers[0].getvalue() == writers[1].getvalue()
     words = rng.integers(0, 1 << 32, 64, dtype=np.uint64).astype(np.uint32)
     for pad_ones in (True, False):
         got = port_bitio.words_to_bytes(words, total_bits, pad_ones)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the phases of the byte lane totals (K1) apart on one CUDA card.
+"""Time the phases of the byte lane totals (K1) apart on one CUDA card, and
+the entry-word lane totals (K1e, K1's HuffWord form) against their first
+port.
 
     python3 tools/k1_phases.py            # from the repository root
-    python3 tools/k1_phases.py --now      # the kernel of csrc/lockstep.cu only
+    python3 tools/k1_phases.py --now      # K1: the kernel of csrc/lockstep.cu only
 
 K1 sums the code lengths of each lane's S symbol bytes (0 past n_valid)
 and adds each lane's refill word count to its group's.  This script builds
@@ -31,6 +33,15 @@ a copy of the source (`one_row`: one 512-byte row in flight a thread
 instead of four; `shuffles`: a lane of 32 threads summed with five
 shuffles instead of one warp reduction), each checked against
 lane_totals_ref.
+
+K1e: the first port's kernel (`k1e first port`: a thread a lane, reading
+it 16 bytes at a time, so the threads of a warp are 4S bytes apart, and
+its last entry read again) against csrc/lockstep.cu's, as it is and in
+each build above (both kernels share kTotRows and segment_sum), at the
+HuffWord cell's shape: 24 groups of 32 x 128 lanes of S 512 entries, the
+first 48,992,498 valid.  Its work does not depend on the entries' values,
+so they are random lj|len words (lengths 1-26), 0 past the valid count,
+made on the card; each kernel is checked against lane_totals_entries_ref.
 """
 
 from __future__ import annotations
@@ -59,16 +70,62 @@ VARIANTS = {"base": "", "no_load": "-DK1_NO_LOAD", "no_lookup": "-DK1_NO_LOOKUP"
             "no_load+no_pred": "-DK1_NO_LOAD -DK1_NO_PRED",
             "no_load+no_lookup+no_pred+no_last":
                 "-DK1_NO_LOAD -DK1_NO_LOOKUP -DK1_NO_PRED -DK1_NO_LAST"}
-# csrc/lockstep.cu edits that undo one change of the redesigned kernel:
+# csrc/lockstep.cu edits that undo one change of the redesigned kernels:
 # (marker, replacement) pairs, each marker found exactly once.
 NOW_VARIANTS = {
     # one 512-byte row in flight a thread instead of four
     "one_row": [("constexpr int kTotRows = 4;", "constexpr int kTotRows = 1;")],
     # a lane of 32 threads summed with five shuffles instead of one reduction
-    "shuffles": [("        if (seg == 32) {  // one reduction: 8% faster than the shuffles (probe)\n"
-                  "          sum = __reduce_add_sync(0xffffffffu, sum);\n"
-                  "        } else {\n", "        {\n")],
+    "shuffles": [("  if (seg == 32) return __reduce_add_sync(0xffffffffu, x);", "")],
 }
+# K1e at the HuffWord cell (chip_smoke.py phase 4b): S, rows, tokens
+K1E_SHAPE = (512, 32, 48_992_498)
+
+# The first port's K1e, as it was.
+K1E_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+constexpr uint32_t kLenMask = 63;
+
+__device__ __forceinline__ void store_lane_total(int tot, int last, int64_t flat_lane,
+                                                 int g, int32_t* __restrict__ ctot,
+                                                 int32_t* __restrict__ gw) {
+  ctot[flat_lane] = tot;
+  int words = tot > 0 ? (tot - last + 31) / 32 + 1 : 0;
+  words = __reduce_add_sync(0xffffffffu, words);
+  if ((threadIdx.x & 31) == 0) atomicAdd(gw + g, words);
+}
+
+__global__ void __launch_bounds__(256) lane_totals_entries_kernel(
+    const uint32_t* __restrict__ ent, int S, int G, int32_t* __restrict__ ctot,
+    int32_t* __restrict__ gw) {
+  const int g = blockIdx.x;
+  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
+  const int64_t flat_lane = static_cast<int64_t>(g) * G + lane;
+  const uint4* src = reinterpret_cast<const uint4*>(ent + flat_lane * S);
+  int tot = 0;
+  for (int i = 0; i < S / 4; ++i) {
+    const uint4 q = src[i];
+    tot += static_cast<int>((q.x & kLenMask) + (q.y & kLenMask) + (q.z & kLenMask) +
+                            (q.w & kLenMask));
+  }
+  const int last = static_cast<int>(ent[flat_lane * S + S - 1] & kLenMask);
+  store_lane_total(tot, last, flat_lane, g, ctot, gw);
+}
+}  // namespace
+
+extern "C" int glz_lane_totals_entries(const void* ent, int n_groups, int S, int rows,
+                                       void* ctot, void* gw, void* stream) {
+  const int G = rows * 128;
+  const dim3 grid(n_groups, G / 256);
+  lane_totals_entries_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ent), S, G, static_cast<int32_t*>(ctot),
+      static_cast<int32_t*>(gw));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 SOURCE = r"""
 #include <cstdint>
@@ -162,22 +219,67 @@ def _compile(tmp: pathlib.Path, name: str, text: str, flags: str = ""):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so
 
 
-def _load(procs: dict, fn: str, argtypes, kernel: str) -> dict:
+def _load(procs: dict, fn: str, argtypes, kernels: tuple[str, ...]) -> dict:
     """Wait for the builds, print each one's registers and spills for the
-    kernel named `kernel`, and load the libraries."""
+    kernels named in `kernels`, and load the libraries."""
     libs = {}
     for name, (proc, so) in procs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
         summary = [line for line in chip_smoke.ptxas_summary(out + err)
-                   if line.startswith(kernel + ":")]
+                   if line.startswith(tuple(k + ":" for k in kernels))]
         print(f"build {name}: {'; '.join(summary)}", flush=True)
         lib = ctypes.CDLL(str(so))
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def k1e_entries(dev: torch.device) -> torch.Tensor:
+    """Random lj|len entry words (lengths 1-26) at K1E_SHAPE, 0 past the
+    valid token count, group-padded, on the card."""
+    S, rows, n = K1E_SHAPE
+    group = rows * 128 * S
+    gen = torch.Generator(device=dev).manual_seed(0x1E)
+    lj = torch.randint(0, 1 << 26, (-(-n // group) * group,), generator=gen, device=dev,
+                       dtype=torch.int32) << 6
+    ent = lj | torch.randint(1, ke.MAX_FUSED_LEN + 1, lj.shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    ent[n:] = 0
+    return ent
+
+
+def k1e_times(first, now: dict, dev: torch.device, record) -> None:
+    """Time the first port's K1e (`first`'s library) against each build of
+    csrc/lockstep.cu in `now`, each checked against lane_totals_entries_ref."""
+    S, rows, _n = K1E_SHAPE
+    ent = k1e_entries(dev)
+    want = ke.lane_totals_entries_ref(ent, S, rows)
+    ctot, gw = torch.empty_like(want[0]), torch.empty_like(want[1])
+    args = (_kernels.ptr(ent), ent.numel() // (rows * 128 * S), S, rows,
+            _kernels.ptr(ctot), _kernels.ptr(gw),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    def run(fn):
+        gw.zero_()  # the kernels add to gw
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"CUDA error {rc}")
+
+    builds = {"k1e first port": first, **{f"k1e now{'' if k == 'now' else ': ' + k}": lib
+                                          for k, lib in now.items()}}
+    for name, lib in builds.items():
+        run(lib.glz_lane_totals_entries)
+        torch.cuda.synchronize()
+        if not (torch.equal(ctot, want[0]) and torch.equal(gw, want[1])):
+            raise RuntimeError(f"{name} differs from lane_totals_entries_ref")
+        record(name, chip_smoke.cuda_ms(lambda: run(lib.glz_lane_totals_entries), reps=20),
+               "k1e first port")
+    record("k1e first port (again)",
+           chip_smoke.cuda_ms(lambda: run(first.glz_lane_totals_entries), reps=20),
+           "k1e first port")
 
 
 def main() -> int:
@@ -226,7 +328,7 @@ def main() -> int:
             procs = {name: _compile(tmp, f"probe_{name}", SOURCE, flag)
                      for name, flag in VARIANTS.items()}
             libs = _load(procs, "k1_probe", [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3, "lane_totals_kernel")
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3, ("lane_totals_kernel",))
             for name, lib in libs.items():
                 if name == "base":
                     check("variant base", lib.k1_probe)
@@ -243,15 +345,23 @@ def main() -> int:
                 text = text.replace(marker, replacement)
             texts[name] = text
         procs = {name: _compile(tmp, name, text) for name, text in texts.items()}
-        now = _load(procs, "glz_lane_totals", _kernels._SIGNATURES["glz_lane_totals"],
-                    "lane_totals_kernel")
-        for name, lib in now.items():
+        procs["k1e_first"] = _compile(tmp, "k1e_first", K1E_SOURCE)
+        libs = _load(procs, "glz_lane_totals_entries",
+                     _kernels._SIGNATURES["glz_lane_totals_entries"],
+                     ("lane_totals_kernel", "lane_totals_entries_kernel"))
+        first = libs.pop("k1e_first")
+        for lib in libs.values():
+            lib.glz_lane_totals.argtypes = _kernels._SIGNATURES["glz_lane_totals"]
+            lib.glz_lane_totals.restype = ctypes.c_int
+        for name, lib in libs.items():
             check(f"lane_totals_kernel ({name})", lib.glz_lane_totals)
             record(f"now: {name}" if name != "now" else "now",
                    chip_smoke.cuda_ms(lambda: run(lib.glz_lane_totals), reps=20), "now")
-    print(f"k1 phases at {inp.n_valid >> 20} MiB, rows {inp.rows}, S {inp.S}, codes "
-          f"{cb.min_len}-{cb.max_len} bits (times include zeroing gw), on "
-          f"{torch.cuda.get_device_name(0)} ({smi})")
+        k1e_times(first, libs, dev, record)
+    print(f"k1 phases at {arr.size >> 20} MiB, rows {conf.group_rows}, S "
+          f"{conf.stream_symbols}, codes {cb.min_len}-{cb.max_len} bits; k1e at S "
+          f"{K1E_SHAPE[0]}, rows {K1E_SHAPE[1]}, {K1E_SHAPE[2]} tokens (times include zeroing "
+          f"gw), on {torch.cuda.get_device_name(0)} ({smi})")
     return 0
 
 
