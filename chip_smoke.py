@@ -7,12 +7,15 @@ Four paths: the byte-mode lockstep codec (THROUGHPUT), the HuffWord
 lockstep codec, and the bitstream (layout 0) codec in byte and HuffWord
 mode (DEFAULT), the byte one through glz_tpu's default front door
 (backend "host") and the device backend; then the multi-file batch and the
-.glzb archive, which run every kernel again.  Phases (each prints one line or
-more; any failure exits non-zero before the last):
-  1. environment: torch, the card, nvidia-smi, nvcc;
+.glzb archive, and the command line (python -m glz_tpu_torch.cli) on every
+path, which run every kernel again.  Phases (each prints one line or more;
+any failure exits non-zero before the last):
+  1. environment: torch, the card, nvidia-smi, nvcc, g++;
   2. build: compile csrc/lockstep.cu and csrc/bitstream.cu (which share
      csrc/decode_table.cuh) for sm_90a (one nvcc each, in parallel), with
-     ptxas register/spill figures per kernel;
+     ptxas register/spill figures per kernel, and the host library
+     (native/glz_native.cpp: histogram, tokenizer, detokenize, .crs2
+     decode) with g++;
   3. kernels against their plain PyTorch versions on the card, bit-exact
      (integer data, tolerance 0):
      - byte path: K1 lane_totals, K2 encode_groups and K3 decode_groups on
@@ -48,11 +51,14 @@ more; any failure exits non-zero before the last):
      THROUGHPUT with checksum, launch counts read just after;
   4b. HuffWord main path: compress + decompress of 100 MiB of English-like
      text (20,000 Zipf words) at S 512, rows 32, with checksum, launch
-     counts read just after, and the host steps re-run alone;
+     counts read just after, and the host steps re-run alone (tokenize +
+     vocabularies and detokenize in the host library beside their numpy
+     references, outputs equal);
   4c. byte bitstream path: the same 512 MiB under DEFAULT with checksum
      (2,048 streams of 2^18 symbols in four dispatches of 2^27) through
      backend "host" (glz_tpu's default container) and then "device",
-     launch counts read just after each, and the host steps re-run alone;
+     launch counts read just after each, and the host steps re-run alone
+     (the exact histogram in the host library beside np.bincount, equal);
   4d. HuffWord bitstream path: phase 4b's text under DEFAULT with checksum
      (streams of 16,384 tokens), launch counts read just after;
   4e. batch path: twelve members at the Silesia corpus's published sizes
@@ -64,6 +70,17 @@ more; any failure exits non-zero before the last):
      presets and in HuffWord lockstep mode (S 512, rows 32) on three text
      members; each with its times, launch counts, peak device memory, and
      the archive's size against the per-file containers;
+  4f. the command line: glz_tpu_torch.cli.main in this process on files of
+     phase 4's corpus, phase 4b's text and phase 4e's members: compress +
+     decompress with the defaults, --preset throughput, --model huffword
+     and --model huffword --backend device (S 512, rows 32), archive +
+     unarchive of the twelve members, each file's SHA-256 against the
+     API's container for the same call, the outputs against the inputs,
+     the launch counts against the path's kernels, then info --stats on
+     each container; on tests/fixtures/realtext.txt[:1 MiB], utet modes
+     1-6, the .crs3 format and containers and archives that must have
+     phase 6's pinned digests; and one python -m glz_tpu_torch.cli
+     subprocess round trip;
   5. kernel times at each main path's shapes (CUDA events), each kernel
      held against its plain version on the same inputs (the stream decodes
      also against the input); the whole pack step against the first
@@ -90,6 +107,7 @@ import contextlib
 import dataclasses
 import hashlib
 import importlib.util
+import io
 import json
 import pathlib
 import re
@@ -103,7 +121,9 @@ import numpy as np
 import torch
 
 import glz_tpu_torch as gt
+from glz_tpu_torch import cli
 from glz_tpu_torch import config as cfg
+from glz_tpu_torch.compat import glzip_format
 from glz_tpu_torch.core import bitio, container
 from glz_tpu_torch.core.codebook import (build_codebook, codebook_from_lengths,
                                          histogram_bytes, sampled_histogram)
@@ -119,6 +139,7 @@ from glz_tpu_torch.ops import encode as be
 from glz_tpu_torch.ops import lockstep_decode as kd
 from glz_tpu_torch.ops import lockstep_encode as ke
 from glz_tpu_torch.ops import lut
+from glz_tpu_torch.utils import native
 from glz_tpu_torch.utils import tokenizer as tok
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -917,6 +938,9 @@ def huffword_host_steps(data: bytes, blob: bytes, group: int, dev: torch.device)
     in a synchronize), and the tokenizer's output for phase 5."""
     out = {}
     vocabs = clock(out, "tokenize+vocab", lambda: tok.build_vocabs(data))
+    ref = clock(out, "tokenize+vocab (numpy ref)", lambda: tok.build_vocabs_ref(data))
+    require(same_vocabs(vocabs, ref), "tokenize+vocab: the host library differs from numpy")
+    del ref
     _, _, wf, wv, nv, ids = vocabs
     clock(out, "codebooks",
           lambda: [build_codebook(v.counts, ke.MAX_FUSED_LEN) for v in (wv, nv)])
@@ -928,9 +952,24 @@ def huffword_host_steps(data: bytes, blob: bytes, group: int, dev: torch.device)
     pay_d = clock(out, "H2D payload", lambda: _i32_tensor(words, dev))
     clock(out, "D2H payload", lambda: pay_d.cpu())
     clock(out, "D2H ids", lambda: ids_d[: ids.size].cpu())
-    clock(out, "detokenize", lambda: tok.detokenize(ids, wf, wv, nv))
+    back = clock(out, "detokenize", lambda: tok.detokenize(ids, wf, wv, nv))
+    require(back == data, "detokenize: the host library's output differs from the input")
+    del back
+    back = clock(out, "detokenize (numpy ref)", lambda: tok.detokenize_ref(ids, wf, wv, nv))
+    require(back == data, "detokenize_ref: output differs from the input")
+    del back
     clock(out, "crc32", lambda: zlib.crc32(data))
     return out, vocabs
+
+
+def same_vocabs(a, b) -> bool:
+    """Two build_vocabs results are equal: token bounds, word_first, both
+    vocabularies (text, offsets, counts) and the ids."""
+    return (all(np.array_equal(np.asarray(x, np.int64), np.asarray(y, np.int64))
+                for x, y in ((a[0], b[0]), (a[1], b[1]), (a[5], b[5])))
+            and a[2] == b[2]
+            and all(v.blob == w.blob and np.array_equal(v.offsets, w.offsets)
+                    and np.array_equal(v.counts, w.counts) for v, w in ((a[3], b[3]), (a[4], b[4]))))
 
 
 def timed_once(fn):
@@ -1094,6 +1133,9 @@ def bitstream_host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
     out = {}
     clock(out, "histogram+codebook", lambda: build_codebook(
         sampled_histogram(arr, conf.histogram_budget), conf.length_limit))
+    hist = clock(out, "exact histogram", lambda: histogram_bytes(arr))
+    ref = clock(out, "exact histogram (np.bincount ref)", lambda: np.bincount(arr, minlength=256))
+    require(np.array_equal(hist, ref), "exact histogram: the host library differs from np.bincount")
     f = clock(out, "read container", lambda: container.read_container(blob))
     S = f.stream_symbols
     h2d = {}
@@ -1337,14 +1379,10 @@ def batch_run(label: str, files: list[bytes], compress, decompress, card: str,
     return out, size
 
 
-def batch_phase(card: str) -> None:
+def batch_phase(card: str, members: dict[str, bytes]) -> None:
     """Phase 4e: the multi-file batch, the shared-codebook batch and the
     .glzb archive on the SILESIA members."""
-    t0 = time.perf_counter()
-    members = silesia_members()
     files = list(members.values())
-    print(f"batch: {len(files)} members ({', '.join(f'{k} {len(v)}' for k, v in members.items())}"
-          f"; {sum(map(len, files))} B) made in {time.perf_counter() - t0:.1f} s", flush=True)
     per_file = {}
     for preset, kernels in (("THROUGHPUT", BYTE_KERNELS), ("DEFAULT", BITSTREAM_KERNELS)):
         pconf = getattr(cfg, preset)
@@ -1373,7 +1411,7 @@ def batch_phase(card: str) -> None:
         print(f"archive: {preset} {size} B against {per_file[preset]} B of per-file "
               f"containers ({size - per_file[preset]:+d} B)", flush=True)
     hw_files = [members[k] for k in HUFFWORD_ARCHIVE_MEMBERS]
-    del members, files
+    del files
     hconf = huffword_conf()
     _, size = batch_run(
         f"compress_archive/decompress_archive HuffWord S {hconf.stream_symbols} rows "
@@ -1383,6 +1421,201 @@ def batch_phase(card: str) -> None:
     per = sum(map(len, gt.compress_batch(hw_files, mode=cfg.MODE_HUFFWORD, conf=hconf)))
     print(f"archive: HuffWord {size} B against {per} B of per-file containers "
           f"({size - per:+d} B)", flush=True)
+
+
+# ---- 4f. the command line ----------------------------------------------------
+
+def cli_runs() -> dict[str, tuple[list[str], tuple[int, str, cfg.GlzConfig], tuple[str, ...]]]:
+    """Phase 4f's compress runs at each main path's width: name -> (the
+    command line's options, (mode, backend, conf) of the same API call, the
+    kernels of the path)."""
+    return {
+        "defaults": ([], (cfg.MODE_BYTE, "host", cfg.DEFAULT), BITSTREAM_KERNELS),
+        "throughput": (["--preset", "throughput"], (cfg.MODE_BYTE, "host", cfg.THROUGHPUT),
+                       BYTE_KERNELS),
+        "huffword": (["--model", "huffword"], (cfg.MODE_HUFFWORD, "host", cfg.DEFAULT),
+                     HUFFWORD_BITSTREAM_KERNELS),
+        "huffword_device": (["--model", "huffword", "--backend", "device", "--stream-symbols",
+                             "512", "--group-rows", "32"],
+                            (cfg.MODE_HUFFWORD, "device",
+                             dataclasses.replace(cfg.DEFAULT, stream_symbols=512, group_rows=32)),
+                            HUFFWORD_KERNELS),
+    }
+
+
+def cli_pinned() -> dict[tuple[str, ...], str]:
+    """Compress options -> the pinned digest (phase 6) of the .glz the
+    command line writes for tests/fixtures/realtext.txt[:1 MiB]."""
+    hw_device = ("--model", "huffword", "--backend", "device", "--stream-symbols", "512",
+                 "--group-rows", "32", "--checksum")
+    return {("--checksum",): BITSTREAM_PINNED["byte_default_host"],
+            ("--backend", "device", "--checksum"): BITSTREAM_PINNED["byte_default"],
+            ("--preset", "ratio", "--backend", "device", "--checksum"):
+                BITSTREAM_PINNED["byte_ratio"],
+            ("--preset", "throughput", "--checksum"): PINNED["throughput"],
+            ("--model", "huffword", "--checksum"): BITSTREAM_PINNED["hw_default"],
+            hw_device: HUFFWORD_PINNED["hw_s512_r32"],
+            ("--model", "normal_tree"): ARCHIVE_PINNED["normal_tree"]}
+
+
+def cli_archive_pinned() -> dict[tuple[str, ...], str]:
+    """Archive options -> the pinned digest of the archive of
+    quarters(realtext.txt[:1 MiB])."""
+    return {(): ARCHIVE_PINNED["archive_byte_default"],
+            ("--preset", "throughput"): ARCHIVE_PINNED["archive_byte_throughput"],
+            ("--model", "huffword", "--layout", "lockstep", "--stream-symbols", "64"):
+                ARCHIVE_PINNED["archive_hw_s64"]}
+
+
+def sha(data: bytes | pathlib.Path) -> str:
+    return hashlib.sha256(data.read_bytes() if isinstance(data, pathlib.Path) else data
+                          ).hexdigest()
+
+
+def run_cli(*argv) -> tuple[float, str]:
+    """cli.main(argv) in this process (so that its launches are counted),
+    ending in a synchronize: (wall seconds, what it printed).  Fails unless
+    it exits with 0."""
+    argv = [str(a) for a in argv]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(rc == 0, f"cli {' '.join(argv)}: exit code {rc}")
+    return dt, out.getvalue().strip()
+
+
+def cli_round_trip(d: pathlib.Path, name: str, src: pathlib.Path, opts: list[str], api,
+                   kernels: tuple[str, ...], card: str) -> None:
+    """compress and decompress `src` with the command line, launch counts
+    zeroed just before and read just after, peak device memory reset
+    before; then info --stats.  The .glz must equal api() (the API's
+    container for the same call), the .de the input, and every kernel of
+    `kernels` must have run."""
+    out = d / f"{name}.glz"
+    n = src.stat().st_size
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t_c, said_c = run_cli("compress", src, out, *opts)
+    t_d, said_d = run_cli("decompress", out)
+    launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    require(all(k in launches for k in kernels), f"cli {name} missed a kernel: {launches}")
+    require(sha(d / f"{name}.glz.de") == sha(src), f"cli {name}: the .de differs from the input")
+    require(sha(out) == sha(api()), f"cli {name}: the .glz differs from the API's container")
+    _, info = run_cli("info", out, "--stats")
+    said_c, said_d = (said.replace(f"{d}/", "") for said in (said_c, said_d))
+    print(f"cli: {name} ({' '.join(opts) or 'defaults'}), {n} B, on {card}: compress "
+          f"{t_c * 1e3:.1f} ms wall ({n / t_c / 1e9:.3f} GB/s), decompress {t_d * 1e3:.1f} ms "
+          f"wall ({n / t_d / 1e9:.3f} GB/s), peak device memory {peak / 2**20:.0f} MiB, "
+          f"launches {launches}; .glz = API's, .de = input; it printed: {said_c} | {said_d}; "
+          f"info --stats: {info.splitlines()[0]} ({len(info.splitlines())} lines)", flush=True)
+    out.unlink()
+    (d / f"{name}.glz.de").unlink()
+
+
+def cli_archive_round_trip(d: pathlib.Path, label: str, files: dict[str, bytes],
+                           opts: tuple[str, ...], want: str | None, card: str,
+                           kernels: tuple[str, ...] = ()) -> None:
+    """archive and unarchive `files` with the command line; the .glzb must
+    have the digest `want` (or, for None, the API's compress_archive's for
+    the same call), the outputs must equal the files and every kernel of
+    `kernels` must have run; then info."""
+    srcs = []
+    for k, (name, data) in enumerate(files.items()):
+        srcs.append(d / f"{label}.{k}.{name}")
+        srcs[-1].write_bytes(data)
+    arc = d / f"{label}.glzb"
+    outs = [p.with_suffix(".out") for p in srcs]
+    n = sum(map(len, files.values()))
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t_c, said_c = run_cli("archive", arc, *srcs, *opts)
+    t_d, said_d = run_cli("unarchive", arc, *outs)
+    launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    require(all(k in launches for k in kernels), f"cli {label} missed a kernel: {launches}")
+    require(all(o.read_bytes() == data for o, data in zip(outs, files.values())),
+            f"cli {label}: unarchive differs from the inputs")
+    if want is None:  # the API's archive for the same call (no options: the defaults)
+        require(not opts, f"cli {label}: no API call is set for options {opts}")
+        want = sha(gt.compress_archive(list(files.values())))
+    require(sha(arc) == want, f"cli {label}: the .glzb has digest {sha(arc)}, not {want}")
+    _, info = run_cli("info", arc)
+    said_c, said_d = (said.replace(f"{d}/", "") for said in (said_c, said_d))
+    print(f"cli: {label} archive ({' '.join(opts) or 'defaults'}), {len(files)} files, {n} B, "
+          f"on {card}: archive {t_c * 1e3:.1f} ms wall ({n / t_c / 1e9:.3f} GB/s), unarchive "
+          f"{t_d * 1e3:.1f} ms wall ({n / t_d / 1e9:.3f} GB/s), peak device memory "
+          f"{peak / 2**20:.0f} MiB, launches {launches}; it printed: {said_c} | {said_d}; "
+          f"info: {info.splitlines()[0]}", flush=True)
+    for path in (arc, *srcs, *outs):
+        path.unlink()
+
+
+def cli_phase(card: str, arr: np.ndarray, text: bytes, members: dict[str, bytes]) -> None:
+    """Phase 4f: the command line on every path (cli_runs, the archive,
+    the realtext cases, one subprocess)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        corpus, words = d / "corpus.bin", d / "text.txt"
+        arr.tofile(corpus)
+        words.write_bytes(text)
+        for name, (opts, (mode, backend, conf), kernels) in cli_runs().items():
+            hw = mode == cfg.MODE_HUFFWORD
+            cli_round_trip(d, name, words if hw else corpus, opts,
+                           lambda: gt.compress(text if hw else arr, mode=mode, backend=backend,
+                                               conf=conf), kernels, card)
+        corpus.unlink()
+        words.unlink()
+        cli_archive_round_trip(d, "silesia", members, (), None, card, BITSTREAM_KERNELS)
+
+        real = (ROOT / "tests" / "fixtures" / "realtext.txt").read_bytes()[: 1 << 20]
+        rt = d / "realtext.txt"
+        rt.write_bytes(real)
+        for opts, want in cli_pinned().items():
+            run_cli("compress", rt, d / "rt.glz", *opts)
+            run_cli("decompress", d / "rt.glz")
+            run_cli("info", d / "rt.glz", "--stats")
+            require(sha(d / "rt.glz") == want, f"cli {' '.join(opts)}: digest {sha(d / 'rt.glz')}")
+            require((d / "rt.glz.de").read_bytes() == real, f"cli {' '.join(opts)}: round trip")
+        quarters_of = {f"q{k}": q for k, q in enumerate(quarters(real))}
+        for opts, want in cli_archive_pinned().items():
+            cli_archive_round_trip(d, "realtext", quarters_of, opts, want, card)
+        for mode, suffix, write in ((3, ".crs2", glzip_format.write_crs2),
+                                    (1, ".crs", glzip_format.write_crs)):
+            run_cli("utet", rt, mode)
+            require(sha(d / f"realtext.txt{suffix}") == sha(write(real)),
+                    f"utet {mode}: the {suffix} differs from the API's")
+            for back in ((4, 5, 6) if mode == 3 else (2,)):
+                (d / f"realtext.txt{suffix}.de").unlink(missing_ok=True)
+                run_cli("utet", d / f"realtext.txt{suffix}", back)
+                require((d / f"realtext.txt{suffix}.de").read_bytes() == real,
+                        f"utet {back}: output differs from the input")
+        run_cli("compress", rt, "--compat", "crs3")
+        run_cli("decompress", d / "realtext.txt.crs3")
+        require(sha(d / "realtext.txt.crs3") == sha(glzip_format.write_crs3(real))
+                and (d / "realtext.txt.crs3.de").read_bytes() == real, "cli --compat crs3")
+        print(f"cli: on realtext.txt[:1 MiB] on {card}: {len(cli_pinned())} .glz and "
+              f"{len(cli_archive_pinned())} .glzb match the pinned digests and round-trip; "
+              f"utet 1-6 and --compat crs3 write the API's files and read them back",
+              flush=True)
+
+        t0 = time.perf_counter()
+        for argv in (["compress", rt, d / "sub.glz"], ["decompress", d / "sub.glz"]):
+            r = subprocess.run([sys.executable, "-m", "glz_tpu_torch.cli", *map(str, argv)],
+                               cwd=ROOT, capture_output=True, text=True, timeout=600)
+            require(r.returncode == 0, f"python -m glz_tpu_torch.cli {argv[0]}: {r.returncode}"
+                                       f"\n{r.stderr}")
+        require(sha(d / "sub.glz") == sha(gt.compress(real))
+                and (d / "sub.glz.de").read_bytes() == real, "python -m glz_tpu_torch.cli")
+        print(f"cli: python -m glz_tpu_torch.cli compress + decompress of realtext.txt[:1 MiB] "
+              f"in two processes on {card}: {time.perf_counter() - t0:.1f} s wall (process "
+              f"start and CUDA set-up included); .glz = API's, .de = input", flush=True)
+    print(f"cli: phase 4f took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1398,14 +1631,20 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     nvcc = subprocess.run([_kernels.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
     print(f"env: torch {torch.__version__} cuda {torch.version.cuda}; {name} x{count}; "
-          f"{smi}; {nvcc}", flush=True)
+          f"{smi}; {nvcc}; {gxx}", flush=True)
 
     # ---- 2. build
     t0 = time.perf_counter()
     _kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s; "
           + "; ".join(ptxas_summary(_kernels.build_log())), flush=True)
+    t0 = time.perf_counter()
+    native.library()
+    print(f"build: host library {native.library_path().name} (g++ {' '.join(native.CXX_FLAGS)}) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1541,7 +1780,16 @@ def main() -> int:
           f"launches {hblaunches}", flush=True)
 
     # ---- 4e. the batch path: twelve Silesia-sized members
-    batch_phase(card)
+    t0 = time.perf_counter()
+    members = silesia_members()
+    print(f"batch: {len(members)} members ({', '.join(f'{k} {len(v)}' for k, v in members.items())}"
+          f"; {sum(map(len, members.values()))} B) made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    batch_phase(card, members)
+
+    # ---- 4f. the command line on every path
+    cli_phase(card, arr, text, members)
+    del members
 
     # ---- 5. kernel times at the main path's shapes
     cb = build_codebook(sampled_histogram(arr, conf.histogram_budget), ke.MAX_FUSED_LEN)

@@ -251,23 +251,24 @@ def archive_peek_layout(blob: bytes | memoryview) -> int:
     return container.peek_layout(mv[off : off + container.HEADER_SIZE])
 
 
-def decompress_archive(blob: bytes, backend: str = "host", device=None) -> list[bytes]:
-    """Decode every file of a .glzb archive (the inverse of
-    compress_archive): each entry is rebuilt by splicing the shared codebook
-    back and decoded through decompress_batch."""
+def archive_entries(blob: bytes | memoryview
+                    ) -> tuple[int, memoryview, list[tuple[memoryview, memoryview]]]:
+    """(mode, shared codebook, [(prefix, body) of each file]) of a .glzb
+    archive, read from its headers without decoding.  Every offset is
+    checked against the archive's size, so a truncated or corrupt archive
+    raises ValueError."""
     mv = memoryview(blob)
     if len(mv) < 16 or bytes(mv[:4]) != ARCHIVE_MAGIC:
         raise ValueError("not a .glzb archive")
-    _m, version, _mode, _r, n_files, shared_len = struct.unpack_from(_ARCHIVE_HEADER, mv, 0)
+    _m, version, mode, _r, n_files, shared_len = struct.unpack_from(_ARCHIVE_HEADER, mv, 0)
     if version != 1:
         raise ValueError(f"unsupported .glzb version {version}")
     off = 16
     if off + shared_len > len(mv):
         raise ValueError("corrupt .glzb archive: truncated shared codebook")
-    shared = bytes(mv[off : off + shared_len])
+    shared = mv[off : off + shared_len]
     off += shared_len
-    cb_off = container.HEADER_SIZE
-    out = []
+    entries = []
     for k in range(n_files):
         if off + 12 > len(mv):
             raise ValueError(f"corrupt .glzb archive: truncated entry {k}")
@@ -275,8 +276,18 @@ def decompress_archive(blob: bytes, backend: str = "host", device=None) -> list[
         off += 12
         if off + plen + blen > len(mv):
             raise ValueError(f"corrupt .glzb archive: truncated entry {k}")
-        prefix = bytes(mv[off : off + plen])
-        body = bytes(mv[off + plen : off + plen + blen])
+        entries.append((mv[off : off + plen], mv[off + plen : off + plen + blen]))
         off += plen + blen
-        out.append(body[:cb_off] + prefix + shared + body[cb_off:])
+    return mode, shared, entries
+
+
+def decompress_archive(blob: bytes, backend: str = "host", device=None) -> list[bytes]:
+    """Decode every file of a .glzb archive (the inverse of
+    compress_archive): each entry is rebuilt by splicing the shared codebook
+    back and decoded through decompress_batch."""
+    _, shared, entries = archive_entries(blob)
+    shared = bytes(shared)
+    cb_off = container.HEADER_SIZE
+    out = [bytes(body[:cb_off]) + bytes(prefix) + shared + bytes(body[cb_off:])
+           for prefix, body in entries]
     return decompress_batch(out, backend=backend, device=device)

@@ -24,9 +24,16 @@ import numpy as np
 MAX_CODE_LEN = 32
 
 
+NATIVE_HISTOGRAM_BYTES = 1 << 20  # inputs this large count with the host library
+
+
 def histogram_bytes(data: np.ndarray | bytes) -> np.ndarray:
-    """256-bin byte histogram."""
+    """256-bin byte histogram: the host library's threaded count from 1 MiB
+    up, np.bincount below (where it is as fast)."""
     arr = np.frombuffer(data, dtype=np.uint8) if isinstance(data, (bytes, bytearray, memoryview)) else np.asarray(data, dtype=np.uint8)
+    if arr.size >= NATIVE_HISTOGRAM_BYTES:
+        from glz_tpu_torch.utils import native
+        return native.histogram(arr)
     return np.bincount(arr, minlength=256).astype(np.int64)
 
 

@@ -72,16 +72,21 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def library_path() -> pathlib.Path:
+    """Where the library for these sources and flags is (or will be) built."""
+    tag = hashlib.sha256(b"".join(f.name.encode() + f.read_bytes()
+                                  for f in sorted(CSRC.iterdir()) if f.is_file())
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"libglz_kernels_{tag}.so"
+
+
 def build() -> pathlib.Path:
     """Compile the CUDA sources (if their hashed library is missing), one
     nvcc per source in parallel, link them into one library and return its
     path.  The compilers' -Xptxas -v reports (registers, spills per kernel)
     are kept in build_log()."""
     global _BUILD_LOG
-    tag = hashlib.sha256(b"".join(f.name.encode() + f.read_bytes()
-                                  for f in sorted(CSRC.iterdir()) if f.is_file())
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libglz_kernels_{tag}.so"
+    lib = library_path()
     log = lib.with_suffix(".ptxas.txt")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

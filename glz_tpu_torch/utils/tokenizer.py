@@ -1,11 +1,13 @@
-"""HuffWord tokenizer: the vectorized word/non-word splitter and the
-per-class vocabularies (host numpy).
+"""HuffWord tokenizer: the word/non-word splitter and the per-class
+vocabularies, on the host (the host library, with numpy references).
 
-A copy of glz_tpu/utils/tokenizer.py's numpy code.  Token ids, vocabulary
-order and token text decide the container's bytes, so every function here
-computes exactly what its original computes (tests/test_torch_tokenizer.py
-holds them against each other, including the JAX package's native C++
-vocabulary build, which yields the same ids).
+A copy of glz_tpu/utils/tokenizer.py.  Token ids, vocabulary order and
+token text decide the container's bytes, so every function here computes
+exactly what its original computes (tests/test_torch_tokenizer.py and
+tests/test_torch_native.py hold them against each other).  build_vocabs and
+detokenize run in the host library (utils/native.py); their numpy
+versions, build_vocabs_ref and detokenize_ref, are the tests' plain
+references.
 
 Semantics:
   * word chars are [0-9A-Za-z] (C-locale isalnum);
@@ -183,12 +185,44 @@ def _class_vocab(arr: np.ndarray, starts: np.ndarray, lengths: np.ndarray):
 
 
 def build_vocabs(data: bytes | np.ndarray):
-    """Tokenize and build both class vocabularies.
+    """Tokenize and build both class vocabularies with the host library:
+    the native tokenizer, then one hash pass and a (length, content) rank
+    sort per class, the two classes on two threads (ctypes releases the
+    GIL; they write disjoint positions of `ids`).  build_vocabs_ref is the
+    numpy version, with the same ids as int64.
 
     Returns (starts, lengths, word_first, word_vocab, nonword_vocab,
-    token_ids) where token_ids[i] is the id of token i within its own
-    class's vocab.
+    token_ids) where token_ids[i] (uint32) is the id of token i within its
+    own class's vocab.
     """
+    import concurrent.futures
+
+    from glz_tpu_torch.utils import native
+
+    arr = _as_array(data)
+    bounds, first_word = native.tokenize(arr)
+    T = bounds.size - 1
+    ids = np.empty(T, np.uint32)
+
+    def one_class(c):
+        if (T - c + 1) // 2 == 0:
+            return TokenVocab([], np.zeros(0, np.int64))
+        blob, tok_lens, counts = native.build_vocab(arr, bounds, T, c, ids)
+        return TokenVocab.from_parts(blob, tok_lens, counts)
+
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        vocabs = list(ex.map(one_class, (0, 1)))
+    # zero-copy reinterprets: offsets and lengths are far below 2^63
+    lengths = np.subtract(bounds[1:], bounds[:-1]).view(np.int64)
+    starts = bounds[:-1].view(np.int64)
+    # class parity 0 is the first token's class
+    wv, nv = (vocabs[0], vocabs[1]) if first_word else (vocabs[1], vocabs[0])
+    return starts, lengths, bool(first_word), wv, nv, ids
+
+
+def build_vocabs_ref(data: bytes | np.ndarray):
+    """The numpy version of build_vocabs (ids int64): the tests' plain
+    reference."""
     arr = _as_array(data)
     starts, lengths, word_first = tokenize(arr)
     T = starts.size
@@ -280,7 +314,20 @@ def merge_vocab_parts(blobs, tok_lens_list, counts_list):
 
 def detokenize(ids: np.ndarray, word_first: bool,
                wv: TokenVocab, nv: TokenVocab) -> bytes:
-    """ids -> original byte stream (vectorized gather by token).
+    """ids -> original byte stream, with the host library (one memcpy a
+    token; detokenize_ref is the numpy version)."""
+    if ids.size == 0:
+        return b""
+    from glz_tpu_torch.utils import native
+
+    return native.detokenize(ids, 0 if word_first else 1, wv.offsets, wv.blob,
+                             nv.offsets, nv.blob)
+
+
+def detokenize_ref(ids: np.ndarray, word_first: bool,
+                   wv: TokenVocab, nv: TokenVocab) -> bytes:
+    """The numpy version of detokenize (vectorized gather by token): the
+    tests' plain reference.
 
     Both dictionary pools merge into one byte array so a single
     cumsum-of-steps yields every output byte's source index."""

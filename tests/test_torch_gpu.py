@@ -220,3 +220,21 @@ def test_lockstep_archive_on_the_card(cuda, text_100kb, realtext):
                 else glz_tpu_torch.compress_archive(chip_smoke.quarters(text), mode=mode,
                                                     conf=conf))
         assert hashlib.sha256(blob).hexdigest() == chip_smoke.ARCHIVE_PINNED[key], key
+
+
+def test_cli_round_trips_on_the_card(cuda, tmp_path, monkeypatch):
+    """The command line on the card (GLZ_PLATFORM unset): each of
+    chip_smoke's phase 4f runs, on 3 MiB, writes the API's container for
+    the same call, round-trips and launches its path's kernels."""
+    monkeypatch.delenv("GLZ_PLATFORM", raising=False)
+    arr = chip_smoke.make_corpus(3 << 20)
+    text = chip_smoke.make_word_corpus(3 << 20)
+    arr.tofile(tmp_path / "corpus.bin")
+    (tmp_path / "text.txt").write_bytes(text)
+    for name, (opts, (mode, backend, conf), kernels) in chip_smoke.cli_runs().items():
+        hw = mode == glz_tpu_torch.config.MODE_HUFFWORD
+        chip_smoke.cli_round_trip(
+            tmp_path, name, tmp_path / ("text.txt" if hw else "corpus.bin"), opts,
+            lambda: glz_tpu_torch.compress(text if hw else arr, mode=mode, backend=backend,
+                                           conf=conf),
+            kernels, torch.cuda.get_device_name(0))

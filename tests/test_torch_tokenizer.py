@@ -1,9 +1,9 @@
 """glz_tpu_torch's HuffWord tokenizer against glz_tpu's.
 
 Token ids, vocabulary order and token text decide the container's bytes,
-so every output is compared exactly.  The port has only the numpy path;
-glz_tpu takes its native C++ vocabulary build where it loads, so these
-tests also show that the numpy ids equal the native ones.
+so every output is compared exactly.  Both packages build vocabularies and
+detokenize with their native C++ library; tests/test_torch_native.py also
+holds the port's numpy references (build_vocabs_ref, detokenize_ref).
 """
 
 import numpy as np
