@@ -8,18 +8,22 @@ lockstep codec, and the bitstream (layout 0) codec in byte and HuffWord
 mode (DEFAULT), the byte one through glz_tpu's default front door
 (backend "host") and the device backend; then the multi-file batch and the
 .glzb archive, and the command line (python -m glz_tpu_torch.cli) on every
-path, which run every kernel again.  Phases (each prints one line or more;
-any failure exits non-zero before the last):
+path, which run every kernel again; last the device mesh (world size 1)
+and the multi-process paths with two processes sharing the card.  Phases
+(each prints one line or more; any failure exits non-zero before the
+last):
   1. environment: torch, the card, nvidia-smi, nvcc, g++;
   2. build: compile csrc/lockstep.cu and csrc/bitstream.cu (which share
-     csrc/decode_table.cuh) for sm_90a (one nvcc each, in parallel), with
+     csrc/decode_table.cuh) and csrc/histogram.cu for sm_90a (one nvcc
+     each, in parallel), with
      ptxas register/spill figures per kernel, and the host library
      (native/glz_native.cpp: histogram, tokenizer, detokenize, .crs2
      decode) with g++;
   3. kernels against their plain PyTorch versions on the card, bit-exact
      (integer data, tolerance 0):
      - byte path: K1 lane_totals, K2 encode_groups and K3 decode_groups on
-       rows 8/16/32/64 at S 64/512 and rows 8 at S 8192, each with a ragged
+       rows 8/16/32/64 at S 64/512, rows 8 at S 8192 and rows 16 at S 32
+       (the mesh dry run's geometry), each with a ragged
        n_valid, a depth-26 codebook, and identical lanes (dense refill
        steps);
      - HuffWord path: K6 lut_gather at both call sites (gather_entries,
@@ -32,8 +36,11 @@ any failure exits non-zero before the last):
        vocabulary (u32 ids); each case also round-trips its tokens; K5
        alone on random words at S 66 (rows 8) and 130 (rows 64); K4 alone
        at rows 8/16/32/64 (each geometry its entry launches), ragged or
-       single-symbol; K1 alone at every S from 64 to 8192 with a ragged
+       single-symbol; K1 alone at every S from 32 to 8192 with a ragged
        n_valid and garbage past it, and with a depth-26 codebook;
+     - the histogram kernel on lengths 0, 1, 15, 17 and 2^20 + 3 (one from
+       an unaligned start), one byte value only and uniform bytes, against
+       its plain version, torch.bincount and np.bincount;
   3c. bitstream kernels: K7 lookup_lj_lens, the pack (pack_scan, pack_tiles,
      from bit 0 and from bit 13, and the whole step) and decode_streams on
      byte cases (ragged n_valid with garbage past it, S 1000 (not a power
@@ -89,15 +96,40 @@ any failure exits non-zero before the last):
      again at each swept decode table size (and the stream decodes'
      subsequence length), each against the input or the plain version, and
      the share of the main corpora's symbols (tokens) the tables resolve in
-     one probe; the registers and spills of K1, K4 (each geometry launched),
-     K2 and K5;
+     one probe; the histogram kernel on the 512 MiB corpus against its
+     plain version, torch.bincount (its library time), the host library
+     and np.bincount; the registers and spills of K1, K4 (each geometry
+     launched), K2, K5 and the histogram;
   6. pinned digests: the containers of tests/fixtures/realtext.txt[:1 MiB]
      under ten configurations, its normal-tree container, and archives of
      its four quarters in byte DEFAULT, byte THROUGHPUT and HuffWord
      lockstep (S 64) must have the SHA-256 that the JAX reference writes
      (pinned by tests/test_torch_canonical_byte.py,
      tests/test_torch_huffword.py, tests/test_torch_bitstream.py,
-     tests/test_torch_front_door.py and tests/test_torch_batch.py).
+     tests/test_torch_front_door.py and tests/test_torch_batch.py);
+  7. the device mesh and the multi-process paths (glz_tpu_torch.parallel;
+     their histogram kernel is checked in phases 3 and 5):
+     7b. in this process, a process group of one (NCCL): sharded_histogram
+     of the 512 MiB corpus (its launch is the histogram's count),
+     lockstep_codec_step at THROUGHPUT's geometry with and without
+     max_bits_per_symbol (group table and words against
+     compress_bytes_lockstep's with the same codebook, round trip exact),
+     the too-tight bound raising, codec_step at S 2^18 in dispatches of
+     2^27; then the dry run (python -m glz_tpu_torch.parallel.dryrun) a
+     spawned rank a card;
+     7c. two spawned processes sharing the card (gloo for the gathers),
+     each reading its shard from a file: compress_bytes_multihost of the
+     corpus under THROUGHPUT (64 groups a shard) and DEFAULT (S 2^18
+     shards), compress_huffword_multihost of phase 4b's text (S 512, rows
+     capped to 16, split_huffword_shards), decompress_bytes_multihost and
+     decompress_huffword_multihost writing their slices at their offsets;
+     each process's times (compress, gathers, process 0's stitch), launch
+     counts and peak device memory; every container decodes in this
+     process, every assembled output equals its input, the stitched
+     crc32s are zlib's, and the lockstep container equals
+     compress_bytes_lockstep's with an exact histogram (the HuffWord one
+     compress's at rows 16); the single-process calls on the same inputs
+     are timed beside them.
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -109,12 +141,14 @@ import hashlib
 import importlib.util
 import io
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -138,7 +172,11 @@ from glz_tpu_torch.ops import decode_table
 from glz_tpu_torch.ops import encode as be
 from glz_tpu_torch.ops import lockstep_decode as kd
 from glz_tpu_torch.ops import lockstep_encode as ke
+from glz_tpu_torch.ops import histogram as hist_ops
 from glz_tpu_torch.ops import lut
+from glz_tpu_torch.parallel import dryrun, ranks
+from glz_tpu_torch.parallel import mesh as pmesh
+from glz_tpu_torch.parallel import multihost
 from glz_tpu_torch.utils import native
 from glz_tpu_torch.utils import tokenizer as tok
 
@@ -205,6 +243,7 @@ REPLACES = {
     "pack_tiles": "glz_tpu/ops/encode.py:75",
     "decode_streams": "glz_tpu/ops/decode.py:37",
     "decode_streams_dual": "glz_tpu/models/huffword.py:502",
+    "histogram": "glz_tpu/ops/histogram.py:36",
 }
 # Phase 4e's members: the Silesia corpus's twelve files at their published
 # sizes in bytes, made from seeds (the real files are not in the
@@ -369,6 +408,8 @@ CASES["dense_r32_s64"] = (64, 32)
 # rows 64: steps where every lane refills need 8,192 words, more than K3's
 # refill ring holds ahead, so some are read from the payload directly
 CASES["dense_r64_s64"] = (64, 64)
+# the smallest S the kernels take, at the mesh dry run's rows
+CASES["text_r16_s32"] = (32, 16)
 
 
 def case_data(name: str):
@@ -453,7 +494,7 @@ def check_case(name: str, dev: torch.device) -> None:
 K1_CASES = {"k1_s64_r64": (64, 64), "k1_s128_r8": (128, 8), "k1_s256_r32": (256, 32),
             "k1_s512_r16": (512, 16), "k1_s1024_r64": (1024, 64), "k1_s2048_r8": (2048, 8),
             "k1_s4096_r16": (4096, 16), "k1_s8192_r32": (8192, 32),
-            "k1_deep26_s512_r64": (512, 64)}
+            "k1_deep26_s512_r64": (512, 64), "k1_s32_r16": (32, 16)}
 
 
 def check_k1_case(name: str, dev: torch.device) -> None:
@@ -473,6 +514,37 @@ def check_k1_case(name: str, dev: torch.device) -> None:
     err = max_abs_err(ke.lane_totals(sym, tbl, n, S, rows),
                       ke.lane_totals_ref(sym, tbl, n, S, rows))
     require(err == 0, f"{name}: K1 differs from its plain version by {err}")
+
+
+# The histogram kernel's cases: name -> (length, offset of the first byte
+# from a 16-byte boundary, law): ragged lengths, an unaligned start, one
+# byte value only (every increment on one bin), uniform bytes.
+HIST_CASES = {"hist_n0": (0, 0, "corpus"), "hist_n1": (1, 0, "corpus"),
+              "hist_n15": (15, 0, "corpus"), "hist_n17": (17, 0, "corpus"),
+              "hist_n1048579": ((1 << 20) + 3, 0, "corpus"),
+              "hist_n1048579_off5": ((1 << 20) + 3, 5, "corpus"),
+              "hist_one_byte": ((1 << 20) + 3, 0, "one"),
+              "hist_uniform_off3": ((1 << 22) + 5, 3, "uniform")}
+
+
+def check_histogram_case(name: str, dev: torch.device) -> None:
+    """The histogram kernel on the card against histogram_ref,
+    torch.bincount and np.bincount, exactly."""
+    n, off, law = HIST_CASES[name]
+    if law == "corpus":
+        arr = make_corpus(n + off, seed=n)
+    elif law == "one":
+        arr = np.full(n + off, 0xA7, np.uint8)
+    else:
+        arr = np.random.default_rng(n).integers(0, 256, n + off, dtype=np.uint8)
+    sym = torch.from_numpy(arr).to(dev)[off:]
+    require(sym.data_ptr() % 16 == off, f"{name}: offset {sym.data_ptr() % 16}")
+    got = hist_ops.histogram(sym)
+    err = max_abs_err(got, hist_ops.histogram_ref(sym))
+    require(err == 0, f"{name}: histogram differs from its plain version by {err}")
+    require(torch.equal(got, torch.bincount(sym, minlength=256)), f"{name}: torch.bincount")
+    require(np.array_equal(got.cpu().numpy(), np.bincount(arr[off:], minlength=256)),
+            f"{name}: np.bincount")
 
 
 # name -> (S, rows); word-corpus cases hold about 1.5 groups of tokens
@@ -1008,7 +1080,7 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"(lane_totals_entries_kernel|lane_totals_kernel|encode_entries_kernel|"
                   r"encode_kernel|decode_dual_kernel|decode_kernel|lut_gather_kernel|"
                   r"lookup_lj_lens_kernel|pack_scan_kernel|pack_tiles_kernel|"
-                  r"decode_streams_sync_kernel)(I.*E)?", mangled)
+                  r"decode_streams_sync_kernel|histogram_kernel)(I.*E)?", mangled)
     if not m:
         return mangled
     args = m.group(2) or ""
@@ -1156,7 +1228,8 @@ def bitstream_host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
 
 
 def measure(kname: str, kernel, plain_fn, nbytes: int, nops: int, launches: dict,
-            card: str, library=None, check=None, reps: int = 5) -> dict:
+            card: str, library=None, check=None, reps: int = 5,
+            source: str = "glz_tpu_torch/csrc/bitstream.cu") -> dict:
     """One bitstream kernel's row of the kernels line: its output against
     its plain version's on the same inputs (bit-exact) and `check`, then
     the times (CUDA events) of the kernel, the plain version and, where
@@ -1175,7 +1248,7 @@ def measure(kname: str, kernel, plain_fn, nbytes: int, nops: int, launches: dict
           f"{b_by}; {nbytes} B, {nops} ops"
           + (f"; library {lib_ms:.3f} ms" if lib_ms is not None else "")
           + f") on {card}", flush=True)
-    return {"name": kname, "route": "cuda", "source": "glz_tpu_torch/csrc/bitstream.cu",
+    return {"name": kname, "route": "cuda", "source": source,
             "replaces": REPLACES[kname], "launches": launches[kname], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
@@ -1618,6 +1691,297 @@ def cli_phase(card: str, arr: np.ndarray, text: bytes, members: dict[str, bytes]
     print(f"cli: phase 4f took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---- 5. the histogram kernel at the main corpus ---------------------------------
+
+def histogram_kernel_time(arr: np.ndarray, dev: torch.device, card: str) -> dict:
+    """The histogram kernel's row of the kernels line at the 512 MiB corpus:
+    against its plain version (index_add_), torch.bincount (its library
+    time), the host library and np.bincount, all equal.  Its launches come
+    from phase 7b's sharded_histogram."""
+    sym = torch.from_numpy(arr).to(dev)
+    t0 = time.perf_counter()
+    host = histogram_bytes(arr)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    want = np.bincount(arr, minlength=256)
+    require(np.array_equal(host, want), "histogram: the host library differs from np.bincount")
+
+    def check(got):
+        require(np.array_equal(got.cpu().numpy(), want), "histogram: differs from np.bincount")
+        require(torch.equal(got, torch.bincount(sym, minlength=256)),
+                "histogram: differs from torch.bincount")
+
+    row = measure("histogram", lambda: hist_ops.histogram(sym),
+                  lambda: hist_ops.histogram_ref(sym), arr.size + 8 * 256, arr.size,
+                  {"histogram": 0}, card, library=lambda: torch.bincount(sym, minlength=256),
+                  check=check, source="glz_tpu_torch/csrc/histogram.cu")
+    print(f"time: histogram of {arr.size >> 20} MiB in the host library {host_ms:.1f} ms "
+          f"(the models' exact histogram, core/codebook.histogram_bytes)", flush=True)
+    return row
+
+
+# ---- 7. the device mesh and the multi-process paths ------------------------------
+
+def mesh_phase(card: str, arr: np.ndarray, dev: torch.device) -> dict:
+    """7b: the mesh at world size 1 (NCCL) in this process: sharded_histogram
+    on the corpus, lockstep_codec_step at THROUGHPUT's geometry with and
+    without max_bits_per_symbol (its group table and group words against
+    compress_bytes_lockstep's container with the same codebook), the
+    too-tight bound, codec_step at S 2^18 in dispatches of 2^27; then the
+    dry run on every card.  Returns the histogram's launches."""
+    import torch.distributed as dist
+
+    n = arr.size
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{ranks.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh(1)
+        sym = torch.from_numpy(arr).to(dev)
+        want = histogram_bytes(arr)
+        # the first collective sets NCCL up; time it apart from the main run
+        first_ms, _ = timed_once(lambda: pmesh.sharded_histogram(mesh, sym[:4096]))
+        _kernels.reset_launch_counts()
+        ms, h = timed_once(lambda: pmesh.sharded_histogram(mesh, sym))
+        hist_launches = _kernels.launch_counts()
+        require(np.array_equal(h.cpu().numpy(), want), "sharded_histogram != np.bincount")
+        require(hist_launches["histogram"] == 1, f"sharded_histogram launches {hist_launches}")
+        print(f"mesh: world size 1 (NCCL) on {card}: sharded_histogram of {n >> 20} MiB "
+              f"{ms:.3f} ms (the first call, on 4 KiB, {first_ms:.1f} ms with NCCL's set-up), "
+              f"equal to the host library's; launches "
+              f"{ {k: v for k, v in hist_launches.items() if v} }", flush=True)
+
+        conf = dataclasses.replace(cfg.THROUGHPUT, histogram_budget=None)
+        S, rows = conf.stream_symbols, conf.group_rows
+        cb = build_codebook(want, min(conf.length_limit or ke.MAX_FUSED_LEN, ke.MAX_FUSED_LEN))
+        f = container.read_container(cb_model.compress_bytes_lockstep(arr, conf))
+        cont = _i32_tensor(np.frombuffer(f.payload, "<u4"), dev)
+        seg = np.cumsum(f.stream_bits.astype(np.int64)) - f.stream_bits.astype(np.int64)
+        args = (mesh, sym, n, entry_table(cb, dev), *decode_tables(cb, dev), S, cb.min_len,
+                cb.max_len)
+        for mbps in (None, 6):
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            payload, gw_all, out = pmesh.lockstep_codec_step(*args, rows=rows,
+                                                             max_bits_per_symbol=mbps)
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+            require(torch.equal(out, sym), f"lockstep_codec_step (bound {mbps}): round trip")
+            gw = gw_all.cpu().numpy()
+            padded, _ = ke.group_layout(gw)
+            require(np.array_equal(padded, f.stream_bits), "lockstep_codec_step: group table "
+                    "differs from compress_bytes_lockstep's")
+            stride = payload.numel() // gw.size
+            require(all(torch.equal(payload[g * stride : g * stride + int(gw[g])],
+                                     cont[seg[g] : seg[g] + int(gw[g])])
+                        for g in range(gw.size)),
+                    "lockstep_codec_step: group words differ from compress_bytes_lockstep's")
+            print(f"mesh: lockstep_codec_step {n >> 20} MiB S {S} rows {rows} ({gw.size} "
+                  f"groups), max_bits_per_symbol {mbps}: {t:.1f} ms (payload "
+                  f"{payload.numel() * 4 >> 20} MiB), group table and words equal to "
+                  f"compress_bytes_lockstep's, round trip exact; launches {launches} on {card}",
+                  flush=True)
+            del payload, out
+        try:
+            pmesh.lockstep_codec_step(*args, rows=rows, max_bits_per_symbol=1)
+            raise RuntimeError("lockstep_codec_step: max_bits_per_symbol=1 did not raise")
+        except ValueError as e:
+            require("too tight" in str(e), f"lockstep_codec_step: {e}")
+
+        bcb = build_codebook(want, cfg.DEFAULT.length_limit)
+        tables = (_i32_tensor(bcb.left_justified_codes(), dev), _i32_tensor(bcb.lengths, dev),
+                  *decode_tables(bcb, dev), bcb.min_len, bcb.max_len)
+        S, step = cfg.DEFAULT.stream_symbols, cb_model.MAX_DISPATCH_SYMBOLS
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bits = 0
+        for lo in range(0, n, step):
+            part = sym[lo : lo + step]
+            _, total_bits, _, out = pmesh.codec_step(mesh, part, part.numel(), *tables, S)
+            require(torch.equal(out, part), f"codec_step: round trip at {lo}")
+            bits += total_bits
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3
+        print(f"mesh: codec_step {n >> 20} MiB S {S} in {-(-n // step)} dispatches: {t:.1f} ms "
+              f"({bits} bits), round trip exact; launches "
+              f"{ {k: v for k, v in _kernels.launch_counts().items() if v} } on {card}",
+              flush=True)
+        del sym, cont
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        dryrun.dryrun_multichip(torch.cuda.device_count())
+    print(f"mesh: {'; '.join(said.getvalue().strip().splitlines())} "
+          f"({time.perf_counter() - t0:.1f} s, a spawned rank a card)", flush=True)
+    return hist_launches
+
+
+def _shard_of(path: str, bounds: list[int]) -> bytes:
+    pid = multihost.process_index()
+    with open(path, "rb") as fh:
+        fh.seek(bounds[pid])
+        return fh.read(bounds[pid + 1] - bounds[pid])
+
+
+def multihost_rank(paths: dict, bounds: dict, confs: dict) -> dict:
+    """One of phase 7c's processes, sharing the card with the others: each
+    compress path on its shard (process 0 writes the container), then both
+    multi-process decodes, each process writing its slice at its offset.
+    Returns each step's milliseconds (compress, the payload and table
+    gathers, process 0's stitch; decode), launch counts and peak device
+    memory."""
+    pid = multihost.process_index()
+    gathers = {"ms": 0.0, "end": 0.0}
+    gather = multihost._gather_ragged
+
+    def timed_gather(a):
+        t0 = time.perf_counter()
+        try:
+            return gather(a)
+        finally:
+            gathers["end"] = time.perf_counter()
+            gathers["ms"] += (gathers["end"] - t0) * 1e3
+
+    multihost._gather_ragged = timed_gather
+    out = {}
+
+    def step(label, fn):
+        multihost._allgather([0])  # start together
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        gathers.update(ms=0.0, end=0.0)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec = {"ms": (t1 - t0) * 1e3, "gather_ms": gathers["ms"],
+               "launches": {k: v for k, v in _kernels.launch_counts().items() if v},
+               "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        if pid == 0 and isinstance(r, bytes):
+            rec["stitch_ms"] = (t1 - gathers["end"]) * 1e3
+        out[label] = rec
+        return r
+
+    for label, (src, fn) in {"lockstep": ("corpus", multihost.compress_bytes_multihost),
+                             "bitstream": ("corpus", multihost.compress_bytes_multihost),
+                             "huffword": ("text", multihost.compress_huffword_multihost)}.items():
+        shard = _shard_of(paths[src], bounds[label])
+        blob = step(label, lambda: fn(shard, confs[label]))
+        if pid == 0:
+            pathlib.Path(paths[label]).write_bytes(blob)
+        del shard, blob
+    for label, src, fn in (("decode lockstep", "lockstep", multihost.decompress_bytes_multihost),
+                           ("decode huffword", "huffword",
+                            multihost.decompress_huffword_multihost)):
+        multihost._allgather([0])  # process 0 has written the container
+        blob = pathlib.Path(paths[src]).read_bytes()
+        local, off = step(label, lambda: fn(blob))
+        fd = os.open(paths[f"{src}.out"], os.O_WRONLY)
+        try:
+            os.pwrite(fd, local, off)
+        finally:
+            os.close(fd)
+        out[label]["bytes"] = len(local)
+    return out
+
+
+# Each multi-process step's kernels, which every process must launch.
+MULTIHOST_KERNELS = {"lockstep": ("lane_totals", "encode_groups"),
+                     "bitstream": ("lookup_lj_lens", "pack_scan", "pack_tiles"),
+                     "huffword": ("lut_gather", "lane_totals_entries", "encode_entries"),
+                     "decode lockstep": ("decode_groups",),
+                     "decode huffword": ("decode_dual", "lut_gather")}
+
+
+def multihost_phase(card: str, arr: np.ndarray, text: bytes) -> None:
+    """7c: two processes sharing the card, gloo for the gathers: the 512 MiB
+    corpus through compress_bytes_multihost under THROUGHPUT (64 groups a
+    shard) and DEFAULT (S 2^18 shards), phase 4b's text through
+    compress_huffword_multihost (S 512, rows capped to 16, shards from
+    split_huffword_shards), then both multi-process decodes.  Each
+    container round-trips through decompress in this process, each
+    assembled output equals its input, the stitched crc32s are zlib's, and
+    the lockstep container is compress_bytes_lockstep's with an exact
+    histogram and the HuffWord one compress's at rows 16, byte for byte;
+    the same single-process calls are timed."""
+    n = arr.size
+    confs = {"lockstep": dataclasses.replace(cfg.THROUGHPUT, checksum=True),
+             "bitstream": dataclasses.replace(cfg.DEFAULT, checksum=True),
+             "huffword": huffword_conf(512, 32)}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rows_hw = multihost.huffword_multihost_rows(confs["huffword"])
+        t0 = time.perf_counter()
+        text_bounds = multihost.split_huffword_shards(text, 2, confs["huffword"])
+        split_ms = (time.perf_counter() - t0) * 1e3
+    require(rows_hw == 16 and caught, f"huffword_multihost_rows: {rows_hw}")
+    group = cfg.THROUGHPUT.group_rows * LANES * cfg.THROUGHPUT.stream_symbols
+    bounds = {"lockstep": [0, n // 2 // group * group, n],
+              "bitstream": [0, n // 2 // cfg.DEFAULT.stream_symbols * cfg.DEFAULT.stream_symbols,
+                            n],
+              "huffword": text_bounds}
+    with tempfile.TemporaryDirectory(prefix="glz_smoke_") as tmp:
+        paths = {k: os.path.join(tmp, k) for k in ("corpus", "text", "lockstep", "bitstream",
+                                                   "huffword", "lockstep.out", "huffword.out")}
+        arr.tofile(paths["corpus"])
+        pathlib.Path(paths["text"]).write_bytes(text)
+        for k, size in (("lockstep.out", n), ("huffword.out", len(text))):
+            with open(paths[k], "wb") as fh:
+                fh.truncate(size)
+        t0 = time.perf_counter()
+        got = ranks.run(f"{ROOT / 'chip_smoke.py'}:multihost_rank", 2, paths, bounds, confs,
+                        timeout=600)
+        wall = time.perf_counter() - t0
+        for pid, rec in enumerate(got):
+            print(f"multihost: process {pid} of 2 on {card}: " + "; ".join(
+                f"{k} {v['ms']:.1f} ms (gathers {v['gather_ms']:.1f}"
+                + (f", stitch {v['stitch_ms']:.1f}" if "stitch_ms" in v else "")
+                + (f", {v['bytes']} B out" if "bytes" in v else "")
+                + f"; peak device memory {v['peak_mib']:.0f} MiB; launches {v['launches']})"
+                for k, v in rec.items()), flush=True)
+        for step, kernels in MULTIHOST_KERNELS.items():
+            require(all(all(rec[step]["launches"].get(k) for k in kernels) for rec in got),
+                    f"multihost {step}: a process missed a kernel of {kernels}")
+        inputs = {"lockstep": arr, "bitstream": arr, "huffword": text}
+        for label, data in inputs.items():
+            blob = pathlib.Path(paths[label]).read_bytes()
+            f = container.read_container(blob)
+            raw = data.tobytes() if isinstance(data, np.ndarray) else data
+            require(f.checksum == zlib.crc32(raw), f"multihost {label}: stitched crc32")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            require(gt.decompress(blob) == raw, f"multihost {label}: single-process decode")
+            t_d = (time.perf_counter() - t0) * 1e3
+            single = {"lockstep": lambda: cb_model.compress_bytes_lockstep(
+                          arr, dataclasses.replace(confs["lockstep"], histogram_budget=None)),
+                      "bitstream": lambda: gt.compress(arr, conf=confs["bitstream"]),
+                      "huffword": lambda: gt.compress(
+                          text, mode=cfg.MODE_HUFFWORD,
+                          conf=dataclasses.replace(confs["huffword"], group_rows=16))}[label]
+            t0 = time.perf_counter()
+            one = single()
+            torch.cuda.synchronize()
+            t_c = (time.perf_counter() - t0) * 1e3
+            same = one == blob
+            if label != "bitstream":  # its shards end on whole bytes, one stream does not
+                require(same, f"multihost {label}: not the single-process container")
+            print(f"multihost: {label} container {len(blob)} B ("
+                  + (f"group rows {f.group_rows}, {f.n_streams} groups" if f.layout
+                     else f"{f.n_streams} streams") + "), crc32 zlib's, "
+                  f"decompress in one process {t_d:.1f} ms exact; one process compresses the "
+                  f"same input in {t_c:.1f} ms, {'the same' if same else 'another'} container "
+                  f"({len(one)} B)", flush=True)
+            del blob, one
+        for label, data in (("lockstep", arr), ("huffword", text)):
+            back = pathlib.Path(paths[f"{label}.out"]).read_bytes()
+            raw = data.tobytes() if isinstance(data, np.ndarray) else data
+            require(back == raw, f"multihost decode {label}: assembled output differs")
+    print(f"multihost: 2 processes sharing {card}: 3 containers and 2 assembled decodes "
+          f"exact; shards {bounds}; split_huffword_shards {split_ms:.1f} ms; rows {rows_hw} "
+          f"(huffword_multihost_rows); {wall:.1f} s with the processes' start", flush=True)
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -1663,13 +2027,17 @@ def main() -> int:
         check_k4_case(case, dev)
     for case in K1_CASES:
         check_k1_case(case, dev)
+    for case in HIST_CASES:
+        check_histogram_case(case, dev)
     torch.cuda.synchronize()
     print(f"kernels: lut_gather (gather_entries, map_ranks), lane_totals_entries, "
           f"encode_entries, decode_dual bit-exact vs plain, "
           f"tokens round-trip, on {len(HUFFWORD_CASES)}/{len(HUFFWORD_CASES)} cases "
           f"({', '.join(HUFFWORD_CASES)}); decode_dual on random words at "
           f"{', '.join(K5_RANDOM_CASES)}; encode_entries alone on {', '.join(K4_CASES)}; "
-          f"lane_totals alone on {', '.join(K1_CASES)}; {time.perf_counter() - t0:.1f} s",
+          f"lane_totals alone on {', '.join(K1_CASES)}; histogram (against its plain "
+          f"version, torch.bincount and np.bincount) on {', '.join(HIST_CASES)}; "
+          f"{time.perf_counter() - t0:.1f} s",
           flush=True)
 
     t0 = time.perf_counter()
@@ -1855,11 +2223,14 @@ def main() -> int:
     rows += huffword_kernel_times(text, hf, vocabs, hlaunches, dev, card)
     rows += bitstream_kernel_times(arr, bblob, blaunches, dev, card)
     rows += huffword_bitstream_kernel_times(hbblob, vocabs, hblaunches, dev, card)
+    hist_row = histogram_kernel_time(arr, dev, card)
+    rows.append(hist_row)
     regs = [line for line in ptxas_summary(_kernels.build_log())
             if line.startswith(("lane_totals_kernel", "encode_entries_kernel", "encode_kernel",
-                                "decode_dual_kernel"))]
-    print(f"registers (ptxas -v) of K1, K4 (each geometry launched), K2 and K5: "
-          f"{'; '.join(regs)}", flush=True)
+                                "decode_dual_kernel", "histogram_kernel"))]
+    print(f"registers (ptxas -v) of K1, K4 (each geometry launched), K2, K5 and the "
+          f"histogram: {'; '.join(regs)}", flush=True)
+    hw_text = text
 
     # ---- 6. pinned digests
     text = (ROOT / "tests" / "fixtures" / "realtext.txt").read_bytes()[: 1 << 20]
@@ -1890,6 +2261,12 @@ def main() -> int:
         require(digest == ARCHIVE_PINNED[key], f"pinned digest {key}: {digest}")
     print(f"digests: {', '.join([*PINNED, *HUFFWORD_PINNED, *BITSTREAM_PINNED, *ARCHIVE_PINNED])} "
           f"match the reference", flush=True)
+
+    # ---- 7. the device mesh (world size 1) and two processes sharing the card
+    t0 = time.perf_counter()
+    hist_row["launches"] = mesh_phase(card, arr, dev)["histogram"]
+    multihost_phase(card, arr, hw_text)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

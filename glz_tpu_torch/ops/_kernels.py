@@ -1,5 +1,6 @@
 """Build, bind and count the hand-written Hopper kernels (csrc/lockstep.cu,
-csrc/bitstream.cu, and the header they share, csrc/decode_table.cuh).
+csrc/bitstream.cu, the header they share, csrc/decode_table.cuh, and
+csrc/histogram.cu).
 
 The CUDA sources are compiled with nvcc for sm_90a, one nvcc per source, all
 started together, and linked into one shared library with a plain C
@@ -27,7 +28,7 @@ import threading
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = [CSRC / name for name in ("lockstep.cu", "bitstream.cu")]
+SOURCES = [CSRC / name for name in ("lockstep.cu", "bitstream.cu", "histogram.cu")]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -36,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0,
              "lane_totals_entries": 0, "encode_entries": 0, "decode_dual": 0,
              "lut_gather": 0, "lookup_lj_lens": 0, "pack_scan": 0, "pack_tiles": 0,
-             "decode_streams": 0, "decode_streams_dual": 0}
+             "decode_streams": 0, "decode_streams_dual": 0, "histogram": 0}
 _COUNT_LOCK = threading.Lock()  # the pipelined batch launches from two threads
 _LIB_LOCK = threading.Lock()    # ... and its first files build and load from both
 _LIB: ctypes.CDLL | None = None
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "glz_decode_streams": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "glz_decode_streams_dual": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _I, _I, _I, _I, _I,
                                 _P, _P],
+    "glz_histogram": [_P, _LL, _P, _P],
 }
 
 

@@ -14,7 +14,7 @@ import torch
 
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.ops import _kernels
-from glz_tpu_torch.ops.lockstep_encode import U32, as_u32, lane_counts, to_i32
+from glz_tpu_torch.ops.lockstep_encode import MIN_KERNEL_S, U32, as_u32, lane_counts, to_i32
 
 CODE_TABLE = 34  # fc_lj / offsets entries (MAX_CODE_LEN + 2)
 # K3's decode table indexes the window's first TABLE_BITS bits (chosen among
@@ -88,10 +88,11 @@ def _decode_ref(payload: torch.Tensor, group_starts: torch.Tensor,
 def _check_decode(payload, group_starts, group_counts, S: int, rows: int,
                   any_even_s: bool = False) -> int:
     """n_groups, after checking the inputs both decode kernels share (S a
-    power of two in [64, 8192], or with any_even_s any even S there)."""
-    if (S % 2 if any_even_s else S & (S - 1)) or not 64 <= S <= 8192:
+    power of two in [MIN_KERNEL_S, 8192], or with any_even_s any even S
+    there)."""
+    if (S % 2 if any_even_s else S & (S - 1)) or not MIN_KERNEL_S <= S <= 8192:
         raise ValueError(f"S must be {'even' if any_even_s else 'a power of two'} "
-                         f"in [64, 8192], got {S}")
+                         f"in [{MIN_KERNEL_S}, 8192], got {S}")
     if rows not in (8, 16, 32, 64):
         raise ValueError(f"rows must be 8, 16, 32 or 64, got {rows}")
     dev = payload.device

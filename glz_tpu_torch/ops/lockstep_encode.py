@@ -30,6 +30,9 @@ LEN_BITS = 6          # entry word = lj | len; needs max_len <= 32 - LEN_BITS
 LEN_MASK = (1 << LEN_BITS) - 1
 MAX_FUSED_LEN = 32 - LEN_BITS
 U32 = 0xFFFFFFFF
+# The smallest S the lockstep kernels take (the mesh's dry run uses it;
+# containers need S >= 64, as the JAX package's do).
+MIN_KERNEL_S = 32
 
 
 def as_u32(t: torch.Tensor) -> torch.Tensor:
@@ -67,8 +70,8 @@ def _check_symbols(sym: torch.Tensor, dtype: torch.dtype, S: int, rows: int):
     """(G, n_groups) of a kernel's symbol input, after checking it."""
     if sym.dtype != dtype:
         raise TypeError(f"sym: expected {dtype}, got {sym.dtype}")
-    if S & (S - 1) or not 64 <= S <= 8192:
-        raise ValueError(f"S must be a power of two in [64, 8192], got {S}")
+    if S & (S - 1) or not MIN_KERNEL_S <= S <= 8192:
+        raise ValueError(f"S must be a power of two in [{MIN_KERNEL_S}, 8192], got {S}")
     if rows not in (8, 16, 32, 64):
         raise ValueError(f"rows must be 8, 16, 32 or 64, got {rows}")
     G, n_groups = group_geometry(sym, S, rows)

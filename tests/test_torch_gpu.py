@@ -238,3 +238,100 @@ def test_cli_round_trips_on_the_card(cuda, tmp_path, monkeypatch):
             lambda: glz_tpu_torch.compress(text if hw else arr, mode=mode, backend=backend,
                                            conf=conf),
             kernels, torch.cuda.get_device_name(0))
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.HIST_CASES))
+def test_histogram_matches_plain_version(cuda, case):
+    """The histogram kernel against histogram_ref, torch.bincount and
+    np.bincount on ragged lengths, an unaligned start, one byte value and
+    uniform bytes."""
+    chip_smoke.check_histogram_case(case, cuda)
+    torch.cuda.synchronize()
+
+
+def test_mesh_at_world_size_1(cuda):
+    """A process group of one (NCCL): sharded_histogram, lockstep_codec_step
+    (rows 8, S 64, a ragged second group) against lane_totals_ref's group
+    table and the input, and codec_step, each launching its kernels."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from glz_tpu_torch.core.codebook import build_codebook
+    from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables, entry_table
+    from glz_tpu_torch.ops import lockstep_encode as ke
+    from glz_tpu_torch.parallel import mesh as pmesh
+    from glz_tpu_torch.parallel import ranks
+
+    arr = chip_smoke.make_corpus(2 * 1024 * 64, seed=0x3E5)
+    n_valid = arr.size - 4321
+    cb = build_codebook(np.bincount(arr[:n_valid], minlength=256), ke.MAX_FUSED_LEN)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{ranks.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh(1)
+        sym = torch.from_numpy(arr).to(cuda)
+        _kernels.reset_launch_counts()
+        h = pmesh.sharded_histogram(mesh, sym)
+        assert np.array_equal(h.cpu().numpy(), np.bincount(arr, minlength=256))
+        _, gw_all, out = pmesh.lockstep_codec_step(
+            mesh, sym, n_valid, entry_table(cb, cuda), *decode_tables(cb, cuda), 64,
+            cb.min_len, cb.max_len)
+        assert np.array_equal(out.cpu().numpy(), arr[:n_valid])
+        _, gw = ke.lane_totals_ref(sym.cpu(), entry_table(cb, torch.device("cpu")), n_valid,
+                                   64, 8)
+        assert torch.equal(gw_all.cpu(), gw)
+        *_, out = pmesh.codec_step(mesh, sym, n_valid,
+                                   _i32_tensor(cb.left_justified_codes(), cuda),
+                                   _i32_tensor(cb.lengths, cuda), *decode_tables(cb, cuda),
+                                   cb.min_len, cb.max_len, 4096)
+        assert np.array_equal(out.cpu().numpy(), arr[:n_valid])
+        counts = _kernels.launch_counts()
+        assert all(counts[k] == 1 for k in ("histogram", "lane_totals", "encode_groups",
+                                            "decode_groups", "lookup_lj_lens", "pack_tiles",
+                                            "decode_streams"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_rank_lockstep(path: str):
+    """A rank of test_two_process_lockstep_multihost: its half of the file
+    under a lockstep conf, then its groups of the container."""
+    import pathlib
+
+    from glz_tpu_torch.parallel import multihost
+
+    data = pathlib.Path(path).read_bytes()
+    half = len(data) // 2 // (8 * 128 * 64) * (8 * 128 * 64)
+    pid = multihost.process_index()
+    conf = glz_tpu_torch.GlzConfig(stream_symbols=64, layout=glz_tpu_torch.config.LAYOUT_LOCKSTEP,
+                                   checksum=True)
+    blob = multihost.compress_bytes_multihost(data[:half] if pid == 0 else data[half:], conf)
+    shared = pathlib.Path(path + ".glz")
+    if pid == 0:
+        shared.write_bytes(blob)
+    multihost._allgather([0])
+    local, off = multihost.decompress_bytes_multihost(shared.read_bytes())
+    return blob, off, local, _kernels.launch_counts()
+
+
+def test_two_process_lockstep_multihost(cuda, tmp_path):
+    """Two processes sharing the card: the stitched lockstep container is
+    compress_bytes_lockstep's with an exact histogram, decodes on the card,
+    and the two processes' decoded slices reassemble the file."""
+    from glz_tpu_torch.parallel import ranks
+
+    arr = chip_smoke.make_corpus(3 * 8 * 128 * 64 + 999, seed=0x3E6)
+    path = tmp_path / "in.bin"
+    arr.tofile(path)
+    got = ranks.run(f"{__file__}:_two_rank_lockstep", 2, str(path), timeout=300)
+    blob = got[0][0]
+    assert got[1][0] is None
+    conf = glz_tpu_torch.GlzConfig(stream_symbols=64, layout=glz_tpu_torch.config.LAYOUT_LOCKSTEP,
+                                   checksum=True, histogram_budget=None)
+    assert blob == port_model.compress_bytes_lockstep(arr, conf)
+    assert glz_tpu_torch.decompress(blob) == arr.tobytes()
+    parts = sorted((off, local) for _, off, local, _ in got)
+    assert parts[0][0] == 0 and parts[1][0] == len(parts[0][1])
+    assert b"".join(p[1] for p in parts) == arr.tobytes()
+    for *_, counts in got:
+        assert counts["encode_groups"] and counts["decode_groups"]

@@ -13,6 +13,7 @@ from glz_tpu.core import api as tpu_api
 from glz_tpu.core import bitio as tpu_bitio
 from glz_tpu.core import codebook as tpu_codebook
 from glz_tpu.core import container as tpu_container
+from glz_tpu.utils import crc as tpu_crc
 
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import api as port_api
@@ -21,6 +22,7 @@ from glz_tpu_torch.core import codebook as port_codebook
 from glz_tpu_torch.core import container as port_container
 from glz_tpu_torch.models.canonical_byte import decode_tables
 from glz_tpu_torch.ops import decode_table
+from glz_tpu_torch.utils import crc as port_crc
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -172,3 +174,20 @@ def test_decode_luts_match_reference(name, table_bits):
     lut = decode_table.decode_lut(*decode_tables(cb, torch.device("cpu")), cb.min_len,
                                   cb.max_len, table_bits)
     assert np.array_equal(lut.numpy().view(np.uint32), want[0])
+
+
+@pytest.mark.parametrize("lengths", [[0, 5], [3000, 0, 17], [1, 1 << 22, 1 << 33, 2, 0, 4095]])
+def test_crc_matches_reference(rng, lengths):
+    """utils/crc (the multi-process stitch's checksum) is a copy: every
+    combine and concatenation equals glz_tpu's and zlib's."""
+    import zlib
+
+    crcs = [int(c) for c in rng.integers(0, 1 << 32, len(lengths), dtype=np.uint64)]
+    assert port_crc.crc32_concat(crcs, lengths) == tpu_crc.crc32_concat(crcs, lengths)
+    for a, b, n in zip(crcs, crcs[1:], lengths[1:]):
+        assert port_crc.crc32_combine(a, b, n) == tpu_crc.crc32_combine(a, b, n)
+    parts = [rng.integers(0, 256, min(n, 5000), dtype=np.uint8).tobytes() for n in lengths]
+    assert port_crc.crc32_concat([zlib.crc32(p) for p in parts],
+                                 [len(p) for p in parts]) == zlib.crc32(b"".join(parts))
+    with pytest.raises(ValueError):
+        port_crc.crc32_combine(0, 0, -1)
