@@ -9,7 +9,8 @@ mode (DEFAULT), the byte one through glz_tpu's default front door
 (backend "host") and the device backend; then the multi-file batch and the
 .glzb archive, and the command line (python -m glz_tpu_torch.cli) on every
 path, which run every kernel again; last the device mesh (world size 1)
-and the multi-process paths with two processes sharing the card.  Phases
+and the multi-process paths with two processes sharing the card, and a
+device trace of each main path's compress and decompress.  Phases
 (each prints one line or more; any failure exits non-zero before the
 last):
   1. environment: torch, the card, nvidia-smi, nvcc, g++;
@@ -88,7 +89,9 @@ last):
      1-6, the .crs3 format and containers and archives that must have
      phase 6's pinned digests; and one python -m glz_tpu_torch.cli
      subprocess round trip;
-  5. kernel times at each main path's shapes (CUDA events), each kernel
+  5. kernel times at each main path's shapes (CUDA events: the median,
+     min and max of 9 launches, each in its own event pair behind a spin
+     kernel, beside the mean of 5 back to back), each kernel
      held against its plain version on the same inputs (the stream decodes
      also against the input); the whole pack step against the first
      port's (torch.cumsum and pack_lj_kernel, tools/pack_phases.py) on the
@@ -130,6 +133,20 @@ last):
      compress_bytes_lockstep's with an exact histogram (the HuffWord one
      compress's at rows 16); the single-process calls on the same inputs
      are timed beside them.
+  8. device traces: each main path's compress and decompress apart (byte
+     lockstep under THROUGHPUT, HuffWord lockstep at S 512, rows 32, byte
+     bitstream under DEFAULT through backend "host", HuffWord bitstream
+     under DEFAULT; phase 4's corpus and phase 4b's text, with checksum),
+     each inside glz_tpu_torch.utils.timer's Profiler phase, inside
+     device_trace(build/traces/<path>_<direction>) (torch.profiler, CPU
+     and CUDA), inside a record_function span; each container equal to the
+     untraced one of phases 4-4d and each round trip exact; per trace one
+     line: the span's window, kernel-busy and device-busy time (the union of
+     kernel events; of kernel, copy and memset events), both idle shares,
+     the five device operations with the most time and the three longest
+     gaps with no device event and the CPU-side event under each; each port
+     kernel's events equal to its launches in the call; then the
+     Profiler's report of the eight calls.
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -144,6 +161,8 @@ import json
 import os
 import pathlib
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -179,6 +198,7 @@ from glz_tpu_torch.parallel import mesh as pmesh
 from glz_tpu_torch.parallel import multihost
 from glz_tpu_torch.utils import native
 from glz_tpu_torch.utils import tokenizer as tok
+from glz_tpu_torch.utils.timer import Profiler, device_trace
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MAIN_BYTES = 512 << 20
@@ -203,6 +223,11 @@ SUBSEQ_BITS_SWEEP = (1024, 2048, 4096)
 # length in bits.
 DUAL_TABLE_BITS_SWEEP = (11, 12, 13, 14)
 DUAL_SUBSEQ_BITS_SWEEP = (256, 384, 512, 768)
+# Phase 5 times each kernel as this many launches, each in its own event
+# pair behind a spin kernel of this many clock cycles (~1 ms at the H100's
+# clocks, longer than any wrapper's host work).
+SINGLE_LAUNCHES = 9
+SPIN_CYCLES = 2_000_000
 
 # SHA-256 of the containers of realtext.txt[:1 MiB] written by glz_tpu.
 PINNED = {
@@ -1067,6 +1092,32 @@ def cuda_ms(fn, reps: int) -> float:
     return ms / reps
 
 
+def cuda_spread(fn, reps: int = 5, singles: int = SINGLE_LAUNCHES) -> dict[str, float]:
+    """fn() on the card (CUDA events) after one warm-up call: "mean_ms", the
+    mean of `reps` calls back to back inside one event pair (cuda_ms), then
+    `singles` calls each inside its own event pair, each started behind a
+    spin kernel of ~1 ms so that the event pair times the device's work and
+    not the host's launch: their median ("ms"), "min_ms" and "max_ms"."""
+    mean = cuda_ms(fn, reps)
+    times = []
+    for _ in range(singles):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"ms": statistics.median(times), "min_ms": min(times), "max_ms": max(times),
+            "mean_ms": mean}
+
+
+def spread_text(t: dict[str, float]) -> str:
+    return (f"{t['ms']:.3f} ms (median of {SINGLE_LAUNCHES}, {t['min_ms']:.3f}-"
+            f"{t['max_ms']:.3f}; mean of 5 back to back {t['mean_ms']:.3f})")
+
+
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
@@ -1168,23 +1219,23 @@ def huffword_kernel_times(text: bytes, f, vocabs, launches: dict, dev: torch.dev
         if site == "encode_entries":
             require(not bool(got[1].any()), "huffword main shape: encode cursor did not end at 0")
         del got, plain_out
-        ms = cuda_ms(kernel, reps=5)
+        times = cuda_spread(kernel)
         lib_ms = None
         if table is not None:
             idx = take_idx[site]
-            lib_ms = cuda_ms(lambda: torch.take(table, idx), reps=5)
+            lib_ms = cuda_spread(lambda: torch.take(table, idx))["ms"]
         b_ms, b_by = bound(nbytes, nops)
-        print(f"time: {site} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
+        print(f"time: {site} {spread_text(times)} (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
               f"{b_by}; {nbytes} B, {nops} ops"
               + (f"; torch.take {lib_ms:.3f} ms" if lib_ms is not None else "")
               + f") on {card}", flush=True)
         kname = site.split("/")[0]
         row = {"name": kname, "route": "cuda", "source": "glz_tpu_torch/csrc/lockstep.cu",
                "replaces": REPLACES[kname], "launches": launches[kname], "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               **times, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms, "_bytes": nbytes, "_ops": nops}
         if kname == "lut_gather" and k6 is not None:
-            for key in ("ms", "plain_ms", "library_ms", "_bytes", "_ops"):
+            for key in (*times, "plain_ms", "library_ms", "_bytes", "_ops"):
                 k6[key] += row[key]
             k6["max_abs_err"] = max(k6["max_abs_err"], err)
             k6["bound_ms"], k6["bound_by"] = bound(k6["_bytes"], k6["_ops"])
@@ -1228,12 +1279,13 @@ def bitstream_host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
 
 
 def measure(kname: str, kernel, plain_fn, nbytes: int, nops: int, launches: dict,
-            card: str, library=None, check=None, reps: int = 5,
+            card: str, library=None, check=None,
             source: str = "glz_tpu_torch/csrc/bitstream.cu") -> dict:
     """One bitstream kernel's row of the kernels line: its output against
     its plain version's on the same inputs (bit-exact) and `check`, then
-    the times (CUDA events) of the kernel, the plain version and, where
-    given, one PyTorch call computing the same function."""
+    the times (CUDA events) of the kernel (cuda_spread), the plain version
+    and, where given, one PyTorch call computing the same function (the
+    median of cuda_spread)."""
     plain_ms, want = timed_once(plain_fn)
     got = kernel()
     err = max_abs_err(got, want)
@@ -1241,16 +1293,16 @@ def measure(kname: str, kernel, plain_fn, nbytes: int, nops: int, launches: dict
     if check is not None:
         check(got)
     del got, want
-    ms = cuda_ms(kernel, reps)
-    lib_ms = cuda_ms(library, reps) if library is not None else None
+    times = cuda_spread(kernel)
+    lib_ms = cuda_spread(library)["ms"] if library is not None else None
     b_ms, b_by = bound(nbytes, nops)
-    print(f"time: {kname} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
+    print(f"time: {kname} {spread_text(times)} (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
           f"{b_by}; {nbytes} B, {nops} ops"
           + (f"; library {lib_ms:.3f} ms" if lib_ms is not None else "")
           + f") on {card}", flush=True)
     return {"name": kname, "route": "cuda", "source": source,
             "replaces": REPLACES[kname], "launches": launches[kname], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            **times, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
 
 
@@ -1982,6 +2034,173 @@ def multihost_phase(card: str, arr: np.ndarray, text: bytes) -> None:
           f"(huffword_multihost_rows); {wall:.1f} s with the processes' start", flush=True)
 
 
+# ---- 8. device traces of the four main paths -----------------------------------
+
+TRACE_DIR = ROOT / "build" / "traces"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # work on the card's engines
+HOST_CATS = ("cpu_op", "cuda_runtime")  # CPU-side events that can cover a gap
+# The port's kernels (function names in csrc/) by the wrapper that launches
+# them, one kernel a launch; decode_streams_sync_kernel is both stream
+# decodes, <bytes> (template argument false) and <dual> (true).
+WRAPPER_OF_KERNEL = {
+    "lane_totals_entries_kernel": "lane_totals_entries", "lane_totals_kernel": "lane_totals",
+    "encode_entries_kernel": "encode_entries", "encode_kernel": "encode_groups",
+    "decode_dual_kernel": "decode_dual", "decode_kernel": "decode_groups",
+    "lut_gather_kernel": "lut_gather", "lookup_lj_lens_kernel": "lookup_lj_lens",
+    "pack_scan_kernel": "pack_scan", "pack_tiles_kernel": "pack_tiles",
+    "decode_streams_sync_kernel": "decode_streams", "histogram_kernel": "histogram",
+}
+
+
+def wrapper_of(kernel: str) -> str | None:
+    """The port's wrapper that launches a traced kernel, from its mangled or
+    demangled name; None for any other kernel."""
+    for fn, wrapper in WRAPPER_OF_KERNEL.items():
+        m = re.search(rf"(?<![A-Za-z_]){fn}", kernel)
+        if m:
+            if wrapper == "decode_streams" and re.match(r"ILb1E|<true", kernel[m.end():]):
+                return "decode_streams_dual"
+            return wrapper
+    return None
+
+
+def _union(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
+    out: list[tuple[float, float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _op_name(e: dict) -> str:
+    """A device event's name in the summary: the port's wrapper for its
+    kernels, the function without template arguments for other kernels."""
+    if e["cat"] != "kernel":
+        return e["name"]
+    return wrapper_of(e["name"]) or e["name"].removeprefix("void ").split("<")[0].split("(")[0]
+
+
+def trace_summary(trace: dict, span: str) -> dict:
+    """What a Chrome trace of torch.profiler says of the record_function
+    span `span` (on the trace's one clock, microseconds; results in ms):
+    the window (the span's duration); kernel-busy, the union of the kernel
+    events inside it; device-busy, the union of kernel, copy and memset
+    events; both idle shares (1 - busy / window); the five device
+    operations with the most time inside it (name, count, ms); the three
+    longest gaps with no device event (ms, and the innermost CPU-side event
+    covering the gap's midpoint, or "host (untraced)"); and the port's
+    kernel events in the whole trace by wrapper."""
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == span]
+    require(len(spans) == 1, f"trace: {len(spans)} spans named {span!r}")
+    w0, w1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    require(w1 > w0, f"trace: span {span!r} has no duration")
+    device = []
+    for e in events:
+        a, b = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
+        if e.get("cat") in DEVICE_CATS and b > a:
+            device.append((a, b, e))
+    kernel_busy = _union([(a, b) for a, b, e in device if e["cat"] == "kernel"])
+    device_busy = _union([(a, b) for a, b, _ in device])
+    ops: dict[str, list] = {}
+    for a, b, e in device:
+        op = ops.setdefault(_op_name(e), [0, 0.0])
+        op[0] += 1
+        op[1] += b - a
+    gaps, t = [], w0
+    for a, b in device_busy:
+        if a > t:
+            gaps.append((t, a))
+        t = b
+    if w1 > t:
+        gaps.append((t, w1))
+    host = [e for e in events if e.get("cat") in HOST_CATS]
+
+    def cover(mid: float) -> str:
+        over = [e for e in host if e["ts"] <= mid <= e["ts"] + e["dur"]]
+        return min(over, key=lambda e: e["dur"])["name"] if over else "host (untraced)"
+
+    window = w1 - w0
+    port: dict[str, int] = {}
+    for e in events:
+        wrapper = wrapper_of(e["name"]) if e.get("cat") == "kernel" else None
+        if wrapper:
+            port[wrapper] = port.get(wrapper, 0) + 1
+    return {
+        "window_ms": window / 1e3,
+        "kernel_ms": sum(b - a for a, b in kernel_busy) / 1e3,
+        "device_ms": sum(b - a for a, b in device_busy) / 1e3,
+        "kernel_idle": 1 - sum(b - a for a, b in kernel_busy) / window,
+        "device_idle": 1 - sum(b - a for a, b in device_busy) / window,
+        "top": [(name, c, ms / 1e3) for name, (c, ms)
+                in sorted(ops.items(), key=lambda kv: (-kv[1][1], kv[0]))[:5]],
+        "gaps": [((b - a) / 1e3, cover((a + b) / 2))
+                 for a, b in sorted(gaps, key=lambda g: (g[0] - g[1], g[0]))[:3]],
+        "port_kernels": port,
+    }
+
+
+def trace_line(label: str, s: dict) -> str:
+    return (f"trace: {label}: window {s['window_ms']:.3f} ms; kernel-busy "
+            f"{s['kernel_ms']:.3f} ms, device-busy {s['device_ms']:.3f} ms; idle (kernels) "
+            f"{s['kernel_idle']:.4%}, idle (kernels, copies, memsets) {s['device_idle']:.4%}; "
+            f"top device operations: "
+            + ", ".join(f"{name} x{c} {ms:.3f} ms" for name, c, ms in s["top"])
+            + "; longest gaps: "
+            + ", ".join(f"{ms:.3f} ms under {label_}" for ms, label_ in s["gaps"]))
+
+
+def trace_phase(card: str, arr: np.ndarray, text: bytes, digests: dict[str, str]) -> None:
+    """Phase 8: each main path's compress and decompress, apart, each inside
+    a timer.Profiler phase, inside timer.device_trace(build/traces/<path>_
+    <direction>), inside a record_function span named for the call that
+    ends in a synchronize.  Each container must be the one the untraced
+    call of phases 4-4d wrote (`digests`), each round trip exact, and each
+    port kernel's events in a trace as many as its launches in the call."""
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    prof = Profiler()
+    byte_default = dataclasses.replace(cfg.DEFAULT, checksum=True)
+    paths = {  # name -> (input, mode, conf, backend)
+        "byte_lockstep": (arr, cfg.MODE_BYTE, dataclasses.replace(cfg.THROUGHPUT, checksum=True),
+                          "host"),
+        "huffword_lockstep": (text, cfg.MODE_HUFFWORD, huffword_conf(), "host"),
+        "byte_bitstream": (arr, cfg.MODE_BYTE, byte_default, "host"),
+        "huffword_bitstream": (text, cfg.MODE_HUFFWORD, byte_default, "host"),
+    }
+
+    def traced(label: str, nbytes: int, fn):
+        _kernels.reset_launch_counts()
+        with device_trace(TRACE_DIR / label) as trace:
+            with prof.phase(label, nbytes):
+                with torch.profiler.record_function(label):
+                    result = fn()
+                    torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+        s = trace_summary(json.loads(trace.file.read_text()), label)
+        require(launches and s["port_kernels"] == launches,
+                f"trace {label}: kernel events {s['port_kernels']} != launches {launches}")
+        print(f"{trace_line(label, s)}; port kernel events = launches {launches}; "
+              f"{trace.file.relative_to(ROOT)} ({trace.file.stat().st_size} B) on {card}",
+              flush=True)
+        return result
+
+    t0 = time.perf_counter()
+    for name, (data, mode, conf, backend) in paths.items():
+        raw = data.tobytes() if isinstance(data, np.ndarray) else data
+        blob = traced(f"{name}_compress", len(raw),
+                      lambda: gt.compress(data, mode=mode, backend=backend, conf=conf))
+        require(sha(blob) == digests[name],
+                f"trace {name}: the container differs from the untraced call's")
+        out = traced(f"{name}_decompress", len(raw), lambda: gt.decompress(blob))
+        require(out == raw, f"trace {name}: round trip mismatch")
+        del raw, blob, out
+    print("profile: phase 8's traced calls (host clock, the profiler on):\n" + prof.report(),
+          flush=True)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -2075,6 +2294,7 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, launches {launches}",
           flush=True)
     del out
+    digests = {"byte_lockstep": sha(blob)}  # phase 8's traced calls must write these
     steps = host_steps(arr, blob, conf, dev)
     print("host: " + ", ".join(f"{k} {v:.1f} ms" for k, v in steps.items())
           + f" (each re-run alone at {n >> 20} MiB; container {len(blob)} B)", flush=True)
@@ -2091,6 +2311,7 @@ def main() -> int:
     require(all(hlaunches[k] > 0 for k in HUFFWORD_KERNELS),
             f"huffword main path missed a kernel: {hlaunches}")
     del hout
+    digests["huffword_lockstep"] = sha(hblob)
     hf = container.read_container(hblob)
     hn = len(text)
     print(f"main: HuffWord {hn >> 20} MiB S {hf.stream_symbols} rows {hf.group_rows} "
@@ -2126,6 +2347,7 @@ def main() -> int:
               f"{blaunches}", flush=True)
         bblobs[backend] = (bblob, blaunches)
     bblob, blaunches = bblobs["host"]
+    digests["byte_bitstream"] = sha(bblob)
     bf = container.read_container(bblob)
     bsteps = bitstream_host_steps(arr, bblob, bconf, dev)
     print("host: bitstream " + ", ".join(f"{k} {v:.1f} ms" for k, v in bsteps.items())
@@ -2139,6 +2361,7 @@ def main() -> int:
     require(all(hblaunches[k] > 0 for k in HUFFWORD_BITSTREAM_KERNELS),
             f"huffword bitstream path missed a kernel: {hblaunches}")
     del hout
+    digests["huffword_bitstream"] = sha(hbblob)
     hbf = container.read_container(hbblob)
     print(f"main: HuffWord bitstream {hn >> 20} MiB DEFAULT+checksum on {card}: "
           f"{hbf.n_symbols} tokens in {hbf.n_streams} streams of {hbf.stream_symbols}; "
@@ -2191,13 +2414,13 @@ def main() -> int:
             require(not bool(got[1].any()), "main shape: encode cursor did not end at 0")
             payload["ref"] = want[0]
         del got, want
-        ms = cuda_ms(kernel, reps=5)
+        times = cuda_spread(kernel)
         b_ms, b_by = bound(traffic[k], ops[k])
         rows.append({"name": k, "route": "cuda", "source": "glz_tpu_torch/csrc/lockstep.cu",
                      "replaces": REPLACES[k], "launches": launches[k], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     **times, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
-        print(f"time: {k} {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
+        print(f"time: {k} {spread_text(times)} (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by "
               f"{b_by}; {traffic[k]} B, {ops[k]} ops) on {card}", flush=True)
     want = inp.sym.view(-1)
     sweep = []
@@ -2267,6 +2490,9 @@ def main() -> int:
     hist_row["launches"] = mesh_phase(card, arr, dev)["histogram"]
     multihost_phase(card, arr, hw_text)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 8. device traces of the four main paths, each direction apart
+    trace_phase(card, arr, hw_text, digests)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

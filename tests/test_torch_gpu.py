@@ -132,6 +132,32 @@ def test_bitstream_entry_points_launch_each_kernel(cuda):
                       "decode_streams_dual": 1}
 
 
+def test_device_trace_counts_port_kernels(cuda, tmp_path):
+    """A traced byte lockstep round trip of 8 MiB: the trace holds as many
+    events of each port kernel as its wrapper counted launches, and both
+    idle shares lie in [0, 1]."""
+    import json
+
+    from glz_tpu_torch.utils.timer import device_trace
+
+    data = chip_smoke.make_corpus(8 << 20)
+    conf = glz_tpu_torch.config.THROUGHPUT
+    glz_tpu_torch.decompress(glz_tpu_torch.compress(data[: 1 << 20], conf=conf))  # warm-up
+    _kernels.reset_launch_counts()
+    with device_trace(tmp_path) as trace:
+        with torch.profiler.record_function("round_trip"):
+            blob = glz_tpu_torch.compress(data, conf=conf)
+            out = glz_tpu_torch.decompress(blob)
+            torch.cuda.synchronize()
+    assert out == data.tobytes()
+    launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+    assert launches == {"lane_totals": 1, "encode_groups": 1, "decode_groups": 1}
+    s = chip_smoke.trace_summary(json.loads(trace.file.read_text()), "round_trip")
+    assert s["port_kernels"] == launches
+    assert 0 <= s["device_idle"] <= s["kernel_idle"] <= 1
+    assert 0 < s["kernel_ms"] <= s["device_ms"] <= s["window_ms"]
+
+
 def test_pinned_digests_on_the_card(cuda, realtext):
     text = realtext[: 1 << 20]
     for key, conf in chip_smoke.pinned_configs().items():
