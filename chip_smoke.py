@@ -8,9 +8,10 @@ lockstep codec, and the bitstream (layout 0) codec in byte and HuffWord
 mode (DEFAULT), the byte one through glz_tpu's default front door
 (backend "host") and the device backend; then the multi-file batch and the
 .glzb archive, and the command line (python -m glz_tpu_torch.cli) on every
-path, which run every kernel again; last the device mesh (world size 1)
-and the multi-process paths with two processes sharing the card, and a
-device trace of each main path's compress and decompress.  Phases
+path, which run every kernel again; then the device mesh (world size 1)
+and the multi-process paths with two processes sharing the card, a device
+trace of each main path's compress and decompress, and last the bitstream
+paths' decompress through each of the reference's decoder strategies.  Phases
 (each prints one line or more; any failure exits non-zero before the
 last):
   1. environment: torch, the card, nvidia-smi, nvcc, g++;
@@ -147,6 +148,18 @@ last):
      gaps with no device event and the CPU-side event under each; each port
      kernel's events equal to its launches in the call; then the
      Profiler's report of the eight calls.
+  9. the decoder strategies (decompress's variant): the bit-walk and fast
+     kernels of both stream decodes against their plain versions on phase
+     3c's cases (and the input or tokens) and past a payload's end, each
+     raising on a code that matches no codeword; phase 4c's byte container
+     (backend "host") and phase 4d's HuffWord container through
+     decompress(variant=v) for v in
+     table, bitwalk and fast, each output equal to its input and the launch
+     counts, read just after each call, naming the routed kernel and no
+     other stream decode; each new kernel on the whole container against
+     its plain version and the input (tokens), timed as in phase 5, beside
+     the table kernel's time in the same call; the stream decodes'
+     registers and spills, each form and strategy.
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -154,6 +167,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import io
@@ -269,6 +283,10 @@ REPLACES = {
     "decode_streams": "glz_tpu/ops/decode.py:37",
     "decode_streams_dual": "glz_tpu/models/huffword.py:502",
     "histogram": "glz_tpu/ops/histogram.py:36",
+    "decode_streams_bitwalk": "glz_tpu/core/host_codec.py:82",
+    "decode_streams_fast": "glz_tpu/core/host_codec.py:105",
+    "decode_streams_dual_fast": "glz_tpu/models/huffword.py:546",
+    "decode_streams_dual_bitwalk": "glz_tpu/models/huffword.py:552",
 }
 # Phase 4e's members: the Silesia corpus's twelve files at their published
 # sizes in bytes, made from seeds (the real files are not in the
@@ -284,6 +302,13 @@ BYTE_KERNELS = ("lane_totals", "encode_groups", "decode_groups")
 HUFFWORD_KERNELS = ("lut_gather", "lane_totals_entries", "encode_entries", "decode_dual")
 BITSTREAM_KERNELS = ("lookup_lj_lens", "pack_scan", "pack_tiles", "decode_streams")
 HUFFWORD_BITSTREAM_KERNELS = ("lut_gather", "pack_scan", "pack_tiles", "decode_streams_dual")
+# The stream decodes' wrapper (launch counter) for each decoder strategy
+# (decode_table.cuh's kTable, kBitwalk, kFast: the kernels' last template
+# argument), byte form and dual form.
+STRATEGIES = ("table", "bitwalk", "fast")
+STREAM_DECODES = {(False, "table"): "decode_streams", (True, "table"): "decode_streams_dual",
+                  **{(dual, v): f"decode_streams{'_dual' if dual else ''}_{v}"
+                     for dual in (False, True) for v in ("bitwalk", "fast")}}
 
 
 def require(cond, msg: str) -> None:
@@ -1141,6 +1166,8 @@ def kernel_name(mangled: str) -> str:
     parts += [v for k, v in flags.items() if k in args]
     if m.group(1) == "lut_gather_kernel":
         parts = [widths[c] for c in re.findall(r"[tj]", args[1:-1])]
+    if m.group(1) == "decode_streams_sync_kernel" and len(parts) == 5:
+        parts = parts[:3] + parts[4:] + [STRATEGIES[int(parts[3])]]  # ..., form, strategy
     return m.group(1) + (f"<{','.join(parts)}>" if parts else "")
 
 
@@ -2041,7 +2068,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # work on the card's engin
 HOST_CATS = ("cpu_op", "cuda_runtime")  # CPU-side events that can cover a gap
 # The port's kernels (function names in csrc/) by the wrapper that launches
 # them, one kernel a launch; decode_streams_sync_kernel is both stream
-# decodes, <bytes> (template argument false) and <dual> (true).
+# decodes, <bytes> (template argument false) and <dual> (true), in each
+# strategy (its fifth template argument; the table where it is absent).
 WRAPPER_OF_KERNEL = {
     "lane_totals_entries_kernel": "lane_totals_entries", "lane_totals_kernel": "lane_totals",
     "encode_entries_kernel": "encode_entries", "encode_kernel": "encode_groups",
@@ -2058,8 +2086,13 @@ def wrapper_of(kernel: str) -> str | None:
     for fn, wrapper in WRAPPER_OF_KERNEL.items():
         m = re.search(rf"(?<![A-Za-z_]){fn}", kernel)
         if m:
-            if wrapper == "decode_streams" and re.match(r"ILb1E|<true", kernel[m.end():]):
-                return "decode_streams_dual"
+            if wrapper == "decode_streams":  # its template arguments, demangled or not
+                rest = kernel[m.end():]
+                listed = re.match(r"<([^>]*)>", rest)
+                args = ([a.strip() for a in listed.group(1).split(",")] if listed else
+                        re.findall(r"L[bi](\d+)E", re.match(r"(I(L[bi]\d+E)*)?", rest)[0]))
+                strategy = STRATEGIES[int(args[4])] if len(args) > 4 else "table"
+                return STREAM_DECODES[(args[:1] in (["1"], ["true"]), strategy)]
             return wrapper
     return None
 
@@ -2199,6 +2232,179 @@ def trace_phase(card: str, arr: np.ndarray, text: bytes, digests: dict[str, str]
     print("profile: phase 8's traced calls (host clock, the profiler on):\n" + prof.report(),
           flush=True)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---- 9. the decoder strategies ---------------------------------------------------
+
+def strategy(fn, variant: str, n_codes):
+    """A stream decode (or its plain version) with the strategy bound."""
+    return functools.partial(fn, variant=variant, n_codes=n_codes)
+
+
+def check_strategy_case(name: str, dev: torch.device) -> None:
+    """The bit-walk and fast kernels of the byte or dual stream decode on the
+    card against their plain versions on one case of phase 3c (the two-
+    dispatch cases in the device container's dispatches), bit-exact, and the
+    output against the input (the tokens)."""
+    if name in BITSTREAM_CASES:
+        inp = BitstreamInputs(*bitstream_case_data(name), dev)
+        if name.startswith("two_dispatch"):
+            inp.words, inp.starts = inp.dispatched(inp.S, host=False)
+        for v in STRATEGIES[1:]:
+            out = inp.decode(strategy(bd.decode_streams, v, inp.cb.symbols.size))
+            want = inp.decode(strategy(bd.decode_streams_ref, v, inp.cb.symbols.size))
+            require(max_abs_err(out, want) == 0, f"{name}: decode_streams_{v}")
+            require(np.array_equal(out.cpu().numpy(), inp.arr), f"{name}: {v} round trip")
+        return
+    inp = HuffwordBitstreamInputs(*huffword_bitstream_case(name), dev)
+    n_codes = (inp.even.symbols.size, inp.odd.symbols.size)
+    for v in STRATEGIES[1:]:
+        ranks = inp.decode(strategy(bd.decode_streams_dual, v, n_codes))
+        want = inp.decode(strategy(bd.decode_streams_dual_ref, v, n_codes))
+        require(max_abs_err(ranks, want) == 0, f"{name}: decode_streams_dual_{v}")
+        require(np.array_equal(inp.token_ids(ranks), inp.ids), f"{name}: {v} token round trip")
+
+
+def check_corrupt_streams(dev: torch.device) -> None:
+    """A stream that runs past its payload (two 1-bit codes, 90 symbols on
+    64 bits): each byte strategy kernel reads what its plain version reads
+    there (1 bits for the bit-walk).  A code that matches no codeword: a
+    one-code codebook (the 1-bit code 0) over a payload of 1 bits.  Each
+    strategy kernel, byte and dual, and its plain version raise
+    ValueError."""
+    two = build_codebook(np.bincount([5, 9], minlength=256), 32)
+    short = torch.tensor([0x0F0F0F0F, 0x12345678], dtype=torch.int32, device=dev)
+    for v in STRATEGIES[1:]:
+        got, want = (fn(short, torch.zeros(1, dtype=torch.int64, device=dev), 90, 90,
+                        *decode_tables(two, dev), 1, 1) for fn in
+                     (strategy(bd.decode_streams, v, 2), strategy(bd.decode_streams_ref, v, 2)))
+        require(max_abs_err(got, want) == 0, f"decode_streams_{v} past the payload")
+    cb = build_codebook(histogram_bytes(np.array([9], np.uint8)), 32)
+    words = torch.full((8,), -1, dtype=torch.int32, device=dev)
+    starts = torch.zeros(1, dtype=torch.int64, device=dev)
+    fc, off = hw_model._dual_tables(cb, cb, dev)
+    for v in STRATEGIES[1:]:
+        calls = {f"decode_streams{suffix}_{v}": functools.partial(
+                     strategy(fn, v, n), words, starts, 100, 128, *tables)
+                 for suffix, fn, n, tables in (
+                     ("", bd.decode_streams, 1, (*decode_tables(cb, dev), 1, 1)),
+                     ("", bd.decode_streams_ref, 1, (*decode_tables(cb, dev), 1, 1)),
+                     ("_dual", bd.decode_streams_dual, (1, 1), (fc, off, (1, 1), (1, 1))),
+                     ("_dual", bd.decode_streams_dual_ref, (1, 1), (fc, off, (1, 1), (1, 1))))}
+        for name, call in calls.items():
+            try:
+                call()
+            except ValueError as e:
+                require(str(e) == bd.NO_CODEWORD, f"{name}: raised {e!r}")
+                continue
+            require(False, f"{name}: a code that matches no codeword did not raise")
+
+
+def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob: bytes,
+                   ids: np.ndarray, dev: torch.device) -> list[dict]:
+    """Phase 9: the decoder strategies.  Each strategy kernel against its
+    plain version on phase 3c's cases and on a code that matches nothing;
+    then phase 4c's byte and phase 4d's HuffWord bitstream containers
+    through decompress(variant=v) for each strategy, each output equal to
+    its input, the launch counts read just after each call naming the
+    routed kernel and no other stream decode; then the kernels' rows: each
+    new kernel on the whole container against its plain version (and the
+    input, or the tokens), timed as phase 5 times kernels, beside the table
+    kernel's time in the same call, and their registers."""
+    t_phase = time.perf_counter()
+    cases = (*BITSTREAM_CASES, *HUFFWORD_BITSTREAM_CASES)
+    for case in cases:
+        check_strategy_case(case, dev)
+    check_corrupt_streams(dev)
+    torch.cuda.synchronize()
+    print(f"kernels: decode_streams_bitwalk, decode_streams_fast, decode_streams_dual_bitwalk, "
+          f"decode_streams_dual_fast bit-exact vs plain, round trip, on {len(cases)}/"
+          f"{len(cases)} cases ({', '.join(cases)}), and past a payload's end; each raises on "
+          f"a code that matches no codeword; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    launches = {}
+    runs = (("byte bitstream", bblob, False,
+             lambda out: np.array_equal(np.frombuffer(out, np.uint8), arr)),
+            ("HuffWord bitstream", hbblob, True, lambda out: out == text))
+    for label, blob, dual, same in runs:
+        line = []
+        for v in STRATEGIES:
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = gt.decompress(blob, variant=v)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: c for k, c in _kernels.launch_counts().items() if c}
+            require(same(out), f"{label}: decompress(variant={v!r}) != input")
+            del out
+            routed = STREAM_DECODES[(dual, v)]
+            stray = [k for k in STREAM_DECODES.values() if k != routed and k in counts]
+            require(counts.get(routed, 0) > 0 and not stray,
+                    f"{label}: decompress(variant={v!r}) launched {counts}")
+            launches[routed] = counts[routed]
+            line.append(f"{v} {ms:.1f} ms, launches {counts}")
+        print(f"strategies: {label} decompress (host clock, with checksum) on {card}: "
+              + "; ".join(line), flush=True)
+
+    f = container.read_container(bblob)
+    cb = codebook_from_lengths(container.decode_byte_codebook(f.codebook_blob))
+    words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
+    sb = f.stream_bits.astype(np.int64)
+    starts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
+    tables = decode_tables(cb, dev)
+    n = f.n_symbols
+
+    def decode(fn, v):
+        return strategy(fn, v, cb.symbols.size)(words, starts, n, f.stream_symbols, *tables,
+                                                cb.min_len, cb.max_len)
+
+    def same_as_input(out):
+        require(np.array_equal(out.cpu().numpy(), arr), "main shape: stream decode != input")
+
+    nbytes = 4 * words.numel() + 8 * starts.numel() + n + 4 * (2 * 34 + 256)
+    rows = [measure(STREAM_DECODES[(False, v)], functools.partial(decode, bd.decode_streams, v),
+                    functools.partial(decode, bd.decode_streams_ref, v), nbytes,
+                    DECODE_OPS_BASE * n, launches, card, check=same_as_input)
+            for v in STRATEGIES[1:]]
+    table_ms = spread_text(cuda_spread(functools.partial(decode, bd.decode_streams, "table")))
+    del words, starts
+
+    hf = container.read_container(hbblob)
+    word_first, cb_w, cb_n, _, _ = hw_model.huffword_state_from_blob(hf.codebook_blob)
+    even, odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
+    fc, off = hw_model._dual_tables(even, odd, dev)
+    hwords = _i32_tensor(bitio.bytes_to_words(hf.payload), dev)
+    sb = hf.stream_bits.astype(np.int64)
+    hstarts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
+    T = hf.n_symbols
+    small = max(even.symbols.size, odd.symbols.size) <= 0xFFFF
+
+    def decode_dual(fn, v):
+        return strategy(fn, v, (even.symbols.size, odd.symbols.size))(
+            hwords, hstarts, T, hf.stream_symbols, fc, off, (even.min_len, odd.min_len),
+            (even.max_len, odd.max_len))
+
+    def same_as_tokens(ranks):
+        require(np.array_equal(hw_model._ranks_to_ids(ranks, even, odd, small, T, dev), ids),
+                "huffword main shape: dual stream decode != tokens")
+
+    nbytes = 4 * hwords.numel() + 8 * hstarts.numel() + 4 * T + 4 * 4 * 34
+    rows += [measure(STREAM_DECODES[(True, v)],
+                     functools.partial(decode_dual, bd.decode_streams_dual, v),
+                     functools.partial(decode_dual, bd.decode_streams_dual_ref, v), nbytes,
+                     DECODE_OPS_BASE * T, launches, card, check=same_as_tokens)
+             for v in STRATEGIES[1:]]
+    dual_ms = spread_text(cuda_spread(functools.partial(decode_dual, bd.decode_streams_dual,
+                                                        "table")))
+    print(f"time: the table kernels in the same call: decode_streams {table_ms}; "
+          f"decode_streams_dual {dual_ms} on {card}", flush=True)
+    regs = [line for line in ptxas_summary(_kernels.build_log())
+            if line.startswith("decode_streams_sync_kernel")]
+    print(f"registers (ptxas -v) of the stream decodes, each form and strategy: "
+          f"{'; '.join(regs)}", flush=True)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -2493,6 +2699,9 @@ def main() -> int:
 
     # ---- 8. device traces of the four main paths, each direction apart
     trace_phase(card, arr, hw_text, digests)
+
+    # ---- 9. the decoder strategies on the bitstream paths
+    rows += strategy_phase(card, arr, bblob, hw_text, hbblob, vocabs[5], dev)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

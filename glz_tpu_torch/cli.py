@@ -419,7 +419,13 @@ def main(argv=None) -> int:
     d.add_argument("outfile", nargs="?")
     d.add_argument("--backend", default="host", choices=["host", "device"])
     d.add_argument("--decoder", default="table",
-                   choices=["table", "fast", "bitwalk", "device"])
+                   choices=["table", "fast", "bitwalk", "device"],
+                   help="decoder strategy of a bitstream container, each a kernel on the "
+                        "card (the CPU under GLZ_PLATFORM=cpu): table (a table of the "
+                        "code's first bits), fast (a 32-bit window scanned up from the "
+                        "shortest code), bitwalk (one bit at a time), device (the table); "
+                        "byte mode takes fast and bitwalk only with --backend host, as "
+                        "glz_tpu does")
     d.set_defaults(fn=cmd_decompress)
 
     a = sub.add_parser("archive")

@@ -8,9 +8,10 @@ host codec, as in glz_tpu).  `backend` picks the container as glz_tpu's
 does: "host" (the default) writes the host encoder's byte container (one
 bit stream, payload bytes up to the last code bit), "device" the device
 path's (word-aligned dispatches), and a HuffWord "device" request writes a
-lockstep container.  Every backend runs on the card; device='cpu' runs the
-kernels' plain versions.  Every entry point passes `device` down to each
-call it makes.
+lockstep container.  decompress's `variant` picks the decoder strategy
+as glz_tpu's does (see decompress).  Every backend and strategy runs on
+the card; device='cpu' runs the kernels' plain versions.  Every entry
+point passes `device` down to each call it makes.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container
 
 BACKENDS = ("host", "device")
-VARIANTS = (cfg.DECODER_BITWALK, cfg.DECODER_FAST, cfg.DECODER_TABLE, cfg.DECODER_DEVICE)
 
 
 def check_backend(backend: str) -> None:
@@ -92,21 +92,29 @@ def compress(data: bytes, mode: int = cfg.MODE_BYTE, backend: str = "host",
 
 def decompress(blob: bytes, backend: str = "host", variant: str = cfg.DECODER_TABLE,
                device=None) -> bytes:
-    """Decompress a .glz container (mode and layout are self-describing).
-    Every backend and decoder variant decodes on the card (device=None)
-    with the same output bytes; they are taken for glz_tpu's signature."""
+    """Decompress a .glz container (mode and layout are self-describing),
+    with the decoder strategy glz_tpu.decompress runs for the same
+    arguments, each a kernel on the card (device=None):
+
+      byte bitstream     backend "device" or variant "device": the table;
+                         else variant "table", "fast" or "bitwalk", and any
+                         other raises ValueError (once there is a symbol)
+      HuffWord bitstream variant "fast" or "bitwalk"; any other the table
+      lockstep, normal tree   the one decoder, whatever the variant
+
+    Every strategy gives the same bytes for a valid container."""
     from glz_tpu_torch.models.canonical_byte import decompress_bytes_device, resolve_device
     from glz_tpu_torch.models.huffword import decompress_huffword
 
     check_backend(backend)
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     resolve_device(device)
     f = container.read_container(blob)
     if f.mode == cfg.MODE_HUFFWORD:
-        return decompress_huffword(blob, device=device)
+        return decompress_huffword(blob, device=device, variant=variant)
     if f.mode == cfg.MODE_BYTE:
-        return decompress_bytes_device(blob, device=device)
+        if backend == "device" or variant == cfg.DECODER_DEVICE:
+            variant = cfg.DECODER_TABLE
+        return decompress_bytes_device(blob, device=device, variant=variant)
     if f.mode == cfg.MODE_NORMAL_TREE:
         from glz_tpu_torch.models.normal_tree import decompress_normal_tree
         return decompress_normal_tree(blob, device=device)

@@ -4,12 +4,18 @@
 //                                   glz_tpu/ops/encode.py:lookup_lj_lens calls it
 //      pack_scan_kernel,         <- the XLA cumsum and scatter of
 //      pack_tiles_kernel            glz_tpu/ops/encode.py:pack_lj
-//      decode_streams_sync_kernel<false, ...>
+//      decode_streams_sync_kernel<false, ..., kTable>
 //                                <- the XLA loop of glz_tpu/ops/decode.py:decode_block
 //                                   (byte mode)
-//      decode_streams_sync_kernel<true, ...>
+//      decode_streams_sync_kernel<true, ..., kTable>
 //                                <- the host dual-dictionary decode of
 //                                   glz_tpu/models/huffword.py (HuffWord)
+//      decode_streams_sync_kernel<false, ..., kBitwalk | kFast>
+//                                <- glz_tpu/core/host_codec.py:decode_stream_bitwalk,
+//                                   decode_stream_fast (byte mode)
+//      decode_streams_sync_kernel<true, ..., kBitwalk | kFast>
+//                                <- the bitwalk and fast branches of
+//                                   glz_tpu/models/huffword.py:_decode_tokens_host
 //
 // A layout-0 payload is one MSB-first bit stream in u32 words (word w holds
 // stream bits [32w, 32w + 32)); stream k holds symbols [k*S, (k+1)*S) and
@@ -82,21 +88,25 @@ __global__ void __launch_bounds__(kLookupThreads) lookup_lj_lens_kernel(
 // A reader of the payload's bits from any bit position.  A 64-bit buffer
 // holds the next 32..64 bits left-justified, and its top half is the 32-bit
 // window; below 32 bits it takes the next word, loaded one refill ahead so
-// its latency overlaps ~32/len codes.  Words past the payload read 0.  (A
-// reader that double-buffers 16-byte chunks, to give each load ~29 codes,
-// spilled registers at 256 threads x 4 blocks and ran slower, PERF.md.)
+// its latency overlaps ~32/len codes.  Words past the payload read `fill`
+// (0; all ones for the byte bit-walk, whose reference reads 1 bits past
+// its payload's bytes).  (A reader that double-buffers 16-byte chunks, to
+// give each load ~29 codes, spilled registers at 256 threads x 4 blocks and
+// ran slower, PERF.md.)
 struct BitReader {
   const uint32_t* words;
   int64_t n_words, wpos;
   uint64_t buf;
   int nbits;
   uint32_t next;
+  uint32_t fill;
 
   __device__ __forceinline__ uint32_t load(int64_t i) const {
-    return (i >= 0 && i < n_words) ? __ldg(words + i) : 0u;
+    return (i >= 0 && i < n_words) ? __ldg(words + i) : fill;
   }
-  __device__ __forceinline__ BitReader(const uint32_t* w, int64_t n, int64_t pos)
-      : words(w), n_words(n), wpos(pos >> 5) {
+  __device__ __forceinline__ BitReader(const uint32_t* w, int64_t n, int64_t pos,
+                                       uint32_t fill_word)
+      : words(w), n_words(n), wpos(pos >> 5), fill(fill_word) {
     const uint32_t phase = static_cast<uint32_t>(pos) & 31u;
     buf = ((static_cast<uint64_t>(load(wpos)) << 32) | load(wpos + 1)) << phase;
     nbits = 64 - static_cast<int>(phase);
@@ -125,6 +135,16 @@ struct BitReader {
 //   kDual = true   HuffWord, two codebooks alternating by token parity:
 //                  token j of stream k scans codebook (k*S + j) & 1 (set 0
 //                  is the even tokens'), and the output is the u32 rank
+// and for each of the reference's three strategies (kStrategy): kTable
+// takes each code from decode tables each block builds in shared memory;
+// kBitwalk and kFast build none and run decode_table.cuh's decode_bitwalk
+// and decode_fast on the codebook alone.  Those two also check each code of
+// the write (step 3): one that matches no codeword sets *err, which the
+// wrapper turns into an error (a guess may start anywhere, so its codes are
+// not checked).  They compute the table's function on the same bytes, so
+// share its bound; what holds them above it is each code's chain of
+// dependent shared-memory loads, one a level scanned or a bit walked
+// (PERF.md), where the table takes one probe.
 // A decoder's state is its bit position and, in the dual form, its next
 // token's parity (state = window-relative position << 1 | parity; the byte
 // form's parity is always 0).  Stream k's bits are [starts[k], starts[k+1])
@@ -337,20 +357,59 @@ __global__ void __launch_bounds__(kPackThreads) pack_tiles_kernel(
   }
 }
 
-// One code of either form at the window v, in parity par: its length, and
-// its output (symbol or rank) in *out; the advance a guess or a round takes
-// for it (at least one bit in the dual form).
-__device__ __forceinline__ uint32_t decode_code(const glz::DecodeTable& t, const uint8_t*,
-                                                uint32_t v, int, uint32_t* out) {
-  return glz::decode_one(t, v, out);
+// The decode's tables for each form and strategy, and what sets them apart.
+template <bool kDual, int kStrategy>
+using TableOf = std::conditional_t<
+    kStrategy == glz::kTable, std::conditional_t<kDual, glz::DualTable, glz::DecodeTable>,
+    std::conditional_t<kDual, glz::DualCanon<kStrategy>, glz::ByteCanon<kStrategy>>>;
+
+template <class Table>
+constexpr bool kIsDual = false;
+template <>
+constexpr bool kIsDual<glz::DualTable> = true;
+template <int kStrategy>
+constexpr bool kIsDual<glz::DualCanon<kStrategy>> = true;
+
+// The word a reader sees past the payload: all ones for the byte bit-walk.
+template <class Table>
+constexpr uint32_t kFill = 0u;
+template <>
+constexpr uint32_t kFill<glz::ByteCanon<glz::kBitwalk>> = 0xFFFFFFFFu;
+
+// One code of either form and strategy at the window v, in parity par: its
+// length, its output (symbol or rank) and whether it matches no codeword
+// (never, for the tables); the advance a guess or a round takes for it (at
+// least one bit in the dual form).
+__device__ __forceinline__ glz::Code decode_code(const glz::DecodeTable& t, const uint8_t*,
+                                                 uint32_t v, int) {
+  uint32_t sym;
+  const uint32_t ln = glz::decode_one(t, v, &sym);
+  return {ln, sym, false};
 }
 
-__device__ __forceinline__ uint32_t decode_code(const glz::DualTable& t, const uint8_t* lut,
-                                                uint32_t v, int par, uint32_t* out) {
-  return glz::decode_dual(t, lut, v, par, out);
+__device__ __forceinline__ glz::Code decode_code(const glz::DualTable& t, const uint8_t* lut,
+                                                 uint32_t v, int par) {
+  uint32_t rank;
+  const uint32_t ln = glz::decode_dual(t, lut, v, par, &rank);
+  return {ln, rank, false};
 }
 
-__device__ __forceinline__ uint32_t advance(const glz::DecodeTable&, uint32_t ln) { return ln; }
+template <int kStrategy>
+__device__ __forceinline__ glz::Code decode_code(const glz::ByteCanon<kStrategy>& t,
+                                                 const uint8_t*, uint32_t v, int) {
+  glz::Code c = glz::decode_untabled<kStrategy>(t.c, t.n_codes, v);
+  c.out = t.symtab[c.out & 255u];
+  return c;
+}
+
+template <int kStrategy>
+__device__ __forceinline__ glz::Code decode_code(const glz::DualCanon<kStrategy>& t,
+                                                 const uint8_t*, uint32_t v, int par) {
+  return glz::decode_untabled<kStrategy>(t.c[par], t.n_codes[par], v);
+}
+
+template <class Table>
+__device__ __forceinline__ uint32_t advance(const Table&, uint32_t ln) { return ln; }
 __device__ __forceinline__ uint32_t advance(const glz::DualTable&, uint32_t ln) {
   return ln ? ln : 1u;
 }
@@ -362,15 +421,14 @@ __device__ __forceinline__ int64_t decode_span(const Table& t, const uint8_t* lu
                                                const uint32_t* __restrict__ words,
                                                int64_t n_words, int64_t* pos, int* par,
                                                int64_t end) {
-  BitReader r(words, n_words, *pos);
+  BitReader r(words, n_words, *pos, kFill<Table>);
   int64_t p = *pos, n = 0;
   int q = *par;
   while (p < end) {
-    uint32_t out;
-    const uint32_t ln = advance(t, decode_code(t, lut, r.window(), q, &out));
+    const uint32_t ln = advance(t, decode_code(t, lut, r.window(), q).len);
     r.skip(ln);
     p += ln;
-    if constexpr (std::is_same_v<Table, glz::DualTable>) q ^= 1;
+    if constexpr (kIsDual<Table>) q ^= 1;
     ++n;
   }
   *pos = p;
@@ -401,19 +459,26 @@ __device__ __forceinline__ void store_piece_part(uint8_t* __restrict__ out, int6
 // with its neighbours, go out in words and bytes).  The loop starts at the
 // 16-byte boundary at or below g0 and decodes from g0 on, so every thread
 // of a warp is at the same place in its piece on every step: the word and
-// piece boundaries fall on the same steps for all of them.
-__device__ __forceinline__ void write_run(const glz::DecodeTable& t, const uint8_t*,
+// piece boundaries fall on the same steps for all of them.  A code that
+// matches no codeword sets *err.
+template <class Table, std::enable_if_t<!kIsDual<Table>, int> = 0>
+__device__ __forceinline__ void write_run(const Table& t, const uint8_t* lut,
                                           const uint32_t* __restrict__ words, int64_t n_words,
                                           int64_t pos, int, int64_t c, void* out_v,
-                                          int64_t g0) {
+                                          int64_t g0, int* __restrict__ err) {
   uint8_t* __restrict__ out = static_cast<uint8_t*>(out_v);
-  BitReader r(words, n_words, pos);
+  BitReader r(words, n_words, pos, kFill<Table>);
   const int64_t g_end = g0 + c;
   uint32_t acc = 0u, q0 = 0u, q1 = 0u, q2 = 0u;  // the word being filled; the piece's words
   int64_t g = g0 & ~int64_t{15};
   for (; g < g_end; ++g) {
     uint32_t sym = 0u;
-    if (g >= g0) r.skip(glz::decode_one(t, r.window(), &sym));
+    if (g >= g0) {
+      const glz::Code k = decode_code(t, lut, r.window(), 0);
+      r.skip(k.len);
+      sym = k.out;
+      if (k.bad) *err = 1;
+    }
     acc |= sym << (8 * (g & 3));
     if ((g & 3) == 3) {
       if ((g & 15) == 15) {
@@ -443,19 +508,23 @@ __device__ __forceinline__ void write_run(const glz::DecodeTable& t, const uint8
 // out[g0, g0 + c), four ranks to a 16-byte store on 16-byte boundaries
 // (the pieces at the run's ends go out in u32 stores).  The loop starts at
 // the piece boundary at or below g0, as write_run's does.
-__device__ __forceinline__ void write_run(const glz::DualTable& t, const uint8_t* lut,
+template <class Table, std::enable_if_t<kIsDual<Table>, int> = 0>
+__device__ __forceinline__ void write_run(const Table& t, const uint8_t* lut,
                                           const uint32_t* __restrict__ words, int64_t n_words,
                                           int64_t pos, int par, int64_t c, void* out_v,
-                                          int64_t g0) {
+                                          int64_t g0, int* __restrict__ err) {
   uint32_t* __restrict__ out = static_cast<uint32_t*>(out_v);
-  BitReader r(words, n_words, pos);
+  BitReader r(words, n_words, pos, kFill<Table>);
   const int64_t g_end = g0 + c;
   uint32_t q0 = 0u, q1 = 0u, q2 = 0u;  // the piece's ranks so far
   int64_t g = g0 & ~int64_t{3};
   for (; g < g_end; ++g) {
     uint32_t rank = 0u;
     if (g >= g0) {
-      r.skip(glz::decode_dual(t, lut, r.window(), par, &rank));
+      const glz::Code k = decode_code(t, lut, r.window(), par);
+      r.skip(k.len);
+      rank = k.out;
+      if (k.bad) *err = 1;
       par ^= 1;
     }
     if ((g & 3) == 3) {
@@ -479,22 +548,58 @@ __device__ __forceinline__ void write_run(const glz::DualTable& t, const uint8_t
 }
 
 // The decode's codebooks: fc_lj / offsets ([2][34] u32 in the dual form,
-// set 0 for even tokens), the byte form's symtab, each set's length range.
+// set 0 for even tokens), the byte form's symtab, each set's length range
+// and (for the strategies without a table) its count of codes.
 struct Codebooks {
   const uint32_t* fc;
   const uint32_t* offs;
   const uint32_t* symtab;
   int min_len[2], max_len[2];
   int table_bits;
+  uint32_t n_codes[2];
 };
 
-template <bool kDual, int kThreads, int kSubs, int kMinBlocks>
+// All threads of the block; each builds its tables (or loads its
+// codebooks) and synchronises.
+__device__ __forceinline__ void build(glz::DecodeTable& t, uint8_t*, const Codebooks& cbs) {
+  glz::build_decode_table(t, cbs.table_bits, cbs.fc, cbs.offs, cbs.symtab, cbs.min_len[0],
+                          cbs.max_len[0]);
+}
+
+__device__ __forceinline__ void build(glz::DualTable& t, uint8_t* lut, const Codebooks& cbs) {
+  glz::build_dual_table(t, lut, cbs.table_bits, cbs.fc, cbs.offs, cbs.min_len[0],
+                        cbs.max_len[0], cbs.min_len[1], cbs.max_len[1]);
+}
+
+template <int kStrategy>
+__device__ __forceinline__ void build(glz::ByteCanon<kStrategy>& t, uint8_t*,
+                                      const Codebooks& cbs) {
+  glz::load_canon(t.c, cbs.fc, cbs.offs, cbs.min_len[0], cbs.max_len[0]);
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) t.symtab[i] = cbs.symtab[i];
+  if (threadIdx.x == 0) t.n_codes = cbs.n_codes[0];
+  __syncthreads();
+}
+
+template <int kStrategy>
+__device__ __forceinline__ void build(glz::DualCanon<kStrategy>& t, uint8_t*,
+                                      const Codebooks& cbs) {
+  for (int p = 0; p < 2; ++p)
+    glz::load_canon(t.c[p], cbs.fc + p * glz::kCodeLevels, cbs.offs + p * glz::kCodeLevels,
+                    cbs.min_len[p], cbs.max_len[p]);
+  if (threadIdx.x == 0) {
+    t.n_codes[0] = cbs.n_codes[0];
+    t.n_codes[1] = cbs.n_codes[1];
+  }
+  __syncthreads();
+}
+
+template <bool kDual, int kThreads, int kSubs, int kMinBlocks, int kStrategy>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) decode_streams_sync_kernel(
     const uint32_t* __restrict__ words, int64_t n_words,
     const int64_t* __restrict__ starts, int64_t n_streams, int64_t n_symbols, int64_t S,
-    const Codebooks cbs, int T, void* __restrict__ out) {
+    const Codebooks cbs, int T, void* __restrict__ out, int* __restrict__ err) {
   constexpr int kWindowSubs = kThreads * kSubs;
-  using Table = std::conditional_t<kDual, glz::DualTable, glz::DecodeTable>;
+  using Table = TableOf<kDual, kStrategy>;
   __shared__ Table tbl;
   extern __shared__ uint8_t dual_lut[];     // the dual tables' entries
   __shared__ uint32_t exit_s[kWindowSubs];  // window-relative exit state; then first index
@@ -502,12 +607,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decode_streams_sync_kern
   __shared__ uint16_t cnt_s[kWindowSubs];
   __shared__ uint16_t tail_s[kWindowSubs];  // the guess's codes from its meeting point on
   __shared__ int warp_tot[kThreads / 32];
-  if constexpr (kDual)
-    glz::build_dual_table(tbl, dual_lut, cbs.table_bits, cbs.fc, cbs.offs, cbs.min_len[0],
-                          cbs.max_len[0], cbs.min_len[1], cbs.max_len[1]);
-  else
-    glz::build_decode_table(tbl, cbs.table_bits, cbs.fc, cbs.offs, cbs.symtab, cbs.min_len[0],
-                            cbs.max_len[0]);
+  build(tbl, dual_lut, cbs);
   constexpr int64_t kNoEnd = INT64_MAX;
 
   for (int64_t k = blockIdx.x; k < n_streams; k += gridDim.x) {
@@ -622,7 +722,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decode_streams_sync_kern
           const int64_t c = i < bounded && cnt_s[i] < count - f ? cnt_s[i] : count - f;
           if (c > 0)
             write_run(tbl, dual_lut, words, n_words, base + (st[j] >> 1),
-                      static_cast<int>(st[j] & 1), c, out, first_sym + f);
+                      static_cast<int>(st[j] & 1), c, out, first_sym + f, err);
         }
       }
       done += total;
@@ -651,6 +751,43 @@ bool bad_geometry(long long n_streams, long long S, long long n_symbols) {
 
 // A subsequence's bits: a multiple of 32 whose count of codes fits a u16.
 bool bad_subsequence(int T) { return T < 32 || T % 32 != 0 || T > 65504; }
+
+bool bad_range(int lo, int hi, bool empty_ok) {
+  return !((empty_ok && lo == 0 && hi == 0) || (1 <= lo && lo <= hi && hi <= kCodeTable - 2));
+}
+
+template <int kStrategy>
+int launch_bytes(const void* words, long long n_words, const void* starts, long long n_streams,
+                 long long n_symbols, long long S, const Codebooks& cbs, int T, void* out,
+                 int* err, void* stream) {
+  const unsigned grid = static_cast<unsigned>(n_streams < (1 << 20) ? n_streams : (1 << 20));
+  decode_streams_sync_kernel<false, kSyncThreads, kSyncSubs, 4, kStrategy>
+      <<<grid, kSyncThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(words), n_words, static_cast<const int64_t*>(starts),
+          n_streams, n_symbols, S, cbs, T, out, err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// smem: the dual tables' bytes (0 for the strategies without a table).
+template <int kStrategy>
+int launch_dual(const void* words, long long n_words, const void* starts, long long n_streams,
+                long long n_symbols, long long S, const Codebooks& cbs, int T, void* out,
+                int* err, size_t smem, void* stream) {
+  auto kernel = decode_streams_sync_kernel<true, kDualThreads, kDualSubs, 8, kStrategy>;
+  // as many blocks as fit on the card at once, each walking the streams
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDualThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(n_streams < resident ? n_streams : resident);
+  kernel<<<grid, kDualThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), n_words, static_cast<const int64_t*>(starts),
+      n_streams, n_symbols, S, cbs, T, out, err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -704,19 +841,39 @@ int glz_decode_streams(const void* words, long long n_words, const void* starts,
                        long long n_streams, long long n_symbols, long long S, int table_bits,
                        const void* fc, const void* offsets, const void* symtab, int min_len,
                        int max_len, int T, void* out, void* stream) {
-  if (bad_geometry(n_streams, S, n_symbols) ||
-      !(1 <= min_len && min_len <= max_len && max_len <= kCodeTable - 2) ||
+  if (bad_geometry(n_streams, S, n_symbols) || bad_range(min_len, max_len, false) ||
       !(1 <= table_bits && table_bits <= glz::kMaxTableBits) || bad_subsequence(T))
     return static_cast<int>(cudaErrorInvalidValue);
   const Codebooks cbs{static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets),
                       static_cast<const uint32_t*>(symtab), {min_len, 0}, {max_len, 0},
-                      table_bits};
-  const unsigned grid = static_cast<unsigned>(n_streams < (1 << 20) ? n_streams : (1 << 20));
-  decode_streams_sync_kernel<false, kSyncThreads, kSyncSubs, 4>
-      <<<grid, kSyncThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint32_t*>(words), n_words, static_cast<const int64_t*>(starts),
-          n_streams, n_symbols, S, cbs, T, out);
-  return static_cast<int>(cudaGetLastError());
+                      table_bits, {0u, 0u}};
+  return launch_bytes<glz::kTable>(words, n_words, starts, n_streams, n_symbols, S, cbs, T, out,
+                                   nullptr, stream);
+}
+
+// The byte decode without a table: strategy 1 (the bit-walk) or 2 (the fast
+// scan), n_codes the codebook's symbols (at most 256), the rest as for
+// glz_decode_streams.  err: one int32, zeroed by the caller; set to 1 where
+// a code of the output matches no codeword.
+int glz_decode_streams_strategy(int strategy, const void* words, long long n_words,
+                                const void* starts, long long n_streams, long long n_symbols,
+                                long long S, const void* fc, const void* offsets,
+                                const void* symtab, int min_len, int max_len, int n_codes,
+                                int T, void* err, void* out, void* stream) {
+  if (bad_geometry(n_streams, S, n_symbols) || bad_range(min_len, max_len, false) ||
+      n_codes < 0 || n_codes > 256 || bad_subsequence(T) || err == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Codebooks cbs{static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets),
+                      static_cast<const uint32_t*>(symtab), {min_len, 0}, {max_len, 0}, 0,
+                      {static_cast<uint32_t>(n_codes), 0u}};
+  int* e = static_cast<int*>(err);
+  if (strategy == glz::kBitwalk)
+    return launch_bytes<glz::kBitwalk>(words, n_words, starts, n_streams, n_symbols, S, cbs, T,
+                                       out, e, stream);
+  if (strategy == glz::kFast)
+    return launch_bytes<glz::kFast>(words, n_words, starts, n_streams, n_symbols, S, cbs, T,
+                                    out, e, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // fc, offsets: [2][34] u32, set 0 for even tokens.  A codebook's length range
@@ -727,31 +884,45 @@ int glz_decode_streams_dual(const void* words, long long n_words, const void* st
                             long long n_streams, long long n_symbols, long long S,
                             int table_bits, const void* fc, const void* offsets, int min0,
                             int max0, int min1, int max1, int T, void* out, void* stream) {
-  auto bad_range = [](int lo, int hi) {
-    return !((lo == 0 && hi == 0) || (1 <= lo && lo <= hi && hi <= kCodeTable - 2));
-  };
-  if (bad_geometry(n_streams, S, n_symbols) || bad_range(min0, max0) || bad_range(min1, max1) ||
+  if (bad_geometry(n_streams, S, n_symbols) || bad_range(min0, max0, true) ||
+      bad_range(min1, max1, true) ||
       !(1 <= table_bits && table_bits <= glz::kMaxDualTableBits) || bad_subsequence(T) ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Codebooks cbs{static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets),
-                      nullptr, {min0, min1}, {max0, max1}, table_bits};
+                      nullptr, {min0, min1}, {max0, max1}, table_bits, {0u, 0u}};
   const size_t smem = (size_t{1} << glz::dual_bits(table_bits, max0)) +
                       (size_t{1} << glz::dual_bits(table_bits, max1));
-  auto kernel = decode_streams_sync_kernel<true, kDualThreads, kDualSubs, 8>;
-  // as many blocks as fit on the card at once, each walking the streams
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDualThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid = static_cast<unsigned>(n_streams < resident ? n_streams : resident);
-  kernel<<<grid, kDualThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words, static_cast<const int64_t*>(starts),
-      n_streams, n_symbols, S, cbs, T, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dual<glz::kTable>(words, n_words, starts, n_streams, n_symbols, S, cbs, T, out,
+                                  nullptr, smem, stream);
+}
+
+// The dual decode without a table: strategy 1 (the bit-walk) or 2 (the fast
+// scan); n0, n1 each codebook's codes (0 for an empty dictionary), below
+// 2^32; err as for glz_decode_streams_strategy; the rest as for
+// glz_decode_streams_dual.
+int glz_decode_streams_dual_strategy(int strategy, const void* words, long long n_words,
+                                     const void* starts, long long n_streams,
+                                     long long n_symbols, long long S, const void* fc,
+                                     const void* offsets, int min0, int max0, int min1,
+                                     int max1, long long n0, long long n1, int T, void* err,
+                                     void* out, void* stream) {
+  if (bad_geometry(n_streams, S, n_symbols) || bad_range(min0, max0, true) ||
+      bad_range(min1, max1, true) || n0 < 0 || n1 < 0 || n0 > 0xFFFFFFFFll ||
+      n1 > 0xFFFFFFFFll || bad_subsequence(T) || err == nullptr ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Codebooks cbs{static_cast<const uint32_t*>(fc), static_cast<const uint32_t*>(offsets),
+                      nullptr, {min0, min1}, {max0, max1}, 0,
+                      {static_cast<uint32_t>(n0), static_cast<uint32_t>(n1)}};
+  int* e = static_cast<int*>(err);
+  if (strategy == glz::kBitwalk)
+    return launch_dual<glz::kBitwalk>(words, n_words, starts, n_streams, n_symbols, S, cbs, T,
+                                      out, e, 0, stream);
+  if (strategy == glz::kFast)
+    return launch_dual<glz::kFast>(words, n_words, starts, n_streams, n_symbols, S, cbs, T, out,
+                                   e, 0, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

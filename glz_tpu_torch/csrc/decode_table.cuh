@@ -213,4 +213,79 @@ __device__ __forceinline__ uint32_t decode_dual(const DualTable& t, const uint8_
   return ln;
 }
 
+// ---- the reference's two decoders without a table ----------------------------
+//
+// The stream decodes' other strategies, as glz_tpu's host decoders run them
+// (glz_tpu/core/host_codec.py, glz_tpu/models/huffword.py:_decode_tokens_host),
+// each a step over the Canon alone:
+//
+//   decode_bitwalk  CanonicalHuffDecoder (canonical_huff_encoder.cc:377-419):
+//                   v = v << 1 | bit, one bit of the window at a time, until
+//                   the first len in [min_len, max_len] with v >= first_code[len]
+//                   (= fc[len] >> (32 - len) for every codebook of Kraft sum
+//                   <= 1, the only ones an encoder writes)
+//   decode_fast     FastCanonicalHuffDecoder (cc:422-461): len from min_len up
+//                   while the window is below fc[len]
+//
+// Both give the rank (v >> (32 - len)) + offs[len], the index into the
+// codebook's symbols, and flag a code that matches nothing: no len in
+// [min_len, max_len] (fc is 0 past max_len, so the fast scan stops there
+// anyway), or a rank not below the codebook's n_codes, where glz_tpu's
+// decoders index past their symbols.  A flagged code's length is max_len
+// (at least 1), so a guess that meets one moves on.
+constexpr int kTable = 0;    // a stream decode's strategies
+constexpr int kBitwalk = 1;
+constexpr int kFast = 2;
+
+// One decoded code: its length, its output (a rank, or a byte decode's
+// symbol) and whether it matches no codeword.
+struct Code {
+  uint32_t len, out;
+  bool bad;
+};
+
+__device__ __forceinline__ Code checked(const Canon& c, uint32_t n_codes, uint32_t v,
+                                        int len) {
+  if (len > c.max_len) return {c.max_len > 0 ? static_cast<uint32_t>(c.max_len) : 1u, 0u, true};
+  const uint32_t rank = (v >> ((32 - len) & 31)) + c.offs[len];
+  return {static_cast<uint32_t>(len), rank, rank >= n_codes};
+}
+
+__device__ __forceinline__ Code decode_bitwalk(const Canon& c, uint32_t n_codes, uint32_t w) {
+  uint32_t v = 0u;
+  int len = 1;
+  for (; len <= c.max_len; ++len) {
+    v = v << 1 | ((w >> (32 - len)) & 1u);
+    if (len >= c.min_len && v >= c.fc[len] >> ((32 - len) & 31)) break;
+  }
+  return checked(c, n_codes, w, len);
+}
+
+__device__ __forceinline__ Code decode_fast(const Canon& c, uint32_t n_codes, uint32_t v) {
+  int len = c.min_len > 0 ? c.min_len : 1;
+  while (len <= c.max_len && v < c.fc[len]) ++len;
+  return checked(c, n_codes, v, len);
+}
+
+template <int kStrategy>
+__device__ __forceinline__ Code decode_untabled(const Canon& c, uint32_t n_codes, uint32_t v) {
+  static_assert(kStrategy == kBitwalk || kStrategy == kFast, "a strategy without a table");
+  return kStrategy == kBitwalk ? decode_bitwalk(c, n_codes, v) : decode_fast(c, n_codes, v);
+}
+
+// The codebooks of the strategies without a table: byte mode's one (with
+// its symbols) and the dual form's pair (set 0 for even tokens).
+template <int kStrategy>
+struct ByteCanon {
+  Canon c;
+  uint32_t n_codes;
+  uint32_t symtab[256];
+};
+
+template <int kStrategy>
+struct DualCanon {
+  Canon c[2];
+  uint32_t n_codes[2];
+};
+
 }  // namespace glz

@@ -323,10 +323,13 @@ def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFA
     return container.write_container(f)
 
 
-def decompress_bytes_device(blob: bytes, device=None) -> bytes:
+def decompress_bytes_device(blob: bytes, device=None, variant: str = cfg.DECODER_TABLE) -> bytes:
     """Decode a byte-mode container: layout 0 (written by either package,
     word-aligned dispatches or the host encoder's byte-aligned payload) with
-    the stream decode kernel, layout 2 with decompress_bytes_lockstep."""
+    the stream decode kernel of the decoder strategy `variant` ("table",
+    "fast" or "bitwalk"; any other raises ValueError, as glz_tpu's host
+    decode does, once there is a symbol to decode), layout 2 with
+    decompress_bytes_lockstep (which takes no variant)."""
     f = container.read_container(blob)
     if f.mode != cfg.MODE_BYTE:
         raise ValueError("not a byte-mode container")
@@ -345,5 +348,6 @@ def decompress_bytes_device(blob: bytes, device=None) -> bytes:
     starts = np.cumsum(sbits) - sbits
     out = decode_streams(_i32_tensor(bitio.bytes_to_words(f.payload), dev),
                          torch.from_numpy(starts).to(dev), f.n_symbols, S,
-                         *decode_tables(cb, dev), cb.min_len, cb.max_len)
+                         *decode_tables(cb, dev), cb.min_len, cb.max_len, variant=variant,
+                         n_codes=cb.symbols.size)
     return _verify(out.cpu().numpy().tobytes(), f)

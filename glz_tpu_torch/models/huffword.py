@@ -410,11 +410,13 @@ def _dual_tables(cb_even: Codebook, cb_odd: Codebook, dev: torch.device):
     return _i32_tensor(fc, dev), _i32_tensor(offsets, dev)
 
 
-def _decompress_huffword_device(f: container.GlzFile, device=None):
+def _decompress_huffword_device(f: container.GlzFile, device=None,
+                                variant: str = cfg.DECODER_TABLE):
     """Decode a HuffWord container's tokens on the card: the lockstep dual
-    decode (K5) or the bitstream dual stream decode, then K6.  Returns (ids
-    np.int64 [T], word_first, word_vocab, nonword_vocab); detokenizing
-    happens upstream."""
+    decode (K5) or the bitstream dual stream decode of the decoder strategy
+    `variant` ("bitwalk" or "fast"; any other string the table, as glz_tpu
+    takes it), then K6.  Returns (ids np.int64 [T], word_first, word_vocab,
+    nonword_vocab); detokenizing happens upstream."""
     dev = resolve_device(device)
     word_first, cb_w, cb_n, wv, nv = huffword_state_from_blob(f.codebook_blob)
     # dictionary of token i: the first one when (i even) == word_first
@@ -440,20 +442,24 @@ def _decompress_huffword_device(f: container.GlzFile, device=None):
             raise ValueError("corrupt .glz container: stream table too short")
         sbits = f.stream_bits.astype(np.int64)
         starts = torch.from_numpy(np.cumsum(sbits) - sbits).to(dev)
+        strategy = variant if variant in (cfg.DECODER_BITWALK, cfg.DECODER_FAST) \
+            else cfg.DECODER_TABLE
         ranks = decode_streams_dual(_i32_tensor(bitio.bytes_to_words(f.payload), dev),
-                                    starts, T, S, fc, offsets, *lens)
+                                    starts, T, S, fc, offsets, *lens, variant=strategy,
+                                    n_codes=(cb_even.symbols.size, cb_odd.symbols.size))
     small = max(wv.n, nv.n) <= 0xFFFF
     return _ranks_to_ids(ranks, cb_even, cb_odd, small, T, dev), word_first, wv, nv
 
 
-def decompress_huffword(blob: bytes, device=None) -> bytes:
+def decompress_huffword(blob: bytes, device=None, variant: str = cfg.DECODER_TABLE) -> bytes:
     """Decode a HuffWord container of either layout (on the card, then
-    detokenize on the host)."""
+    detokenize on the host); `variant` picks a bitstream container's
+    decoder strategy (see _decompress_huffword_device)."""
     f = container.read_container(blob)
     if f.mode != cfg.MODE_HUFFWORD:
         raise ValueError("not a huffword container")
     dev = resolve_device(device)
     if f.n_symbols == 0:
         return b"" if f.layout == container.LAYOUT_LOCKSTEP else _verify(b"", f)
-    ids, word_first, wv, nv = _decompress_huffword_device(f, dev)
+    ids, word_first, wv, nv = _decompress_huffword_device(f, dev, variant)
     return _verify(tok.detokenize(ids, word_first, wv, nv), f)

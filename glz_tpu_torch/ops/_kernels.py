@@ -37,7 +37,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0,
              "lane_totals_entries": 0, "encode_entries": 0, "decode_dual": 0,
              "lut_gather": 0, "lookup_lj_lens": 0, "pack_scan": 0, "pack_tiles": 0,
-             "decode_streams": 0, "decode_streams_dual": 0, "histogram": 0}
+             "decode_streams": 0, "decode_streams_dual": 0, "histogram": 0,
+             "decode_streams_bitwalk": 0, "decode_streams_fast": 0,
+             "decode_streams_dual_bitwalk": 0, "decode_streams_dual_fast": 0}
 _COUNT_LOCK = threading.Lock()  # the pipelined batch launches from two threads
 _LIB_LOCK = threading.Lock()    # ... and its first files build and load from both
 _LIB: ctypes.CDLL | None = None
@@ -61,6 +63,10 @@ _SIGNATURES = {
     "glz_decode_streams_dual": [_P, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _I, _I, _I, _I, _I,
                                 _P, _P],
     "glz_histogram": [_P, _LL, _P, _P],
+    "glz_decode_streams_strategy": [_I, _P, _LL, _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I,
+                                    _I, _P, _P, _P],
+    "glz_decode_streams_dual_strategy": [_I, _P, _LL, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I,
+                                         _I, _LL, _LL, _I, _P, _P, _P],
 }
 
 

@@ -23,15 +23,28 @@ subsequence_table_dual_ref are the plain versions of those steps.  Byte
 mode: TABLE_BITS, SUBSEQ_BITS; dual: DUAL_TABLE_BITS (the word table's),
 DUAL_SUBSEQ_BITS.
 The output is in file order, so assemble's transpose has no counterpart.
+
+`variant` picks one of the reference's three decoder strategies, as
+glz_tpu's host decoders (core/host_codec.py:decode_streams,
+models/huffword.py:_decode_tokens_host) take it: "table" (the above),
+"bitwalk" (the code accumulated one bit at a time) or "fast" (the 32-bit
+window scanned up from min_len); ops/decode_table.py's bitwalk_step and
+fast_step are their steps, each its own kernel in the same framework,
+with no table.  The two take the codebook's count of codes (n_codes) and
+raise ValueError where a code of the output matches no codeword, as
+glz_tpu's fail there; the byte bit-walk reads 1 bits past the payload, as
+its reference does.  For valid payloads all three give the same output.
 """
 
 from __future__ import annotations
 
 import torch
 
+from glz_tpu_torch import config as cfg
 from glz_tpu_torch.ops import _kernels
-from glz_tpu_torch.ops.decode_table import (canonical_scan, decode_dual_ref, decode_one_ref,
-                                            dual_table_ref, table_ref)
+from glz_tpu_torch.ops.decode_table import (bitwalk_step, canonical_scan, decode_dual_ref,
+                                            decode_one_ref, dual_table_ref, fast_step,
+                                            table_ref)
 from glz_tpu_torch.ops.lockstep_decode import CODE_TABLE
 from glz_tpu_torch.ops.lockstep_encode import U32, as_u32, to_i32
 
@@ -51,6 +64,35 @@ SUBSEQ_BITS = 1024
 DUAL_TABLE_BITS = 12
 DUAL_SUBSEQ_BITS = 384
 
+# The decoder strategies without a table and their kernels' codes
+# (decode_table.cuh: kBitwalk, kFast); "table" is the kernels above.
+TABLE, BITWALK, FAST = cfg.DECODER_TABLE, cfg.DECODER_BITWALK, cfg.DECODER_FAST
+STRATEGIES = {BITWALK: 1, FAST: 2}
+NO_CODEWORD = "corrupt stream: no codeword matched"
+
+
+def _check_variant(variant: str, n_codes) -> None:
+    if variant not in (TABLE, *STRATEGIES):
+        raise ValueError(f"unknown decoder variant {variant!r}")
+    if variant != TABLE and n_codes is None:
+        raise ValueError(f"the {variant} decode needs the codebook's n_codes")
+
+
+def _plain_decode(words, starts, n_symbols: int, S: int, codebooks, variant: str,
+                  n_codes, fill: int = 0) -> torch.Tensor:
+    """_decode_ref with the variant's step: the canonical scan for the
+    table (its tables change no output), else the strategy's step with each
+    codebook's n_codes, raising where a code of the output matches no
+    codeword."""
+    if variant == TABLE:
+        return _decode_ref(words, starts, n_symbols, S, codebooks)
+    rank = _decode_ref(words, starts, n_symbols, S,
+                       [(*cb, n) for cb, n in zip(codebooks, n_codes)],
+                       step=bitwalk_step if variant == BITWALK else fast_step, fill=fill)
+    if bool((rank < 0).any()):
+        raise ValueError(NO_CODEWORD)
+    return rank
+
 
 def _window(P: torch.Tensor, B: int, p: torch.Tensor) -> torch.Tensor:
     """The 32-bit windows (u32 values in int64) at bit positions p of the
@@ -62,33 +104,37 @@ def _window(P: torch.Tensor, B: int, p: torch.Tensor) -> torch.Tensor:
     return torch.where(phase > 0, ((hi << phase) & U32) | (lo_w >> ((32 - phase) & 31)), hi)
 
 
-def _position_tables(P: torch.Tensor, lo: int, n_pos: int, fc: torch.Tensor,
-                     offs: torch.Tensor, min_len: int, max_len: int):
+def _position_tables(P: torch.Tensor, lo: int, n_pos: int, *codebook,
+                     step=canonical_scan):
     """(length, rank) int64 [n_pos] of a code starting at each bit position
-    lo + i of the zero-extended payload P (u32 values in int64)."""
+    lo + i of the extended payload P (u32 values in int64): step(windows,
+    *codebook), by default the canonical scan of (fc_lj, offsets, min_len,
+    max_len)."""
     v = _window(P, 32 * (P.numel() - 2), torch.arange(lo, lo + n_pos, device=P.device))
-    return canonical_scan(v, fc, offs, min_len, max_len)
+    return step(v, *codebook)
 
 
 def _chains(P: torch.Tensor, B: int, starts: torch.Tensor, first: torch.Tensor,
-            M: int, codebooks, positions: bool = False):
+            M: int, codebooks, positions: bool = False, step=canonical_scan):
     """Ranks int64 [len(starts), M]: M steps of each stream's walk from bit
     starts[i] (in [0, B]), its first token of parity class first[i] %
     len(codebooks); with positions, also each step's bit position (the
     walk's code boundaries; positions past B read as B) and parity class.
+    Each class's codes are step(windows, *its codebook).
 
     The code length and rank are tabled for every bit position a walk can
     reach (M steps of at most 32 bits from a start; positions at or past the
-    payload's last bit B see an all-zero window, so they fold into B), then
-    the walks follow the table by pointer doubling: log2(M) rounds."""
+    payload's last bit B see the window of the fill past it, so they fold
+    into B), then the walks follow the table by pointer doubling: log2(M)
+    rounds."""
     dev = P.device
     lo = int(starts.min())
     top = min(int(starts.max()) + 32 * M, B)
     n_pos = top - lo + 1
     n_cls = len(codebooks)
     jumps, ranks = [], []
-    for c, (fc, offs, min_len, max_len) in enumerate(codebooks):
-        ln, rank = _position_tables(P, lo, n_pos, fc, offs, min_len, max_len)
+    for c, cb in enumerate(codebooks):
+        ln, rank = _position_tables(P, lo, n_pos, *cb, step=step)
         to = (torch.arange(n_pos, device=dev) + ln).clamp_(max=n_pos - 1)
         jumps.append(to + ((c + 1) % n_cls) * n_pos)  # the next token's class
         ranks.append(rank)
@@ -111,9 +157,12 @@ def _chains(P: torch.Tensor, B: int, starts: torch.Tensor, first: torch.Tensor,
 
 
 def _decode_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: int,
-                codebooks) -> torch.Tensor:
+                codebooks, step=canonical_scan, fill: int = 0) -> torch.Tensor:
     """Canonical ranks int64 [n_symbols] in file order; codebooks: one
-    (fc_lj, offsets, min_len, max_len) per token parity class.
+    (fc_lj, offsets, min_len, max_len) per token parity class, the args
+    after the windows of `step` (the canonical scan, or a strategy's step,
+    which gives rank -1 where no codeword matches); the payload reads
+    `fill` words past its end.
 
     A loop of S Python steps is far too slow at S = 2^18, so the plain
     version splits each stream's serial walk into two vectorised halves with
@@ -121,7 +170,7 @@ def _decode_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: in
     positions fit _CHUNK_POSITIONS."""
     dev = words.device
     B = 32 * words.numel()
-    P = torch.cat([as_u32(words), words.new_zeros(2, dtype=torch.int64)])
+    P = torch.cat([as_u32(words), words.new_full((2,), fill, dtype=torch.int64)])
     L = starts.numel()
     M = S if L > 1 else n_symbols  # steps to follow per stream
     st = starts.clamp(0, B)
@@ -135,7 +184,7 @@ def _decode_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: in
             lo, hi = min(lo, st_host[k1]), max(hi, st_host[k1])
             k1 += 1
         k = torch.arange(k0, k1, device=dev)
-        ranks = _chains(P, B, st[k0:k1], k * S, M, codebooks)
+        ranks = _chains(P, B, st[k0:k1], k * S, M, codebooks, step=step)
         end = min(k1 * S, n_symbols) if L > 1 else n_symbols
         out[k0 * S : end] = ranks.view(-1)[: end - k0 * S]
         k0 = k1
@@ -164,12 +213,17 @@ def _check_range(lo: int, hi: int, empty_ok: bool) -> None:
 
 def decode_streams_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
                        S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
-                       symtab: torch.Tensor, min_len: int, max_len: int) -> torch.Tensor:
+                       symtab: torch.Tensor, min_len: int, max_len: int,
+                       variant: str = TABLE, n_codes: int | None = None) -> torch.Tensor:
     """Plain version of the stream decode: u8 [n_symbols] in file order,
-    symtab[rank & 255] per symbol (see the module docstring)."""
+    symtab[rank & 255] per symbol (see the module docstring), by the
+    variant's strategy; n_codes: the codebook's symbols, which "bitwalk"
+    and "fast" need."""
+    _check_variant(variant, n_codes)
     if n_symbols == 0:
         return torch.zeros(0, dtype=torch.uint8, device=words.device)
-    rank = _decode_ref(words, starts, n_symbols, S, [(fc_lj, offsets, min_len, max_len)])
+    rank = _plain_decode(words, starts, n_symbols, S, [(fc_lj, offsets, min_len, max_len)],
+                         variant, [n_codes], fill=0xFFFFFFFF if variant == BITWALK else 0)
     return as_u32(symtab)[rank & 255].to(torch.uint8)
 
 
@@ -260,16 +314,28 @@ def subsequence_table_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: 
     return stream, start, exit_, cnt, n_rounds
 
 
+def _raise_if_flagged(err: torch.Tensor) -> None:
+    """A strategy kernel's flag, read back (a synchronisation): 1 where a
+    code of the output matched no codeword."""
+    if int(err.item()):
+        raise ValueError(NO_CODEWORD)
+
+
 def decode_streams(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S: int,
                    fc_lj: torch.Tensor, offsets: torch.Tensor, symtab: torch.Tensor,
-                   min_len: int, max_len: int) -> torch.Tensor:
+                   min_len: int, max_len: int, variant: str = TABLE,
+                   n_codes: int | None = None) -> torch.Tensor:
     """The byte-mode stream decode (replaces glz_tpu/ops/decode.py:
-    decode_block with assemble).  See decode_streams_ref for the function;
-    CUDA tensors launch the kernel.
+    decode_block with assemble; with variant "bitwalk" or "fast",
+    glz_tpu/core/host_codec.py's decode_stream_bitwalk or
+    decode_stream_fast).  See decode_streams_ref for the function; CUDA
+    tensors launch the variant's kernel.
 
     words: int32 [W] (u32 big-endian-order words); starts: int64 [L] bit
-    offsets, each >= 0; fc_lj/offsets: int32 [34]; symtab: int32 [256]."""
+    offsets, each >= 0; fc_lj/offsets: int32 [34]; symtab: int32 [256];
+    n_codes: the codebook's symbols (1-256), for "bitwalk" and "fast"."""
     _check_range(min_len, max_len, empty_ok=False)
+    _check_variant(variant, n_codes)
     dev = words.device
     _check_decode(words, starts, n_symbols, S)
     _kernels.check(fc_lj, "fc_lj", torch.int32, (CODE_TABLE,), dev)
@@ -277,14 +343,23 @@ def decode_streams(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S:
     _kernels.check(symtab, "symtab", torch.int32, (256,), dev)
     if _kernels.runs_plain(words):
         return decode_streams_ref(words, starts, n_symbols, S, fc_lj, offsets, symtab,
-                                  min_len, max_len)
+                                  min_len, max_len, variant, n_codes)
     out = torch.empty(n_symbols, dtype=torch.uint8, device=dev)
-    if n_symbols:
+    if n_symbols and variant == TABLE:
         _kernels.launch("glz_decode_streams", "decode_streams", _kernels.ptr(words),
                         words.numel(), _kernels.ptr(starts), starts.numel(), n_symbols, S,
                         TABLE_BITS, _kernels.ptr(fc_lj),
                         _kernels.ptr(offsets), _kernels.ptr(symtab), min_len, max_len,
                         SUBSEQ_BITS, _kernels.ptr(out))
+    elif n_symbols:
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        _kernels.launch("glz_decode_streams_strategy", f"decode_streams_{variant}",
+                        STRATEGIES[variant], _kernels.ptr(words), words.numel(),
+                        _kernels.ptr(starts), starts.numel(), n_symbols, S,
+                        _kernels.ptr(fc_lj), _kernels.ptr(offsets), _kernels.ptr(symtab),
+                        min_len, max_len, n_codes, SUBSEQ_BITS, _kernels.ptr(err),
+                        _kernels.ptr(out))
+        _raise_if_flagged(err)
     return out
 
 
@@ -292,14 +367,19 @@ def decode_streams(words: torch.Tensor, starts: torch.Tensor, n_symbols: int, S:
 
 def decode_streams_dual_ref(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
                             S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
-                            min_lens, max_lens) -> torch.Tensor:
+                            min_lens, max_lens, variant: str = TABLE,
+                            n_codes=None) -> torch.Tensor:
     """Plain version of the dual stream decode: canonical ranks, int32 (u32
     bit patterns) [n_symbols] in file order; token i scans codebook i & 1
-    (row 0 of fc_lj/offsets is the even tokens')."""
+    (row 0 of fc_lj/offsets is the even tokens'), by the variant's
+    strategy; n_codes: (even, odd) codebooks' codes, for "bitwalk" and
+    "fast"."""
+    _check_variant(variant, n_codes)
     if n_symbols == 0:
         return torch.zeros(0, dtype=torch.int32, device=words.device)
-    rank = _decode_ref(words, starts, n_symbols, S,
-                       [(fc_lj[p], offsets[p], min_lens[p], max_lens[p]) for p in (0, 1)])
+    rank = _plain_decode(words, starts, n_symbols, S,
+                         [(fc_lj[p], offsets[p], min_lens[p], max_lens[p]) for p in (0, 1)],
+                         variant, n_codes)
     return to_i32(rank)
 
 
@@ -333,28 +413,40 @@ def subsequence_table_dual_ref(words: torch.Tensor, starts: torch.Tensor, n_symb
 
 def decode_streams_dual(words: torch.Tensor, starts: torch.Tensor, n_symbols: int,
                         S: int, fc_lj: torch.Tensor, offsets: torch.Tensor,
-                        min_lens, max_lens) -> torch.Tensor:
+                        min_lens, max_lens, variant: str = TABLE, n_codes=None) -> torch.Tensor:
     """The HuffWord stream decode (replaces the host dual-dictionary decode
-    of glz_tpu/models/huffword.py:decompress_huffword).  See
+    of glz_tpu/models/huffword.py:decompress_huffword; with variant
+    "bitwalk" or "fast", the branches of its _decode_tokens_host).  See
     decode_streams_dual_ref for the function; CUDA tensors launch the
-    kernel.
+    variant's kernel.
 
     fc_lj, offsets: int32 [2, 34]; min_lens, max_lens: (even, odd) code
-    length ranges, each [0, 0] for an empty dictionary or within [1, 32]."""
+    length ranges, each [0, 0] for an empty dictionary or within [1, 32];
+    n_codes: (even, odd) codebooks' codes, for "bitwalk" and "fast"."""
     for lo, hi in zip(min_lens, max_lens):
         _check_range(lo, hi, empty_ok=True)
+    _check_variant(variant, n_codes)
     dev = words.device
     _check_decode(words, starts, n_symbols, S)
     _kernels.check(fc_lj, "fc_lj", torch.int32, (2, CODE_TABLE), dev)
     _kernels.check(offsets, "offsets", torch.int32, (2, CODE_TABLE), dev)
     if _kernels.runs_plain(words):
         return decode_streams_dual_ref(words, starts, n_symbols, S, fc_lj, offsets,
-                                       min_lens, max_lens)
+                                       min_lens, max_lens, variant, n_codes)
     out = torch.empty(n_symbols, dtype=torch.int32, device=dev)
-    if n_symbols:
+    if n_symbols and variant == TABLE:
         _kernels.launch("glz_decode_streams_dual", "decode_streams_dual",
                         _kernels.ptr(words), words.numel(), _kernels.ptr(starts),
                         starts.numel(), n_symbols, S, DUAL_TABLE_BITS, _kernels.ptr(fc_lj),
                         _kernels.ptr(offsets), min_lens[0], max_lens[0], min_lens[1],
                         max_lens[1], DUAL_SUBSEQ_BITS, _kernels.ptr(out))
+    elif n_symbols:
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        _kernels.launch("glz_decode_streams_dual_strategy", f"decode_streams_dual_{variant}",
+                        STRATEGIES[variant], _kernels.ptr(words), words.numel(),
+                        _kernels.ptr(starts), starts.numel(), n_symbols, S,
+                        _kernels.ptr(fc_lj), _kernels.ptr(offsets), min_lens[0], max_lens[0],
+                        min_lens[1], max_lens[1], n_codes[0], n_codes[1], DUAL_SUBSEQ_BITS,
+                        _kernels.ptr(err), _kernels.ptr(out))
+        _raise_if_flagged(err)
     return out

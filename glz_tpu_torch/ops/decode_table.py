@@ -53,6 +53,56 @@ def canonical_scan(v: torch.Tensor, fc_lj: torch.Tensor, offsets: torch.Tensor,
     return ln, ((v >> ((32 - ln) & 31)) + off) & U32
 
 
+# ---- the reference's two decoders without a table -----------------------------
+
+def _checked(v: torch.Tensor, ln: torch.Tensor, offsets: torch.Tensor, max_len: int,
+             n_codes: int):
+    """(length, rank) of codes of lengths ln (max_len + 1: none matched) at
+    the windows v, as decode_table.cuh's checked: rank = ((v >> (32 - len)) +
+    offsets[len]) mod 2^32, or -1 for a code that matches no codeword (no
+    length, or a rank not below n_codes), whose length is then max(max_len,
+    1)."""
+    none = ln > max_len
+    ln = torch.where(none, max(max_len, 1), ln)
+    rank = ((v >> ((32 - ln) & 31)) + as_u32(offsets)[ln]) & U32
+    return ln, torch.where(none | (rank >= n_codes), -1, rank)
+
+
+def bitwalk_step(v: torch.Tensor, fc_lj: torch.Tensor, offsets: torch.Tensor, min_len: int,
+                 max_len: int, n_codes: int):
+    """Plain version of decode_table.cuh's decode_bitwalk (glz_tpu's
+    decode_stream_bitwalk, the reference's CanonicalHuffDecoder): (length,
+    rank) int64 tensors of the windows v (u32 values in int64), rank -1
+    where no codeword matches.  The code's value is accumulated one bit of
+    the window at a time, c = c << 1 | bit, and the length is the first len
+    in [min_len, max_len] with c >= first_code[len] = fc_lj[len] >> (32 -
+    len)."""
+    fc = as_u32(fc_lj).tolist()
+    c = torch.zeros_like(v)
+    ln = torch.full_like(v, max_len + 1)
+    for l in range(1, max_len + 1):
+        c = (c << 1) | ((v >> (32 - l)) & 1)
+        if l >= min_len:
+            ln = torch.where((ln > max_len) & (c >= fc[l] >> (32 - l)), l, ln)
+    return _checked(v, ln, offsets, max_len, n_codes)
+
+
+def fast_step(v: torch.Tensor, fc_lj: torch.Tensor, offsets: torch.Tensor, min_len: int,
+              max_len: int, n_codes: int):
+    """Plain version of decode_table.cuh's decode_fast (glz_tpu's
+    decode_stream_fast, the reference's FastCanonicalHuffDecoder): the
+    length runs up from min_len (at least 1) while the window is below
+    fc_lj[len]; (length, rank) as bitwalk_step gives them."""
+    fc = as_u32(fc_lj).tolist()
+    lo = max(min_len, 1)
+    ln = torch.full_like(v, lo)
+    below = torch.ones_like(v, dtype=torch.bool)
+    for l in range(lo, max_len + 1):
+        below &= v < fc[l]
+        ln += below
+    return _checked(v, ln, offsets, max_len, n_codes)
+
+
 def _slots(fc_lj: torch.Tensor, offsets: torch.Tensor, min_len: int, max_len: int,
            bits: int):
     """(level, length at the smallest window, length and rank at the largest

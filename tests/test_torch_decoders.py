@@ -1,0 +1,338 @@
+"""The reference's three decoder strategies in glz_tpu_torch against glz_tpu's.
+
+glz_tpu decodes a bitstream container with the strategy `variant` names:
+core/host_codec.py's decode_stream_table, decode_stream_bitwalk and
+decode_stream_fast (byte mode), and models/huffword.py's
+_decode_tokens_host (HuffWord).  The port runs each as a kernel on the card
+(csrc/bitstream.cu) beside its plain PyTorch version, which runs here.
+Every comparison is exact: the same symbols, or the same exception type.
+glz_tpu runs as its own tests run it (JAX on the CPU); the port runs its
+plain versions (device='cpu').
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import glz_tpu
+from glz_tpu import config as tpu_cfg
+from glz_tpu.core import bitio as tpu_bitio
+from glz_tpu.core import container as tpu_container
+from glz_tpu.core import host_codec
+from glz_tpu.core.codebook import build_codebook as tpu_build_codebook
+from glz_tpu.core.codebook import canonical_codebook as tpu_canonical_codebook
+from glz_tpu.models import huffword as tpu_hw
+
+import glz_tpu_torch
+from glz_tpu_torch import cli
+from glz_tpu_torch import config as cfg
+from glz_tpu_torch.core import container
+from glz_tpu_torch.core.codebook import codebook_from_lengths
+from glz_tpu_torch.models import huffword as port_hw
+from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables
+from glz_tpu_torch.ops import decode as bd
+from glz_tpu_torch.ops import decode_table as dt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+CPU = torch.device("cpu")
+STRATEGIES = ("table", "fast", "bitwalk")
+
+
+# ---- byte mode: each plain strategy against glz_tpu's -------------------------
+
+def byte_case(name: str, n: int = 3000):
+    """(symbols, glz_tpu codebook) of a byte case, made from a seed."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "skewed":  # the AND of three uniform draws
+        sym = rng.integers(0, 256, n) & rng.integers(0, 256, n) & rng.integers(0, 256, n)
+    elif name == "uniform":
+        sym = rng.integers(0, 256, n)
+    elif name == "two_symbols":
+        sym = rng.choice([3, 200], n, p=[0.8, 0.2])
+    elif name == "one_symbol":
+        sym = np.full(n, 42)
+    else:  # made-up halving frequencies, symbols drawn evenly: "capped" cut to
+        # 9-bit codes by a length_limit, "deep32" to codes of up to 32 bits
+        freqs = np.zeros(256, np.int64)
+        freqs[:40] = np.left_shift(1, 40 - np.arange(40))
+        limit = 9 if name == "capped" else 32
+        cb = tpu_build_codebook(freqs, limit)
+        assert cb.max_len == limit and np.count_nonzero(cb.lengths == limit) > 1
+        return rng.integers(0, 40, n), cb
+    return sym, tpu_build_codebook(np.bincount(sym, minlength=256), 32)
+
+
+def port_byte_decode(words: np.ndarray, sbits: np.ndarray, n: int, S: int, lengths,
+                     variant: str) -> np.ndarray:
+    cb = codebook_from_lengths(lengths)
+    starts = torch.from_numpy(np.cumsum(sbits.astype(np.int64)) - sbits.astype(np.int64))
+    out = bd.decode_streams(_i32_tensor(words, CPU), starts, n, S, *decode_tables(cb, CPU),
+                            cb.min_len, cb.max_len, variant=variant, n_codes=cb.symbols.size)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("variant", STRATEGIES)
+@pytest.mark.parametrize("S", [1, 7, 4096])
+@pytest.mark.parametrize("name", ["skewed", "uniform", "two_symbols", "one_symbol", "capped",
+                                  "deep32"])
+def test_byte_strategy_matches_glz_tpu(name, S, variant):
+    """host_codec.decode_streams(variant=v) and the port's plain decode of
+    the same v give the same symbols on host_codec.encode_streams' streams."""
+    sym, cb = byte_case(name, 600 if S == 1 else 3000)
+    words, _, sbits = host_codec.encode_streams(sym, cb, S)
+    want = host_codec.decode_streams(words, sbits, sym.size, S, cb, variant=variant)
+    np.testing.assert_array_equal(want, sym)
+    got = port_byte_decode(words, sbits, sym.size, S, cb.lengths, variant)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("variant", STRATEGIES)
+def test_past_the_payload(variant):
+    """A stream that runs past its payload (only a corrupt container's can):
+    glz_tpu's bit-walk reads 1 bits there, its other decoders 0 bits; the
+    port's strategies read the same.  Two 1-bit codes, 90 symbols on 64
+    bits of payload."""
+    cb = tpu_canonical_codebook(np.eye(256, dtype=np.int32)[5] + np.eye(256, dtype=np.int32)[9])
+    words = np.array([0x0F0F0F0F, 0x12345678], np.uint32)
+    want = host_codec.decode_streams(words, np.array([64], np.uint64), 90, 90, cb,
+                                     variant=variant)
+    assert set(want[64:]) == {9 if variant == "bitwalk" else 5}
+    got = port_byte_decode(words, np.array([64], np.uint64), 90, 90, cb.lengths, variant)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["skewed", "two_symbols", "capped", "deep32"])
+def test_steps_agree_on_every_window(name):
+    """bitwalk_step and fast_step give the canonical scan's length and rank
+    on every window of a complete code (sampled: every 2^-16 of the range,
+    each slot's ends and a random point)."""
+    cb = codebook_from_lengths(byte_case(name)[1].lengths)
+    fc, offs, _ = decode_tables(cb, CPU)
+    slot = torch.arange(1 << 16) << 16
+    rnd = torch.from_numpy(np.random.default_rng(1).integers(0, 1 << 16, slot.numel()))
+    v = torch.cat([slot, slot | 0xFFFF, slot | rnd])
+    want = dt.canonical_scan(v, fc, offs, cb.min_len, cb.max_len)
+    for step in (dt.bitwalk_step, dt.fast_step):
+        ln, rank = step(v, fc, offs, cb.min_len, cb.max_len, cb.symbols.size)
+        assert torch.equal(ln, want[0]) and torch.equal(rank, want[1])
+
+
+# ---- HuffWord: the dual plain strategies against _decode_tokens_host ----------
+
+DUAL_TEXTS = {
+    "word_first": b"the cat-sat on its mat. " * 40 + b"a dog, a log; a frog!",
+    "nonword_first": b"  ...  " + b"the cat-sat on its mat. " * 40,
+    "no_separators": b"word",           # the nonword dictionary is empty
+    "no_words": b"  ...,;  !",          # the word dictionary is empty
+}
+
+
+@pytest.mark.parametrize("variant", STRATEGIES)
+@pytest.mark.parametrize("name", list(DUAL_TEXTS))
+def test_dual_strategy_matches_glz_tpu(name, variant):
+    """A glz_tpu-written HuffWord bitstream container's tokens through
+    _decode_tokens_host(variant=v) and through the port's dual plain decode
+    of the same v (ranks mapped through each dictionary's symbols)."""
+    blob = glz_tpu.compress(DUAL_TEXTS[name], mode=cfg.MODE_HUFFWORD,
+                            conf=tpu_cfg.GlzConfig(stream_symbols=7))
+    f = tpu_container.read_container(blob)
+    mv = memoryview(f.codebook_blob)
+    word_first = bool(mv[0])
+    wl, _, _, off = tpu_hw._decode_dict_blob(mv, 1)
+    nl, _, _, _ = tpu_hw._decode_dict_blob(mv, off)
+    assert word_first == (name not in ("nonword_first", "no_words"))
+    assert (wl.size == 0) == (name == "no_words") and (nl.size == 0) == (name == "no_separators")
+    cbs = [tpu_canonical_codebook(lens if lens.size else np.zeros(1, np.int32)) for lens in (wl, nl)]
+    dicts = cbs if word_first else cbs[::-1]
+    words = tpu_bitio.bytes_to_words(f.payload)
+    T = f.n_symbols
+    want = tpu_hw._decode_tokens_host(words, f.stream_bits, T, f.stream_symbols, dicts,
+                                      variant=variant)
+
+    port_dicts = [codebook_from_lengths(lens) for lens in (wl, nl)]
+    even, odd = port_dicts if word_first else port_dicts[::-1]
+    fc, offs = port_hw._dual_tables(even, odd, CPU)
+    sb = f.stream_bits.astype(np.int64)
+    ranks = bd.decode_streams_dual(_i32_tensor(words, CPU), torch.from_numpy(np.cumsum(sb) - sb),
+                                   T, f.stream_symbols, fc, offs, (even.min_len, odd.min_len),
+                                   (even.max_len, odd.max_len), variant=variant,
+                                   n_codes=(even.symbols.size, odd.symbols.size)).numpy()
+    ranks = ranks.view(np.uint32).astype(np.int64)
+    syms = [np.append(d.symbols, 0) for d in (even, odd)]  # an empty dictionary: no rank
+    got = np.where(np.arange(T) % 2 == 0, syms[0][np.minimum(ranks, syms[0].size - 1)],
+                   syms[1][np.minimum(ranks, syms[1].size - 1)])
+    np.testing.assert_array_equal(got, want)
+
+
+# ---- the front door: glz_tpu's routing --------------------------------------------
+
+FRONT_TEXT = b"the cat-sat on its mat. " * 500
+
+
+@pytest.fixture(scope="module")
+def containers():
+    """glz_tpu's containers of FRONT_TEXT: (blob, form of its stream decode:
+    "bytes", "dual" or None where the layout or mode has none)."""
+    lock = tpu_cfg.GlzConfig(layout=tpu_cfg.LAYOUT_LOCKSTEP, stream_symbols=64)
+    return {
+        "byte_host": (glz_tpu.compress(FRONT_TEXT), "bytes"),
+        "byte_device": (glz_tpu.compress(FRONT_TEXT, backend="device"), "bytes"),
+        "byte_lockstep": (glz_tpu.compress(FRONT_TEXT, conf=lock), None),
+        "huffword": (glz_tpu.compress(FRONT_TEXT, mode=cfg.MODE_HUFFWORD), "dual"),
+        "huffword_lockstep": (glz_tpu.compress(FRONT_TEXT, mode=cfg.MODE_HUFFWORD, conf=lock),
+                              None),
+        "normal_tree": (glz_tpu.compress(FRONT_TEXT, mode=cfg.MODE_NORMAL_TREE), None),
+    }
+
+
+def routed(form, backend: str, variant: str):
+    """The stream decode glz_tpu runs for the call, as (form, strategy), or
+    None: none runs (or it raises first)."""
+    if form == "bytes":
+        if backend == "device" or variant == "device":
+            return "bytes", "table"
+        return ("bytes", variant) if variant in STRATEGIES else None
+    if form == "dual":
+        return "dual", variant if variant in ("fast", "bitwalk") else "table"
+    return None
+
+
+def outcome(fn):
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 (the type is the outcome)
+        return type(e)
+
+
+@pytest.mark.parametrize("variant", [*STRATEGIES, "device", "bogus"])
+@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("kind", ["byte_host", "byte_device", "byte_lockstep", "huffword",
+                                  "huffword_lockstep", "normal_tree"])
+def test_decompress_routes_as_glz_tpu(containers, monkeypatch, kind, backend, variant):
+    """glz_tpu_torch.decompress(blob, backend=b, variant=v, device='cpu')
+    gives what glz_tpu.decompress(blob, backend=b, variant=v) gives (the
+    bytes, or the same exception type), through the strategy glz_tpu
+    routes the call to: the plain decode that ran, recorded, is the routed
+    one."""
+    blob, form = containers[kind]
+    ran = []
+    for name, tag, at in (("decode_streams_ref", "bytes", 9),
+                          ("decode_streams_dual_ref", "dual", 8)):
+        plain = getattr(bd, name)
+        monkeypatch.setattr(bd, name, lambda *a, _p=plain, _t=tag, _at=at, **k:
+                            ran.append((_t, a[_at] if len(a) > _at else k.get("variant")))
+                            or _p(*a, **k))
+    want = outcome(lambda: glz_tpu.decompress(blob, backend=backend, variant=variant))
+    got = outcome(lambda: glz_tpu_torch.decompress(blob, backend=backend, variant=variant,
+                                                   device="cpu"))
+    assert got == want
+    if want == FRONT_TEXT:
+        assert ran == ([] if routed(form, backend, variant) is None
+                       else [routed(form, backend, variant)])
+    else:  # glz_tpu's host decode of a byte bitstream container refuses the variant
+        assert form == "bytes" and (backend, variant) == ("host", "bogus")
+        assert got is ValueError
+
+
+@pytest.mark.parametrize("variant", STRATEGIES)
+def test_one_symbol_container(variant):
+    """A one-symbol container (one 1-bit code; the host container pads its
+    last byte with 1 bits, which match no codeword) decodes in both
+    packages: a guess that meets a code matching nothing is no error."""
+    data = b"a" * 3001
+    for backend in ("host", "device"):
+        blob = glz_tpu.compress(data, backend=backend)
+        assert glz_tpu.decompress(blob, variant=variant) == data
+        assert glz_tpu_torch.decompress(blob, variant=variant, device="cpu") == data
+
+
+# ---- a code that matches no codeword ------------------------------------------
+
+@pytest.mark.parametrize("variant", ["fast", "bitwalk"])
+def test_no_codeword_raises(variant):
+    """One symbol (the 1-bit code 0) and a stream of 1 bits: glz_tpu's
+    strategy indexes past its symbols (numpy's IndexError); the port's
+    plain version and its wrapper raise ValueError("corrupt stream: no
+    codeword matched"), the byte and the dual form."""
+    cb = tpu_canonical_codebook(np.eye(256, dtype=np.int32)[97])
+    words = np.full(4, 0xFFFFFFFF, np.uint32)
+    with pytest.raises(IndexError):
+        host_codec.decode_streams(words, np.array([128], np.uint64), 100, 128, cb,
+                                  variant=variant)
+    with pytest.raises(ValueError, match="no codeword matched"):
+        port_byte_decode(words, np.array([128], np.uint64), 100, 128, cb.lengths, variant)
+    port_cb = codebook_from_lengths(cb.lengths)
+    fc, offs = port_hw._dual_tables(port_cb, port_cb, CPU)
+    with pytest.raises(ValueError, match="no codeword matched"):
+        bd.decode_streams_dual(_i32_tensor(words, CPU), torch.zeros(1, dtype=torch.int64), 100,
+                               128, fc, offs, (1, 1), (1, 1), variant=variant, n_codes=(1, 1))
+
+
+@pytest.mark.parametrize("variant", ["fast", "bitwalk"])
+def test_corrupt_container_raises(variant):
+    """A one-symbol container whose payload is all 1 bits: both packages
+    raise (glz_tpu IndexError, the port ValueError) where the table decodes."""
+    blob = bytearray(glz_tpu.compress(b"a" * 1000))
+    f = container.read_container(bytes(blob))
+    start = len(blob) - len(f.payload)
+    assert f.checksum is None and blob[start:] == f.payload
+    blob[start:] = b"\xff" * len(f.payload)
+    with pytest.raises(IndexError):
+        glz_tpu.decompress(bytes(blob), variant=variant)
+    with pytest.raises(ValueError, match="no codeword matched"):
+        glz_tpu_torch.decompress(bytes(blob), variant=variant, device="cpu")
+
+
+def test_wrappers_take_only_known_strategies():
+    cb = codebook_from_lengths(byte_case("skewed")[1].lengths)
+    args = (torch.zeros(4, dtype=torch.int32), torch.zeros(1, dtype=torch.int64), 8, 8,
+            *decode_tables(cb, CPU), cb.min_len, cb.max_len)
+    with pytest.raises(ValueError, match="unknown decoder variant"):
+        bd.decode_streams(*args, variant="device")
+    with pytest.raises(ValueError, match="n_codes"):
+        bd.decode_streams(*args, variant="fast")
+
+
+# ---- the command line -------------------------------------------------------
+
+@pytest.mark.parametrize("model", ["canonical_byte", "huffword", "normal_tree"])
+def test_cli_decoder_bitwalk(tmp_path, monkeypatch, model):
+    """compress, then decompress --decoder bitwalk under GLZ_PLATFORM=cpu:
+    the input back, and glz_tpu's decompress of the same container agrees."""
+    monkeypatch.setenv("GLZ_PLATFORM", "cpu")
+    src = tmp_path / "f.txt"
+    src.write_bytes(FRONT_TEXT[:5000])
+    assert cli.main(["compress", str(src), "--model", model]) == 0
+    glz = tmp_path / "f.txt.glz"
+    assert cli.main(["decompress", str(glz), "--decoder", "bitwalk"]) == 0
+    assert (tmp_path / "f.txt.glz.de").read_bytes() == src.read_bytes()
+    assert glz_tpu.decompress(glz.read_bytes(), variant="bitwalk") == src.read_bytes()
+
+
+def test_cli_names_the_strategies(capsys):
+    """decompress --help names every strategy and says what each does."""
+    with pytest.raises(SystemExit):
+        cli.main(["decompress", "--help"])
+    help_text = " ".join(capsys.readouterr().out.split())
+    for words in ("table", "fast", "bitwalk", "device", "one bit at a time", "32-bit window"):
+        assert words in help_text
+
+
+def test_cli_module_decoder_fast(tmp_path):
+    """python -m glz_tpu_torch.cli decompress --decoder fast round-trips a
+    file on the CPU."""
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    src = tmp_path / "g.txt"
+    src.write_bytes(FRONT_TEXT[:3000])
+    (tmp_path / "g.glz").write_bytes(glz_tpu_torch.compress(src.read_bytes(), device="cpu"))
+    done = subprocess.run([sys.executable, "-m", "glz_tpu_torch.cli", "decompress", "g.glz",
+                           "--decoder", "fast"], capture_output=True, text=True,
+                          cwd=str(tmp_path),
+                          env={**os.environ, "GLZ_PLATFORM": "cpu", "PYTHONPATH": root})
+    assert done.returncode == 0, done.stderr
+    assert (tmp_path / "g.glz.de").read_bytes() == src.read_bytes()

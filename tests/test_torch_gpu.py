@@ -89,6 +89,38 @@ def test_huffword_bitstream_kernels_match_plain_versions(cuda, case):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("case", [*chip_smoke.BITSTREAM_CASES,
+                                  *chip_smoke.HUFFWORD_BITSTREAM_CASES])
+def test_strategy_kernels_match_plain_versions(cuda, case):
+    """The bit-walk and fast kernels of the byte and dual stream decodes
+    bit-exact against their plain versions, and the input (tokens) back."""
+    chip_smoke.check_strategy_case(case, cuda)
+    torch.cuda.synchronize()
+
+
+def test_strategy_kernels_on_corrupt_streams(cuda):
+    """Past the payload they read what their plain versions read; a code
+    that matches nothing raises."""
+    chip_smoke.check_corrupt_streams(cuda)
+
+
+@pytest.mark.parametrize("variant", ["table", "fast", "bitwalk"])
+def test_decompress_launches_the_routed_strategy(cuda, variant):
+    """decompress(variant=v) of a byte and a HuffWord bitstream container
+    launches v's stream decode and no other."""
+    data = chip_smoke.make_corpus(3 << 20)
+    text = chip_smoke.make_word_corpus(1 << 20)
+    for blob, want, dual in (
+            (glz_tpu_torch.compress(data), data.tobytes(), False),
+            (glz_tpu_torch.compress(text, mode=glz_tpu_torch.config.MODE_HUFFWORD), text, True)):
+        _kernels.reset_launch_counts()
+        assert glz_tpu_torch.decompress(blob, variant=variant) == want
+        counts = _kernels.launch_counts()
+        decodes = {k: counts[k] for k in chip_smoke.STREAM_DECODES.values()}
+        assert decodes == {**{k: 0 for k in decodes},
+                           chip_smoke.STREAM_DECODES[(dual, variant)]: 1}
+
+
 def test_entry_points_launch_each_kernel_once(cuda):
     data = chip_smoke.make_corpus(3 << 20)
     _kernels.reset_launch_counts()

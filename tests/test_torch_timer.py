@@ -166,6 +166,18 @@ def test_trace_summary_names_every_port_kernel():
                                 "_Z26decode_streams_sync_kernelILb1ELi256ELi8ELi8EEvPKj"],
         "histogram": ["void histogram_kernel(uint4 const*, long, long, unsigned long long*)",
                       "_Z16histogram_kernelPK5uint4xxPy"],
+        "decode_streams_bitwalk": [
+            "(anonymous namespace)::decode_streams_sync_kernel<false, 256, 8, 4, 1>(unsigned int)",
+            "_ZN12_GLOBAL__N_126decode_streams_sync_kernelILb0ELi256ELi8ELi4ELi1EEEvPKj"],
+        "decode_streams_fast": [
+            "(anonymous namespace)::decode_streams_sync_kernel<false, 256, 8, 4, 2>(unsigned int)",
+            "_ZN12_GLOBAL__N_126decode_streams_sync_kernelILb0ELi256ELi8ELi4ELi2EEEvPKj"],
+        "decode_streams_dual_bitwalk": [
+            "(anonymous namespace)::decode_streams_sync_kernel<true, 128, 2, 8, 1>(unsigned int)",
+            "_ZN12_GLOBAL__N_126decode_streams_sync_kernelILb1ELi128ELi2ELi8ELi1EEEvPKj"],
+        "decode_streams_dual_fast": [
+            "(anonymous namespace)::decode_streams_sync_kernel<true, 128, 2, 8, 2>(unsigned int)",
+            "_ZN12_GLOBAL__N_126decode_streams_sync_kernelILb1ELi128ELi2ELi8ELi2EEEvPKj"],
     }
     assert set(names) == set(chip_smoke.REPLACES)
     for wrapper, kernels in names.items():
