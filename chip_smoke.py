@@ -50,7 +50,10 @@ last):
      DEFAULT-sized streams, 64 MiB of uniform bytes (all codes 8 bits; its
      decode time is printed), two dispatches of one stream each, word-
      aligned (the device container) or the second packed from the first's
-     last bit (the host container)), and K6 on the lj and length tables,
+     last bit (the host container), and longest codes of REG_LEVELS,
+     REG_LEVELS + 1, 16 and 17 bits: on either side of the levels the byte
+     strategy kernels hold in registers and of 16 bits), and K6 on the lj
+     and length tables,
      the pack and decode_streams_dual on HuffWord cases (S 16384, odd S,
      nonword-first text, one token (an empty dictionary), a >64K-word
      vocabulary, codes of 27-32 bits, 256 equiprobable 8-bit words with
@@ -159,13 +162,19 @@ last):
      other stream decode; each new kernel on the whole container against
      its plain version and the input (tokens), timed as in phase 5, beside
      the table kernel's time in the same call; the stream decodes'
-     registers and spills, each form and strategy.
+     registers and spills, each form and strategy; and the byte bit-walk's
+     and fast scan's counting build (tools/stream_decode_phases.py's,
+     compiled beside the library in phase 2) on the whole container: the
+     levels a lane walks a code, the levels its warp runs a code step, and
+     the codes that go past the register levels.
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import hashlib
@@ -748,11 +757,19 @@ def check_k5_random(name: str, dev: torch.device) -> None:
 
 # ---- bitstream (layout 0) kernel cases ------------------------------------------
 
+# The levels the byte strategy kernels hold in registers (decode_table.cuh).
+REG_LEVELS = int(re.search(r"constexpr int kRegLevels = (\d+);",
+                           (_kernels.CSRC / "decode_table.cuh").read_text()).group(1))
+# the longest code of each seam case: on either side of the register levels
+# and of 16 bits
+SEAM_LIMITS = {"at_depth_s16384": REG_LEVELS, "past_depth_s16384": REG_LEVELS + 1,
+               "limit16_s16384": 16, "limit17_s16384": 17}
 # name -> S; byte cases of K7, the pack and decode_streams
 BITSTREAM_CASES = {"ragged_s4096": 4096, "s1000": 1000, "deep32_s16384": 1 << 14,
                    "one_symbol": 1 << 18, "one_code_s4096": 4096,
                    "default_3streams": 1 << 18, "uniform8_s262144": 1 << 18,
-                   "two_dispatch_s131072": 1 << 17, "host_two_dispatch_s131072": 1 << 17}
+                   "two_dispatch_s131072": 1 << 17, "host_two_dispatch_s131072": 1 << 17,
+                   **{name: 1 << 14 for name in SEAM_LIMITS}}
 PACK_PHASE = 13  # the bit, not word-aligned, at which every case also packs
 UNIFORM8_STREAMS = 256  # 64 MiB of uniform bytes: 256 streams of 2^18, all codes 8 bits
 
@@ -763,6 +780,8 @@ def bitstream_case_data(name: str):
     S = BITSTREAM_CASES[name]
     if name.startswith("deep32"):
         arr, cb = deep_case(5 * S + 4321, limit=32)
+    elif name in SEAM_LIMITS:
+        arr, cb = deep_case(5 * S + 4321, seed=SEAM_LIMITS[name], limit=SEAM_LIMITS[name])
     elif name == "one_symbol":
         arr = np.array([77], np.uint8)
         cb = build_codebook(histogram_bytes(arr), 32)
@@ -2236,6 +2255,35 @@ def trace_phase(card: str, arr: np.ndarray, text: bytes, digests: dict[str, str]
 
 # ---- 9. the decoder strategies ---------------------------------------------------
 
+class LevelsBuild:
+    """The counting build of the byte strategy kernels: the "levels" variant
+    of csrc/bitstream.cu that tools/stream_decode_phases.py makes, its nvcc
+    started beside the library's (phase 2) and its library run in phase 9.
+    close() stops the compiler if it still runs and removes the build."""
+
+    def __init__(self):
+        spec = importlib.util.spec_from_file_location(
+            "stream_decode_phases", ROOT / "tools" / "stream_decode_phases.py")
+        self.tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(self.tool)
+        _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.dir = tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR)
+        variant = self.tool.strategy_variants((_kernels.CSRC / "bitstream.cu").read_text(),
+                                              (_kernels.CSRC / "decode_table.cuh").read_text())
+        self.procs = self.tool.start_builds(pathlib.Path(self.dir.name),
+                                            {"levels": variant["levels"]})
+
+    def library(self):
+        return self.tool.finish_builds(pathlib.Path(self.dir.name), self.procs)["levels"]
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+        self.dir.cleanup()
+
+
 def strategy(fn, variant: str, n_codes):
     """A stream decode (or its plain version) with the strategy bound."""
     return functools.partial(fn, variant=variant, n_codes=n_codes)
@@ -2301,7 +2349,7 @@ def check_corrupt_streams(dev: torch.device) -> None:
 
 
 def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob: bytes,
-                   ids: np.ndarray, dev: torch.device) -> list[dict]:
+                   ids: np.ndarray, levels: LevelsBuild, dev: torch.device) -> list[dict]:
     """Phase 9: the decoder strategies.  Each strategy kernel against its
     plain version on phase 3c's cases and on a code that matches nothing;
     then phase 4c's byte and phase 4d's HuffWord bitstream containers
@@ -2310,7 +2358,9 @@ def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob
     routed kernel and no other stream decode; then the kernels' rows: each
     new kernel on the whole container against its plain version (and the
     input, or the tokens), timed as phase 5 times kernels, beside the table
-    kernel's time in the same call, and their registers."""
+    kernel's time in the same call, and their registers; and the byte ones'
+    counting build (LevelsBuild) on the whole container: the levels a lane
+    walks a code and its warp a code step."""
     t_phase = time.perf_counter()
     cases = (*BITSTREAM_CASES, *HUFFWORD_BITSTREAM_CASES)
     for case in cases:
@@ -2368,6 +2418,24 @@ def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob
                     DECODE_OPS_BASE * n, launches, card, check=same_as_input)
             for v in STRATEGIES[1:]]
     table_ms = spread_text(cuda_spread(functools.partial(decode, bd.decode_streams, "table")))
+    lib = levels.library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for v in STRATEGIES[1:]:
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        c = levels.tool.level_counts(lib, levels.tool.strategy_runner(
+            bd.STRATEGIES[v], f, cb, words, starts, tables, out, err, stream))
+        require(int(err.item()) == 0, f"levels build: {v} flagged a code")
+        same_as_input(out)
+        past = [k for k in levels.tool.LEVEL_DEPTHS if k >= REG_LEVELS][:2]
+        print(f"levels: {STREAM_DECODES[(False, v)]} at the main shape (the counting build): "
+              f"{c['codes']} codes decoded (guesses, rounds, write); a lane walks "
+              f"{c['lane_levels']:.2f} levels a code, its warp {c['warp_levels']:.2f} a code "
+              f"step ({c['lanes_a_step']:.2f} lanes a step); codes past "
+              + ", ".join(f"{k} levels {100 * c[f'codes_past_{k}']:.3f}% (warp steps "
+                          f"{100 * c[f'steps_past_{k}']:.2f}%)" for k in past)
+              + f"; {REG_LEVELS} levels in registers", flush=True)
+        del out
     del words, starts
 
     hf = container.read_container(hbblob)
@@ -2425,8 +2493,10 @@ def main() -> int:
     print(f"env: torch {torch.__version__} cuda {torch.version.cuda}; {name} x{count}; "
           f"{smi}; {nvcc}; {gxx}", flush=True)
 
-    # ---- 2. build
+    # ---- 2. build (the byte strategy kernels' counting build beside it)
     t0 = time.perf_counter()
+    levels = LevelsBuild()
+    atexit.register(levels.close)
     _kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s; "
           + "; ".join(ptxas_summary(_kernels.build_log())), flush=True)
@@ -2701,7 +2771,7 @@ def main() -> int:
     trace_phase(card, arr, hw_text, digests)
 
     # ---- 9. the decoder strategies on the bitstream paths
-    rows += strategy_phase(card, arr, bblob, hw_text, hbblob, vocabs[5], dev)
+    rows += strategy_phase(card, arr, bblob, hw_text, hbblob, vocabs[5], levels, dev)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

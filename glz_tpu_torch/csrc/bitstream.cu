@@ -142,9 +142,12 @@ struct BitReader {
 // the write (step 3): one that matches no codeword sets *err, which the
 // wrapper turns into an error (a guess may start anywhere, so its codes are
 // not checked).  They compute the table's function on the same bytes, so
-// share its bound; what holds them above it is each code's chain of
-// dependent shared-memory loads, one a level scanned or a bit walked
-// (PERF.md), where the table takes one probe.
+// share its bound.  The dual forms take each code as the loops do, a
+// dependent shared-memory load a level scanned or a bit walked, and a warp
+// runs to its longest code; the byte forms take the levels up to
+// glz::kRegLevels from registers, all of them for every code with no load
+// and no branch (glz::ByteLevels), so every lane's code costs the same few
+// instructions (PERF.md).
 // A decoder's state is its bit position and, in the dual form, its next
 // token's parity (state = window-relative position << 1 | parity; the byte
 // form's parity is always 0).  Stream k's bits are [starts[k], starts[k+1])
@@ -395,9 +398,10 @@ __device__ __forceinline__ glz::Code decode_code(const glz::DualTable& t, const 
 }
 
 template <int kStrategy>
-__device__ __forceinline__ glz::Code decode_code(const glz::ByteCanon<kStrategy>& t,
+__device__ __forceinline__ glz::Code decode_code(const glz::ByteLevels<kStrategy>& d,
                                                  const uint8_t*, uint32_t v, int) {
-  glz::Code c = glz::decode_untabled<kStrategy>(t.c, t.n_codes, v);
+  const glz::ByteCanon<kStrategy>& t = d.t;
+  glz::Code c = d.decode(v);
   c.out = t.symtab[c.out & 255u];
   return c;
 }
@@ -406,6 +410,16 @@ template <int kStrategy>
 __device__ __forceinline__ glz::Code decode_code(const glz::DualCanon<kStrategy>& t,
                                                  const uint8_t*, uint32_t v, int par) {
   return glz::decode_untabled<kStrategy>(t.c[par], t.n_codes[par], v);
+}
+
+// What a run of codes (decode_span, write_run) decodes with: the table
+// itself, or for the byte strategies a register copy of its levels
+// (glz::ByteLevels), made once a run.
+template <class Table>
+__device__ __forceinline__ const Table& levels(const Table& t) { return t; }
+template <int kStrategy>
+__device__ __forceinline__ glz::ByteLevels<kStrategy> levels(const glz::ByteCanon<kStrategy>& t) {
+  return glz::ByteLevels<kStrategy>(t);
 }
 
 template <class Table>
@@ -422,10 +436,11 @@ __device__ __forceinline__ int64_t decode_span(const Table& t, const uint8_t* lu
                                                int64_t n_words, int64_t* pos, int* par,
                                                int64_t end) {
   BitReader r(words, n_words, *pos, kFill<Table>);
+  const auto& d = levels(t);
   int64_t p = *pos, n = 0;
   int q = *par;
   while (p < end) {
-    const uint32_t ln = advance(t, decode_code(t, lut, r.window(), q).len);
+    const uint32_t ln = advance(t, decode_code(d, lut, r.window(), q).len);
     r.skip(ln);
     p += ln;
     if constexpr (kIsDual<Table>) q ^= 1;
@@ -468,13 +483,14 @@ __device__ __forceinline__ void write_run(const Table& t, const uint8_t* lut,
                                           int64_t g0, int* __restrict__ err) {
   uint8_t* __restrict__ out = static_cast<uint8_t*>(out_v);
   BitReader r(words, n_words, pos, kFill<Table>);
+  const auto& d = levels(t);
   const int64_t g_end = g0 + c;
   uint32_t acc = 0u, q0 = 0u, q1 = 0u, q2 = 0u;  // the word being filled; the piece's words
   int64_t g = g0 & ~int64_t{15};
   for (; g < g_end; ++g) {
     uint32_t sym = 0u;
     if (g >= g0) {
-      const glz::Code k = decode_code(t, lut, r.window(), 0);
+      const glz::Code k = decode_code(d, lut, r.window(), 0);
       r.skip(k.len);
       sym = k.out;
       if (k.bad) *err = 1;
@@ -574,10 +590,8 @@ __device__ __forceinline__ void build(glz::DualTable& t, uint8_t* lut, const Cod
 template <int kStrategy>
 __device__ __forceinline__ void build(glz::ByteCanon<kStrategy>& t, uint8_t*,
                                       const Codebooks& cbs) {
-  glz::load_canon(t.c, cbs.fc, cbs.offs, cbs.min_len[0], cbs.max_len[0]);
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) t.symtab[i] = cbs.symtab[i];
-  if (threadIdx.x == 0) t.n_codes = cbs.n_codes[0];
-  __syncthreads();
+  glz::build_byte_canon(t, cbs.fc, cbs.offs, cbs.symtab, cbs.n_codes[0], cbs.min_len[0],
+                        cbs.max_len[0]);
 }
 
 template <int kStrategy>

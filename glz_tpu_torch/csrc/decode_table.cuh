@@ -273,19 +273,142 @@ __device__ __forceinline__ Code decode_untabled(const Canon& c, uint32_t n_codes
   return kStrategy == kBitwalk ? decode_bitwalk(c, n_codes, v) : decode_fast(c, n_codes, v);
 }
 
+// ---- the byte strategies' levels in registers ---------------------------------
+//
+// decode_bitwalk and decode_fast take one level at a time: a shared-memory
+// load of fc[len], a compare and a branch that the next level's load waits
+// on, and a warp runs as many levels as its longest code.  The byte forms'
+// kernels (ByteLevels) take levels 1..kRegLevels from registers instead,
+// every one of them for every code, with no load and no branch:
+//
+//   len = min_len + sum_{l = 1..kRegLevels} [x_l < lim[l]]
+//
+// x_l is the window v (fast), or the code accumulated over the window's
+// first l bits, acc = acc << 1 | bit (bit-walk); lim[l] is fc[l] (fast) or
+// first_code[l] = fc[l] >> (32 - l) (bit-walk) for l in [min_len, max_len],
+// and 0 (a compare that never holds) elsewhere.  Each compare is its
+// strategy's own at that level: [v < fc[l]] the fast scan's "go on",
+// [acc < first_code[l]] the bit-walk's "no match yet".  Where fc is
+// non-increasing over [min_len, max_len] and no fc[l] has a bit below its
+// top l (every table an encoder writes: ByteCanon's `counted`), the
+// compares that hold are a prefix of the levels from min_len, so their
+// count gives the level at which the strategy's loop stops, and so its
+// length.  A length past kRegLevels goes on from there, from shared memory,
+// as the loop does; any other table runs the loop.  The compares are
+// independent, so a code costs the same few instructions in every lane and
+// the warp no longer runs to its longest code.
+//
+// Each level is two or three instructions, one of them on the count's
+// chain: the compare is the sign of x_l - lim[l] on values below 2^31
+// (the bit-walk's acc and first_code[l] have l bits; the fast scan
+// compares v >> 1 with fc[l] >> 1, the same compare where fc[l]'s low bit
+// is 0), added to the count in one step; the bit-walk's accumulation is one
+// funnel shift (acc << 1 | the window's next bit, the window shifted off
+// the chain), where the compiler makes acc << 1 | bit a shift and a merge,
+// both on acc's chain (PERF.md has each form's time).
+constexpr int kRegLevels = 12;
+static_assert(kRegLevels >= 1 && kRegLevels <= 31, "acc and first_code stay below 2^31");
+
 // The codebooks of the strategies without a table: byte mode's one (with
-// its symbols) and the dual form's pair (set 0 for even tokens).
+// its symbols and its register levels' limits) and the dual form's pair
+// (set 0 for even tokens).
 template <int kStrategy>
 struct ByteCanon {
   Canon c;
   uint32_t n_codes;
   uint32_t symtab[256];
+  uint32_t lim[kRegLevels];  // level l's at lim[l - 1]
+  int counted;               // the compares that hold are a prefix of the levels
 };
 
 template <int kStrategy>
 struct DualCanon {
   Canon c[2];
   uint32_t n_codes[2];
+};
+
+// Level l's limit for strategy kStrategy (above), from the codebook's fc:
+// first_code[l] (bit-walk) or fc[l] >> 1 (fast).
+template <int kStrategy>
+__device__ __forceinline__ uint32_t level_limit(const uint32_t* __restrict__ fc, int l,
+                                                int min_len, int max_len) {
+  if (l < min_len || l > max_len) return 0u;
+  return kStrategy == kBitwalk ? fc[l] >> ((32 - l) & 31) : fc[l] >> 1;
+}
+
+// Whether the strategy's compares that hold are a prefix of the levels from
+// min_len, and each is the one the count takes: fc non-increasing over
+// [min_len, max_len], and each fc[l] without bits below its top l (then
+// acc_l >= first_code[l] exactly where v >= fc[l], and v >> 1 < fc[l] >> 1
+// exactly where v < fc[l]).
+template <int kStrategy>
+__device__ __forceinline__ int counted_levels(const uint32_t* __restrict__ fc, int min_len,
+                                              int max_len) {
+  int ok = 1;
+  for (int l = min_len; l < max_len; ++l) ok &= fc[l] >= fc[l + 1];
+  for (int l = min_len; l <= max_len && l < 32; ++l) ok &= (fc[l] << l) == 0u;
+  return ok;
+}
+
+// All threads of the block; synchronises before returning.
+template <int kStrategy>
+__device__ __forceinline__ void build_byte_canon(ByteCanon<kStrategy>& t,
+                                                 const uint32_t* __restrict__ fc_g,
+                                                 const uint32_t* __restrict__ off_g,
+                                                 const uint32_t* __restrict__ symtab_g,
+                                                 uint32_t n_codes, int min_len, int max_len) {
+  load_canon(t.c, fc_g, off_g, min_len, max_len);
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) t.symtab[i] = symtab_g[i];
+  for (int l = threadIdx.x; l < kRegLevels; l += blockDim.x)
+    t.lim[l] = level_limit<kStrategy>(fc_g, l + 1, min_len, max_len);
+  if (threadIdx.x == 0) {
+    t.n_codes = n_codes;
+    t.counted = counted_levels<kStrategy>(fc_g, min_len, max_len);
+  }
+  __syncthreads();
+}
+
+// A thread's copy of the register levels, made at the start of each run of
+// codes (a guess, a round or a write), and its decode of one code.
+template <int kStrategy>
+struct ByteLevels {
+  const ByteCanon<kStrategy>& t;
+  uint32_t lim[kRegLevels];
+  uint32_t n_codes;
+  int min_len, max_len;
+  bool counted;
+
+  __device__ __forceinline__ explicit ByteLevels(const ByteCanon<kStrategy>& b)
+      : t(b), n_codes(b.n_codes), min_len(b.c.min_len), max_len(b.c.max_len),
+        counted(b.counted != 0) {
+#pragma unroll
+    for (int l = 0; l < kRegLevels; ++l) lim[l] = b.lim[l];
+  }
+
+  // decode_untabled<kStrategy>(t.c, n_codes, w), with the levels above
+  __device__ __forceinline__ Code decode(uint32_t w) const {
+    if (!counted) return decode_untabled<kStrategy>(t.c, n_codes, w);
+    int len = min_len;
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int l = 1; l <= kRegLevels; ++l) {
+      if (kStrategy == kBitwalk) acc = __funnelshift_l(w << (l - 1), acc, 1);  // acc << 1 | bit
+      len += ((kStrategy == kBitwalk ? acc : w >> 1) - lim[l - 1]) >> 31;  // [x_l < lim[l]]
+    }
+    if (len > kRegLevels) {  // the deeper levels, one at a time from shared memory
+      if (kStrategy == kBitwalk) {
+        for (len = kRegLevels + 1; len <= max_len; ++len) {
+          acc = acc << 1 | ((w >> (32 - len)) & 1u);
+          if (len >= min_len && acc >= t.c.fc[len] >> ((32 - len) & 31)) break;
+        }
+      } else {
+        while (len <= max_len && w < t.c.fc[len]) ++len;
+      }
+    }
+    if (len > max_len) return {static_cast<uint32_t>(max_len), 0u, true};  // max_len >= 1
+    const uint32_t rank = (w >> ((32 - len) & 31)) + t.c.offs[len];
+    return {static_cast<uint32_t>(len), rank, rank >= n_codes};
+  }
 };
 
 }  // namespace glz

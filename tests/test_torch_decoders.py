@@ -10,6 +10,7 @@ glz_tpu runs as its own tests run it (JAX on the CPU); the port runs its
 plain versions (device='cpu').
 """
 
+import ctypes
 import os
 import pathlib
 import subprocess
@@ -28,6 +29,7 @@ from glz_tpu.core.codebook import build_codebook as tpu_build_codebook
 from glz_tpu.core.codebook import canonical_codebook as tpu_canonical_codebook
 from glz_tpu.models import huffword as tpu_hw
 
+import chip_smoke
 import glz_tpu_torch
 from glz_tpu_torch import cli
 from glz_tpu_torch import config as cfg
@@ -35,12 +37,19 @@ from glz_tpu_torch.core import container
 from glz_tpu_torch.core.codebook import codebook_from_lengths
 from glz_tpu_torch.models import huffword as port_hw
 from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables
+from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops import decode as bd
 from glz_tpu_torch.ops import decode_table as dt
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 STRATEGIES = ("table", "fast", "bitwalk")
+# The "at_depth" and "past_depth" codebooks' longest codes sit on either side
+# of the levels the byte strategy kernels hold in registers, "limit16" and
+# "limit17" on either side of 16 bits.
+LIMITS = {"capped": 9, "deep32": 32, "at_depth": chip_smoke.REG_LEVELS,
+          "past_depth": chip_smoke.REG_LEVELS + 1, "limit16": 16, "limit17": 17}
+BYTE_CASES = ["skewed", "uniform", "two_symbols", "one_symbol", *LIMITS]
 
 
 # ---- byte mode: each plain strategy against glz_tpu's -------------------------
@@ -56,11 +65,11 @@ def byte_case(name: str, n: int = 3000):
         sym = rng.choice([3, 200], n, p=[0.8, 0.2])
     elif name == "one_symbol":
         sym = np.full(n, 42)
-    else:  # made-up halving frequencies, symbols drawn evenly: "capped" cut to
-        # 9-bit codes by a length_limit, "deep32" to codes of up to 32 bits
+    else:  # made-up halving frequencies, symbols drawn evenly, cut to codes of
+        # LIMITS[name] bits by a length_limit ("capped" 9, "deep32" 32)
         freqs = np.zeros(256, np.int64)
         freqs[:40] = np.left_shift(1, 40 - np.arange(40))
-        limit = 9 if name == "capped" else 32
+        limit = LIMITS[name]
         cb = tpu_build_codebook(freqs, limit)
         assert cb.max_len == limit and np.count_nonzero(cb.lengths == limit) > 1
         return rng.integers(0, 40, n), cb
@@ -78,8 +87,7 @@ def port_byte_decode(words: np.ndarray, sbits: np.ndarray, n: int, S: int, lengt
 
 @pytest.mark.parametrize("variant", STRATEGIES)
 @pytest.mark.parametrize("S", [1, 7, 4096])
-@pytest.mark.parametrize("name", ["skewed", "uniform", "two_symbols", "one_symbol", "capped",
-                                  "deep32"])
+@pytest.mark.parametrize("name", BYTE_CASES)
 def test_byte_strategy_matches_glz_tpu(name, S, variant):
     """host_codec.decode_streams(variant=v) and the port's plain decode of
     the same v give the same symbols on host_codec.encode_streams' streams."""
@@ -106,7 +114,7 @@ def test_past_the_payload(variant):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("name", ["skewed", "two_symbols", "capped", "deep32"])
+@pytest.mark.parametrize("name", ["skewed", "two_symbols", *LIMITS])
 def test_steps_agree_on_every_window(name):
     """bitwalk_step and fast_step give the canonical scan's length and rank
     on every window of a complete code (sampled: every 2^-16 of the range,
@@ -120,6 +128,141 @@ def test_steps_agree_on_every_window(name):
     for step in (dt.bitwalk_step, dt.fast_step):
         ln, rank = step(v, fc, offs, cb.min_len, cb.max_len, cb.symbols.size)
         assert torch.equal(ln, want[0]) and torch.equal(rank, want[1])
+
+
+# ---- the byte strategy kernels' register levels, compiled for the CPU ----------
+
+# csrc/decode_table.cuh's byte strategy decode (glz::ByteLevels, built by
+# glz::build_byte_canon as each block builds it) and the loops it replaces
+# (decode_untabled), compiled with g++ as single-thread host code.
+LEVELS_HARNESS = r"""
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#include <cstdint>
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
+  s &= 31u;
+  return s ? hi << s | lo >> (32u - s) : hi;
+}
+struct Dim { unsigned x; };
+static Dim threadIdx{0}, blockDim{1};
+inline void __syncthreads() {}
+#include "decode_table.cuh"
+
+template <int kStrategy>
+static int run(const uint32_t* fc, const uint32_t* offs, uint32_t n_codes, int min_len,
+               int max_len, const uint32_t* w, long long n, uint32_t* got, uint32_t* loop) {
+  static glz::ByteCanon<kStrategy> t;
+  uint32_t symtab[256];
+  for (int i = 0; i < 256; ++i) symtab[i] = i;
+  glz::build_byte_canon(t, fc, offs, symtab, n_codes, min_len, max_len);
+  const glz::ByteLevels<kStrategy> d(t);
+  for (long long i = 0; i < n; ++i) {
+    const glz::Code c = d.decode(w[i]);
+    const glz::Code e = glz::decode_untabled<kStrategy>(t.c, n_codes, w[i]);
+    got[3 * i] = c.len, got[3 * i + 1] = c.out, got[3 * i + 2] = c.bad;
+    loop[3 * i] = e.len, loop[3 * i + 1] = e.out, loop[3 * i + 2] = e.bad;
+  }
+  return t.counted;
+}
+
+extern "C" int levels_decode(int strategy, const uint32_t* fc, const uint32_t* offs,
+                             uint32_t n_codes, int min_len, int max_len, const uint32_t* w,
+                             long long n, uint32_t* got, uint32_t* loop) {
+  return strategy == glz::kBitwalk
+             ? run<glz::kBitwalk>(fc, offs, n_codes, min_len, max_len, w, n, got, loop)
+             : run<glz::kFast>(fc, offs, n_codes, min_len, max_len, w, n, got, loop);
+}
+"""
+KERNEL_STRATEGIES = {"bitwalk": (1, dt.bitwalk_step), "fast": (2, dt.fast_step)}
+
+
+@pytest.fixture(scope="module")
+def levels_lib(tmp_path_factory):
+    d = tmp_path_factory.mktemp("levels")
+    (d / "harness.cc").write_text(LEVELS_HARNESS)
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(_kernels.CSRC), "-o",
+                    str(d / "levels.so"), str(d / "harness.cc")], check=True)
+    lib = ctypes.CDLL(str(d / "levels.so"))
+    P = ctypes.c_void_p
+    lib.levels_decode.argtypes = [ctypes.c_int, P, P, ctypes.c_uint32, ctypes.c_int,
+                                  ctypes.c_int, P, ctypes.c_longlong, P, P]
+    return lib
+
+
+def levels_decode(lib, strategy: int, fc, offs, n_codes: int, min_len: int, max_len: int, w):
+    """(counted, the register decode's and the loop's (len, out, bad) rows)."""
+    fc, offs, w = (np.ascontiguousarray(a, np.uint32) for a in (fc, offs, w))
+    got, loop = np.zeros((w.size, 3), np.uint32), np.zeros((w.size, 3), np.uint32)
+    counted = lib.levels_decode(strategy, fc.ctypes.data, offs.ctypes.data, n_codes, min_len,
+                                max_len, w.ctypes.data, w.size, got.ctypes.data,
+                                loop.ctypes.data)
+    return counted, got, loop
+
+
+def edge_windows(fc: np.ndarray, seed: int) -> np.ndarray:
+    """Every level's limit and its neighbours, both ends of every 2^-16 of
+    the range, and random windows."""
+    lim = fc.astype(np.int64)
+    slot = np.arange(1 << 16, dtype=np.int64) << 16
+    rnd = np.random.default_rng(seed).integers(0, 1 << 32, 1 << 14)
+    return (np.concatenate([lim - 1, lim, lim + 1, slot, slot | 0xFFFF, rnd, [0, -1]])
+            & 0xFFFFFFFF).astype(np.uint32)
+
+
+@pytest.mark.parametrize("variant", list(KERNEL_STRATEGIES))
+@pytest.mark.parametrize("name", BYTE_CASES)
+def test_register_levels_match_the_loop(levels_lib, name, variant):
+    """The byte strategy kernels' decode of one code from levels held in
+    registers gives what the strategy's loop over every level gives, and
+    what its plain step gives, on every window of the codebook's edges:
+    for codebooks whose longest code is short of, at and past the
+    registers' depth, and past 16 bits."""
+    cb = codebook_from_lengths(byte_case(name)[1].lengths)
+    fc = cb.first_code_left_justified()
+    offs = cb.decode_offsets()
+    w = edge_windows(fc, len(name))
+    code, step = KERNEL_STRATEGIES[variant]
+    counted, got, loop = levels_decode(levels_lib, code, fc, offs, cb.symbols.size, cb.min_len,
+                                       cb.max_len, w)
+    assert counted == 1  # every encoder's table takes the count
+    np.testing.assert_array_equal(got, loop)
+    ln, rank = step(torch.from_numpy(w.astype(np.int64)), torch.from_numpy(fc.view(np.int32)),
+                    torch.from_numpy(offs.view(np.int32)), cb.min_len, cb.max_len,
+                    cb.symbols.size)
+    np.testing.assert_array_equal(got[:, 0], ln.numpy())
+    np.testing.assert_array_equal(np.where(got[:, 2] == 1, -1, got[:, 1].astype(np.int64)),
+                                  rank.numpy())
+
+
+@pytest.mark.parametrize("variant", list(KERNEL_STRATEGIES))
+@pytest.mark.parametrize("order", ["random", "non_increasing"])
+def test_register_levels_on_any_table(levels_lib, order, variant):
+    """On tables no encoder writes (random limits, in any order or non-
+    increasing with bits below their levels), the decode still gives the
+    loop's length, rank and flag: such a table runs the loop itself."""
+    rng = np.random.default_rng(7 if order == "random" else 8)
+    for _ in range(40):
+        lo = int(rng.integers(1, 33))
+        hi = int(rng.integers(lo, 33))
+        fc = rng.integers(0, 1 << 32, 34, dtype=np.uint64).astype(np.uint32)
+        if order == "non_increasing":
+            fc = np.sort(fc)[::-1]
+        offs = rng.integers(0, 1 << 32, 34, dtype=np.uint64).astype(np.uint32)
+        _, got, loop = levels_decode(levels_lib, KERNEL_STRATEGIES[variant][0], fc, offs,
+                                     int(rng.integers(0, 257)), lo, hi, edge_windows(fc, lo))
+        np.testing.assert_array_equal(got, loop)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.SEAM_LIMITS))
+def test_seam_cases_on_the_cpu(case):
+    """chip_smoke.py's phase-3c cases at the register levels' seams (longest
+    codes on either side of the depth and of 16 bits) hold their codebook's
+    limit, and round-trip through each strategy's plain decode as the card's
+    check runs them (check_strategy_case on CPU tensors)."""
+    sym, n_valid, S, cb = chip_smoke.bitstream_case_data(case)
+    assert cb.max_len == chip_smoke.SEAM_LIMITS[case] and n_valid > 4 * S
+    chip_smoke.check_strategy_case(case, CPU)
 
 
 # ---- HuffWord: the dual plain strategies against _decode_tokens_host ----------

@@ -3,6 +3,7 @@
 card.
 
     python3 tools/stream_decode_phases.py      # from the repository root
+    python3 tools/stream_decode_phases.py --strategies [--parent DIR]
 
 csrc/bitstream.cu's decode_streams_sync_kernel (both forms) decodes each
 stream's
@@ -32,15 +33,38 @@ the phases at the kernel's table size across the swept subsequence lengths
 and at its subsequence length across the swept table sizes, and the
 meeting distances at DUAL_MEET_AT.  Both forms share the template, so one
 set of builds serves both.
+
+--strategies times the byte bit-walk and fast kernels instead (the same
+template, kStrategy kBitwalk and kFast) at the byte main path's shape:
+full, no_write and guess_only of each, and a counting build (levels):
+per code decoded (guesses, rounds and the write), the levels its lane
+walks (the bit-walk's len, the fast scan's len - min_len + 1), the levels
+its warp runs on that code step (the largest of the lanes that step
+together), the lanes that step together, and for each depth k of
+LEVEL_DEPTHS the share of codes longer than k and of warp steps with such
+a code.  It prints each build's registers and spills (ptxas -v).  Then
+the candidates of CANDIDATES, each timed whole and checked against the
+input: the source with other levels held in registers (decode_table.cuh's
+kRegLevels), the strategy kernels at fewer blocks an SM (more registers a
+thread), and the designs that lost (the count as a compare, the
+accumulation as a shift and a merge, the first design that had both, the
+limits packed two to a register).
+--parent DIR also builds the csrc/ directory DIR (another commit's; one
+without kRegLevels gets no candidates) and times it the same way in the
+same process, parent and source in turns.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import pathlib
+import re
+import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -74,6 +98,101 @@ QUEUE_DUAL = "  uint32_t q0 = 0u, q1 = 0u, q2 = 0u;  // the piece's ranks so far
 PIECE_DUAL = "        *reinterpret_cast<uint4*>(out + g - 3) = make_uint4(q0, q1, q2, rank);"
 TAIL_DUAL = "  const int w = static_cast<int>(g & 3);  // the last piece's ranks: the queue's last w"
 MEET_BITS = "constexpr int kMeetBits = 128;"
+# the byte strategy decode's output step (the same in every version since
+# the strategies' port): where the counting build counts each code
+CODE_OUT = "  c.out = t.symtab[c.out & 255u];\n  return c;\n"
+LEVEL_DEPTHS = tuple(range(8, 17))
+BYTE_STRATEGIES = {"bitwalk": 1, "fast": 2}  # decode_table.cuh: kBitwalk, kFast
+# Edits of decode_table.cuh's register levels, each a design that lost
+# (PERF.md).  COUNT_LINE and ACC_LINE are the source's.
+COUNT_LINE = ("      len += ((kStrategy == kBitwalk ? acc : w >> 1) - lim[l - 1]) >> 31;"
+              "  // [x_l < lim[l]]")
+ACC_LINE = ("      if (kStrategy == kBitwalk) acc = __funnelshift_l(w << (l - 1), acc, 1);"
+            "  // acc << 1 | bit")
+FAST_LIMIT = "  return kStrategy == kBitwalk ? fc[l] >> ((32 - l) & 31) : fc[l] >> 1;"
+# the count as a compare and an add (what the compiler makes a compare, an
+# add and a predicated move, two of them on the count's chain)
+COMPARE_COUNT = ((COUNT_LINE, "      len += (kStrategy == kBitwalk ? acc : w >> 1) < lim[l - 1]"
+                              " ? 1 : 0;"),)
+# acc << 1 | bit written out, which the compiler makes a shift off acc's
+# chain and a shift and a merge on it
+SHIFT_OR_ACC = ((ACC_LINE, "      if (kStrategy == kBitwalk) acc = acc << 1 | ((w >> (32 - l))"
+                           " & 1u);"),)
+# the first design: both of the above, the fast scan comparing v with fc[l]
+FIRST_DESIGN = (
+    (FAST_LIMIT, "  return kStrategy == kBitwalk ? fc[l] >> ((32 - l) & 31) : fc[l];"),
+    (COUNT_LINE, "      len += (kStrategy == kBitwalk ? acc : w) < lim[l - 1] ? 1 : 0;"),
+    *SHIFT_OR_ACC)
+# the bit-walk's accumulated code taken whole at each level (w >> (32 - l),
+# the value acc << 1 | bit reaches), not a bit a level: what the
+# accumulation costs
+SHIFT_ACC = ((ACC_LINE, "      if (kStrategy == kBitwalk) acc = w >> (32 - l);"),)
+# the limits packed two to a register (16 bits; levels up to 16, an even
+# count): the fast scan compares v >> 16 with fc[l] >> 16
+PACKED = (
+    (FAST_LIMIT, "  return kStrategy == kBitwalk ? fc[l] >> ((32 - l) & 31) : fc[l] >> 16;"),
+    ("  uint32_t lim[kRegLevels];\n  uint32_t n_codes;",
+     "  uint32_t lim[kRegLevels / 2];\n  uint32_t n_codes;"),
+    ("    for (int l = 0; l < kRegLevels; ++l) lim[l] = b.lim[l];",
+     "    for (int l = 0; l < kRegLevels / 2; ++l) lim[l] = b.lim[2 * l] | b.lim[2 * l + 1] << 16;"),
+    (COUNT_LINE, "      len += ((kStrategy == kBitwalk ? acc : w >> 16) -\n"
+                 "              ((l & 1) ? lim[(l - 1) / 2] & 0xFFFFu : lim[(l - 1) / 2] >> 16))"
+                 " >> 31;"))
+# bitstream.cu's byte launch: the strategy kernels at b blocks an SM
+# (their registers 65536 / (256 b), where the table stays at 4)
+BYTE_LAUNCH = "  decode_streams_sync_kernel<false, kSyncThreads, kSyncSubs, 4, kStrategy>"
+
+
+def blocks(b: int) -> tuple[tuple[str, str], ...]:
+    return ((BYTE_LAUNCH, "  decode_streams_sync_kernel<false, kSyncThreads, kSyncSubs, "
+                          f"kStrategy == glz::kTable ? 4 : {b}, kStrategy>"),)
+
+
+# The candidates of --strategies, each the source with decode_table.cuh's
+# kRegLevels set (where given) and these edits made.
+CANDIDATES = {
+    **{f"regs{k}": (k, ()) for k in (8, 10, 14, 16)},
+    **{f"blocks{b}": (None, blocks(b)) for b in (2, 3)},
+    **{f"regs{k}_blocks3": (k, blocks(3)) for k in (10, 14)},
+    "compare_count": (None, COMPARE_COUNT),
+    "shift_or_acc": (None, SHIFT_OR_ACC),
+    "first_design": (None, FIRST_DESIGN),
+    "first_design_blocks3": (None, FIRST_DESIGN + blocks(3)),
+    "shift_acc": (None, SHIFT_ACC),
+    **{f"packed{k}": (k, PACKED) for k in (12, 16)},
+    **{f"packed{k}_blocks3": (k, PACKED + blocks(3)) for k in (12, 16)},
+}
+LEVEL_COUNTER = """
+// counts[0..3]: codes, their lanes' levels, warp steps, the warps' levels;
+// [4 + i]: warp steps with a code longer than LEVEL_DEPTHS[i]; [4 + n + i]:
+// such codes
+__device__ unsigned long long probe_levels_counts[4 + 2 * %(n)d];
+__device__ __forceinline__ void probe_levels(uint32_t len, int min_len, bool bitwalk) {
+  const unsigned mask = __activemask();
+  const unsigned lv = bitwalk ? len : len - static_cast<unsigned>(min_len) + 1u;
+  const unsigned top = __reduce_max_sync(mask, lv);
+  const unsigned deepest = __reduce_max_sync(mask, len);
+  const unsigned sum = __reduce_add_sync(mask, lv);
+  unsigned past[%(n)d];
+#pragma unroll
+  for (int i = 0; i < %(n)d; ++i) past[i] = __popc(__ballot_sync(mask, len > %(k0)d + i));
+  if ((threadIdx.x & 31) == static_cast<unsigned>(__ffs(mask) - 1)) {
+    atomicAdd(&probe_levels_counts[0], static_cast<unsigned long long>(__popc(mask)));
+    atomicAdd(&probe_levels_counts[1], static_cast<unsigned long long>(sum));
+    atomicAdd(&probe_levels_counts[2], 1ull);
+    atomicAdd(&probe_levels_counts[3], static_cast<unsigned long long>(top));
+    for (int i = 0; i < %(n)d; ++i) {
+      if (deepest > %(k0)d + i) atomicAdd(&probe_levels_counts[4 + i], 1ull);
+      atomicAdd(&probe_levels_counts[4 + %(n)d + i], static_cast<unsigned long long>(past[i]));
+    }
+  }
+}
+extern "C" void probe_levels_take(unsigned long long* out) {
+  unsigned long long zero[4 + 2 * %(n)d] = {};
+  cudaMemcpyFromSymbol(out, probe_levels_counts, sizeof(zero));
+  cudaMemcpyToSymbol(probe_levels_counts, zero, sizeof(zero));
+}
+""" % {"n": len(LEVEL_DEPTHS), "k0": LEVEL_DEPTHS[0]}
 COUNTER = """
 extern "C" unsigned long long probe_take(int which) {
   unsigned long long r[3], zero[3] = {0, 0, 0};
@@ -115,31 +234,87 @@ def variants(src: str) -> dict[str, str]:
     return out
 
 
-def build(tmp: pathlib.Path) -> dict[str, ctypes.CDLL]:
-    src = (_kernels.CSRC / "bitstream.cu").read_text()
+def strategy_variants(src: str, header: str) -> dict[str, tuple[str, str]]:
+    """(bitstream.cu, decode_table.cuh) of each --strategies build: the
+    phases, the counting build and, where the source holds register levels
+    (kRegLevels), the candidates of CANDIDATES."""
+    phase = {name: text for name, text in variants(src).items()
+             if name in ("full", "no_write", "guess_only")}
+    if src.count(CODE_OUT) != 1:
+        raise RuntimeError(f"bitstream.cu no longer has the probe's marker:\n{CODE_OUT}")
+    levels = src.replace(CODE_OUT, "  probe_levels(c.len, t.c.min_len, kStrategy == glz::kBitwalk);\n"
+                         + CODE_OUT)
+    levels = levels.replace('#include "decode_table.cuh"\n',
+                            '#include "decode_table.cuh"\n' + LEVEL_COUNTER, 1)
+    out = {name: (text, header) for name, text in phase.items()}
+    out["levels"] = (levels, header)
+    if "constexpr int kRegLevels = " not in header:
+        return out  # a source from before the register levels: no candidates
+    for name, (levels_held, edits) in CANDIDATES.items():
+        text, hdr = src, header
+        if levels_held is not None:
+            hdr, n = re.subn(r"constexpr int kRegLevels = \d+;",
+                             f"constexpr int kRegLevels = {levels_held};", hdr)
+            if n != 1:
+                raise RuntimeError(f"candidate {name}: decode_table.cuh has no one kRegLevels")
+        for old, new in edits:
+            if hdr.count(old) + text.count(old) != 1:
+                raise RuntimeError(f"candidate {name}: the sources have no one\n{old}")
+            hdr, text = hdr.replace(old, new), text.replace(old, new)
+        out[name] = (text, hdr)
+    return out
+
+
+def start_builds(tmp: pathlib.Path, sources: dict[str, tuple[str, str]]
+                 ) -> dict[str, subprocess.Popen]:
+    """Start one nvcc for each variant (name -> (bitstream.cu,
+    decode_table.cuh)), each in its own directory under tmp, all together."""
     procs = {}
-    for name, text in variants(src).items():
-        path = tmp / f"{name}.cu"
-        path.write_text(text)
+    for name, (text, header) in sources.items():
+        d = tmp / name
+        d.mkdir()
+        (d / "bitstream.cu").write_text(text)
+        (d / "decode_table.cuh").write_text(header)
         procs[name] = subprocess.Popen(
-            [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-I", str(_kernels.CSRC), "-shared",
-             "-o", str(tmp / f"{name}.so"), str(path)],
+            [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+             str(d / "bitstream.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def finish_builds(tmp: pathlib.Path, procs: dict[str, subprocess.Popen]
+                  ) -> dict[str, ctypes.CDLL]:
+    """Wait for start_builds' nvcc and load each library, its ptxas -v
+    report as lib.ptxas."""
     libs = {}
     for name, proc in procs.items():
-        _, err = proc.communicate()
+        out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
-        lib = ctypes.CDLL(str(tmp / f"{name}.so"))
-        for entry in ("glz_decode_streams", "glz_decode_streams_dual"):
+        lib = ctypes.CDLL(str(tmp / name / "lib.so"))
+        for entry in ("glz_decode_streams", "glz_decode_streams_dual",
+                      "glz_decode_streams_strategy"):
             fn = getattr(lib, entry)
             fn.argtypes = _kernels._SIGNATURES[entry]
             fn.restype = ctypes.c_int
-        libs[name] = lib
-    for name, lib in libs.items():
+        lib.ptxas = out + err
         if name.endswith("counted"):
             lib.probe_take.restype = ctypes.c_ulonglong
+        if name.endswith("levels"):
+            lib.probe_levels_take.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+        libs[name] = lib
     return libs
+
+
+def build(tmp: pathlib.Path, sources: dict[str, tuple[str, str]] | None = None
+          ) -> dict[str, ctypes.CDLL]:
+    """Build each variant (by default variants() of the repository's
+    bitstream.cu) and load it."""
+    if sources is None:
+        header = (_kernels.CSRC / "decode_table.cuh").read_text()
+        sources = {name: (text, header) for name, text in
+                   variants((_kernels.CSRC / "bitstream.cu").read_text()).items()}
+    return finish_builds(tmp, start_builds(tmp, sources))
 
 
 def counts(lib, run) -> tuple[int, int, int]:
@@ -213,7 +388,135 @@ def dual_main(libs, dev: torch.device, stream) -> None:
           f"bits, separators {cbs[1].min_len}-{cbs[1].max_len})", flush=True)
 
 
+def byte_main_inputs(dev: torch.device):
+    """(input, container, codebook, words, starts, (fc, offsets, symtab)) of
+    the byte main path: 512 MiB of the benchmark corpus under DEFAULT."""
+    arr = chip_smoke.make_corpus(chip_smoke.MAIN_BYTES)
+    f = container.read_container(gt.compress(arr, conf=cfg.DEFAULT))
+    cb = codebook_from_lengths(container.decode_byte_codebook(f.codebook_blob))
+    words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
+    sb = f.stream_bits.astype(np.int64)
+    starts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
+    return arr, f, cb, words, starts, decode_tables(cb, dev)
+
+
+def strategy_runner(strategy: int, f, cb, words, starts, tables, out, err, stream):
+    """run(lib): one launch of lib's byte strategy kernel on the inputs."""
+    fc, offs, symtab = tables
+
+    def run(lib):
+        rc = lib.glz_decode_streams_strategy(
+            strategy, _kernels.ptr(words), words.numel(), _kernels.ptr(starts),
+            starts.numel(), f.n_symbols, f.stream_symbols, _kernels.ptr(fc),
+            _kernels.ptr(offs), _kernels.ptr(symtab), cb.min_len, cb.max_len,
+            cb.symbols.size, bd.SUBSEQ_BITS, _kernels.ptr(err), _kernels.ptr(out), stream)
+        if rc:
+            raise RuntimeError(f"glz_decode_streams_strategy: CUDA error {rc}")
+    return run
+
+
+def level_counts(lib, run) -> dict[str, float]:
+    """The counting build's figures over one run (see the docstring)."""
+    n = 4 + 2 * len(LEVEL_DEPTHS)
+    got = (ctypes.c_ulonglong * n)()
+    lib.probe_levels_take(got)
+    run(lib)
+    torch.cuda.synchronize()
+    lib.probe_levels_take(got)
+    codes, lane, steps, warp = got[:4]
+    out = {"codes": codes, "lane_levels": lane / codes, "warp_levels": warp / steps,
+           "lanes_a_step": codes / steps}
+    for i, k in enumerate(LEVEL_DEPTHS):
+        out[f"steps_past_{k}"] = got[4 + i] / steps
+        out[f"codes_past_{k}"] = got[4 + len(LEVEL_DEPTHS) + i] / codes
+    return out
+
+
+def strategies_main(parent: pathlib.Path | None, dev: torch.device, smi: str) -> None:
+    """--strategies: the byte bit-walk and fast kernels' phases, levels,
+    registers and candidates (see the docstring)."""
+    arr, f, cb, words, starts, tables = byte_main_inputs(dev)
+    want = torch.from_numpy(arr).to(dev)
+    out = torch.empty_like(want)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    sources = {"source": _kernels.CSRC}
+    if parent is not None:
+        sources = {"parent": parent, **sources}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        builds = {label: strategy_variants((d / "bitstream.cu").read_text(),
+                                           (d / "decode_table.cuh").read_text())
+                  for label, d in sources.items()}
+        libs_all = build(pathlib.Path(tmp), {f"{label}.{name}": v for label, b in builds.items()
+                                             for name, v in b.items()})
+        libs = {label: {name: libs_all[f"{label}.{name}"] for name in b}
+                for label, b in builds.items()}
+        print(f"strategies: {len(libs_all)} builds in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for label, lb in libs.items():
+            for name, lib in lb.items():
+                regs = [line for line in chip_smoke.ptxas_summary(lib.ptxas)
+                        if line.startswith("decode_streams_sync_kernel") and ",bytes," in line
+                        and not line.split(":")[0].endswith("table>")]
+                print(f"registers {label} {name}: {'; '.join(regs)}", flush=True)
+        for v, code in BYTE_STRATEGIES.items():
+            run = strategy_runner(code, f, cb, words, starts, tables, out, err, stream)
+            for label, lb in libs.items():
+                for name, lib in lb.items():
+                    if name == "levels":
+                        continue
+                    out.zero_()
+                    run(lib)
+                    torch.cuda.synchronize()
+                    if int(err.item()) or (name not in ("no_write", "guess_only")
+                                           and not torch.equal(out, want)):
+                        raise RuntimeError(f"{v} {label} {name}: the decode differs from the input")
+            # the times: each build twice, the labels in turns (parent, source,
+            # source, parent)
+            order = list(libs)
+            times: dict[tuple[str, str], list[dict]] = {}
+            for turn in (order, order[::-1]):
+                for label in turn:
+                    for name, lib in libs[label].items():
+                        if name != "levels":
+                            times.setdefault((label, name), []).append(
+                                chip_smoke.cuda_spread(lambda lib=lib: run(lib)))
+            for label in order:
+                ms = {name: statistics.median(t["ms"] for t in times[(label, name)])
+                      for (lb, name) in times if lb == label}
+                spread = {name: (min(t["min_ms"] for t in times[(label, name)]),
+                                 max(t["max_ms"] for t in times[(label, name)]))
+                          for (lb, name) in times if lb == label}
+                medians = ", ".join(f"{t['ms']:.3f}" for t in times[(label, "full")])
+                print(f"{v} {label}: full {ms['full']:.3f} ms (medians of 9: {medians}; "
+                      f"{spread['full'][0]:.3f}-{spread['full'][1]:.3f}) = guess "
+                      f"{ms['guess_only']:.3f} + rounds {ms['no_write'] - ms['guess_only']:.3f} + "
+                      f"write {ms['full'] - ms['no_write']:.3f}", flush=True)
+                cands = [n for n in ms if n in CANDIDATES]
+                if cands:
+                    print(f"{v} {label} candidates: " + "; ".join(
+                        f"{n} {ms[n]:.3f} ms ({spread[n][0]:.3f}-{spread[n][1]:.3f})"
+                        for n in cands), flush=True)
+                c = level_counts(libs[label]["levels"], run)
+                print(f"{v} {label} levels: {c['codes']} codes decoded; a lane "
+                      f"{c['lane_levels']:.2f} levels a code, its warp {c['warp_levels']:.2f} "
+                      f"a code step, {c['lanes_a_step']:.2f} lanes a step; codes longer than "
+                      + ", ".join(f"{k}: {100 * c[f'codes_past_{k}']:.3f}% (warp steps "
+                                  f"{100 * c[f'steps_past_{k}']:.2f}%)" for k in LEVEL_DEPTHS),
+                      flush=True)
+    print(f"strategy phases at 512 MiB DEFAULT ({f.n_streams} streams of {f.stream_symbols}, "
+          f"codes {cb.min_len}-{cb.max_len} bits, T {bd.SUBSEQ_BITS}) on "
+          f"{torch.cuda.get_device_name(0)} ({smi})", flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--strategies", action="store_true",
+                    help="the byte bit-walk and fast kernels instead of the table decodes")
+    ap.add_argument("--parent", type=pathlib.Path,
+                    help="with --strategies: another csrc/ directory, timed beside this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("stream_decode_phases: no CUDA device", file=sys.stderr)
         return 2
@@ -221,13 +524,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    arr = chip_smoke.make_corpus(chip_smoke.MAIN_BYTES)
-    f = container.read_container(gt.compress(arr, conf=cfg.DEFAULT))
-    cb = codebook_from_lengths(container.decode_byte_codebook(f.codebook_blob))
-    words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
-    sb = f.stream_bits.astype(np.int64)
-    starts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
-    fc, offs, symtab = decode_tables(cb, dev)
+    if args.strategies:
+        strategies_main(args.parent, dev, smi)
+        return 0
+    arr, f, cb, words, starts, (fc, offs, symtab) = byte_main_inputs(dev)
     want = torch.from_numpy(arr).to(dev)
     out = torch.empty_like(want)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
