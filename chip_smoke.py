@@ -57,8 +57,10 @@ last):
      the pack and decode_streams_dual on HuffWord cases (S 16384, odd S,
      nonword-first text, one token (an empty dictionary), a >64K-word
      vocabulary, codes of 27-32 bits, 256 equiprobable 8-bit words with
-     1-3-bit separators (its decode time and rounds are printed)); each
-     case also round-trips;
+     1-3-bit separators (its decode time and rounds are printed), and word
+     and separator codes whose longest are DUAL_LEVELS and one bit past
+     them: on either side of the levels the dual strategy kernels hold in
+     registers, words even and odd); each case also round-trips;
   4. byte main path: compress + decompress of a 512 MiB corpus under
      THROUGHPUT with checksum, launch counts read just after;
   4b. HuffWord main path: compress + decompress of 100 MiB of English-like
@@ -166,7 +168,9 @@ last):
      and fast scan's counting build (tools/stream_decode_phases.py's,
      compiled beside the library in phase 2) on the whole container: the
      levels a lane walks a code, the levels its warp runs a code step, and
-     the codes that go past the register levels.
+     the codes that go past the register levels; and the dual ones' (the
+     same build) on phase 4d's container, the word and separator codes
+     apart.
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -190,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 import zlib
 
@@ -906,12 +911,23 @@ def check_bitstream_case(name: str, dev: torch.device) -> float | None:
     return None
 
 
+# The levels the dual strategy kernels hold in registers (decode_table.cuh):
+# the deep set's (the longer codes) and the shallow set's.
+DUAL_LEVELS = tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                                  (_kernels.CSRC / "decode_table.cuh").read_text()).group(1))
+                    for name in ("kDeepLevels", "kShallowLevels"))
+# the (word, separator) longest codes of each HuffWord seam case: at and one
+# bit past each set's register levels (words even in the first, odd in the
+# second)
+HUFFWORD_SEAM_LIMITS = {"hw_at_depth_s4097": DUAL_LEVELS,
+                        "hw_past_depth_s8191": (DUAL_LEVELS[0] + 1, DUAL_LEVELS[1] + 1)}
 # name -> tokens per stream; HuffWord cases of K6 (lj and length tables),
 # the pack and decode_streams_dual
 HUFFWORD_BITSTREAM_CASES = {"hw_s16384": 1 << 14, "hw_odd_s1001": 1001,
                             "hw_nonword_s777": 777, "hw_one_token": 1 << 14,
                             "hw_bigvocab_s4097": 4097, "hw_deep32_s999": 999,
-                            "hw_uniform8_s16384": 1 << 14}
+                            "hw_uniform8_s16384": 1 << 14, "hw_at_depth_s4097": 4097,
+                            "hw_past_depth_s8191": 8191}
 UNIFORM8_WORD_STREAMS = 64  # 2^20 tokens: 256 equiprobable words (8-bit codes), 1-3-bit separators
 
 
@@ -921,8 +937,26 @@ def huffword_bitstream_case(name: str):
     case draws tokens from made-up dictionaries whose word codes reach 32
     bits (no text has such a vocabulary at a test's size); the uniform8
     case from 256 equiprobable words and four separators of 1-3 bits, so
-    the stream decode's guesses meet the true chain late."""
+    the stream decode's guesses meet the true chain late; the seam cases
+    from made-up dictionaries whose longest codes are HUFFWORD_SEAM_LIMITS'
+    (the words drawn half from a geometric law, half evenly, so most of the
+    latter are of the longest length)."""
     S = HUFFWORD_BITSTREAM_CASES[name]
+    if name in HUFFWORD_SEAM_LIMITS:
+        deep, shallow = HUFFWORD_SEAM_LIMITS[name]
+        rng = np.random.default_rng(deep)
+        cb_w = build_codebook(np.left_shift(1, np.maximum(40 - np.arange(200), 0)), deep)
+        cb_n = build_codebook(np.left_shift(1, np.maximum(shallow - 1 - np.arange(shallow + 1),
+                                                          0)), 32)
+        require((cb_w.max_len, cb_n.max_len) == (deep, shallow),
+                f"{name}: longest codes {cb_w.max_len} and {cb_n.max_len}")
+        word_first = "at_depth" in name
+        ids = rng.integers(0, shallow + 1, 30_001)
+        words = ids[0 if word_first else 1::2]
+        words[:] = np.where(rng.random(words.size) < 0.5,
+                            np.minimum(rng.geometric(0.3, words.size) - 1, 199),
+                            rng.integers(0, 200, words.size))
+        return ids, word_first, [cb_w, cb_n], 200, shallow + 1, S
     if "uniform8" in name:  # every word code 8 bits, separators of 1-3 bits
         rng = np.random.default_rng(0x0808)
         cb_w = build_codebook(np.ones(256, np.int64), 32)
@@ -2256,9 +2290,10 @@ def trace_phase(card: str, arr: np.ndarray, text: bytes, digests: dict[str, str]
 # ---- 9. the decoder strategies ---------------------------------------------------
 
 class LevelsBuild:
-    """The counting build of the byte strategy kernels: the "levels" variant
-    of csrc/bitstream.cu that tools/stream_decode_phases.py makes, its nvcc
-    started beside the library's (phase 2) and its library run in phase 9.
+    """The counting build of the strategy kernels, byte and dual: the
+    "levels" variant of csrc/bitstream.cu that tools/stream_decode_phases.py
+    makes, its nvcc started beside the library's (phase 2) and its library
+    run in phase 9.
     close() stops the compiler if it still runs and removes the build."""
 
     def __init__(self):
@@ -2358,9 +2393,9 @@ def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob
     routed kernel and no other stream decode; then the kernels' rows: each
     new kernel on the whole container against its plain version (and the
     input, or the tokens), timed as phase 5 times kernels, beside the table
-    kernel's time in the same call, and their registers; and the byte ones'
-    counting build (LevelsBuild) on the whole container: the levels a lane
-    walks a code and its warp a code step."""
+    kernel's time in the same call, and their registers; and the counting
+    build (LevelsBuild) on each whole container: the levels a lane walks a
+    code and its warp a code step (in the dual form each set's apart)."""
     t_phase = time.perf_counter()
     cases = (*BITSTREAM_CASES, *HUFFWORD_BITSTREAM_CASES)
     for case in cases:
@@ -2465,6 +2500,23 @@ def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob
              for v in STRATEGIES[1:]]
     dual_ms = spread_text(cuda_spread(functools.partial(decode_dual, bd.decode_streams_dual,
                                                         "table")))
+    word, sep = (even, odd) if word_first else (odd, even)
+    sets = {"word": (word.min_len, word.max_len), "separator": (sep.min_len, sep.max_len)}
+    hinp = types.SimpleNamespace(words=hwords, starts=hstarts, T=T, S=hf.stream_symbols, fc=fc,
+                                 off=off, even=even, odd=odd,
+                                 len_range=((even.min_len, odd.min_len),
+                                            (even.max_len, odd.max_len)))
+    for v in STRATEGIES[1:]:
+        ranks = torch.empty(T, dtype=torch.int32, device=dev)
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        c = levels.tool.dual_level_counts(lib, levels.tool.dual_strategy_runner(
+            bd.STRATEGIES[v], hinp, ranks, err, stream), sets)
+        require(int(err.item()) == 0, f"levels build: dual {v} flagged a code")
+        same_as_tokens(ranks)
+        print(levels.tool.dual_levels_line(v, "at the main shape (the counting build)", c)
+              + f"; {DUAL_LEVELS[0]} and {DUAL_LEVELS[1]} levels in registers (deep set, "
+              "shallow set)", flush=True)
+        del ranks
     print(f"time: the table kernels in the same call: decode_streams {table_ms}; "
           f"decode_streams_dual {dual_ms} on {card}", flush=True)
     regs = [line for line in ptxas_summary(_kernels.build_log())

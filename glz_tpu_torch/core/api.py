@@ -8,7 +8,7 @@ host codec, as in glz_tpu).  `backend` picks the container as glz_tpu's
 does: "host" (the default) writes the host encoder's byte container (one
 bit stream, payload bytes up to the last code bit), "device" the device
 path's (word-aligned dispatches), and a HuffWord "device" request writes a
-lockstep container.  decompress's `variant` picks the decoder strategy
+lockstep container; like glz_tpu, any backend but "device" means "host".  decompress's `variant` picks the decoder strategy
 as glz_tpu's does (see decompress).  Every backend and strategy runs on
 the card; device='cpu' runs the kernels' plain versions.  Every entry
 point passes `device` down to each call it makes.
@@ -23,14 +23,6 @@ import numpy as np
 
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container
-
-BACKENDS = ("host", "device")
-
-
-def check_backend(backend: str) -> None:
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-
 
 def _plan_streams(n_symbols: int, conf: cfg.GlzConfig) -> int:
     """Pick symbols-per-stream: honor conf.stream_symbols but cap stream
@@ -73,7 +65,6 @@ def compress(data: bytes, mode: int = cfg.MODE_BYTE, backend: str = "host",
     mode a bitstream container ("host") or a lockstep one ("device").
 
     device: None runs on the card; 'cpu' runs the kernels' plain versions."""
-    check_backend(backend)
     if mode == cfg.MODE_HUFFWORD:
         from glz_tpu_torch.models.huffword import compress_huffword
         return compress_huffword(data, conf, backend=backend, device=device)
@@ -106,7 +97,6 @@ def decompress(blob: bytes, backend: str = "host", variant: str = cfg.DECODER_TA
     from glz_tpu_torch.models.canonical_byte import decompress_bytes_device, resolve_device
     from glz_tpu_torch.models.huffword import decompress_huffword
 
-    check_backend(backend)
     resolve_device(device)
     f = container.read_container(blob)
     if f.mode == cfg.MODE_HUFFWORD:
@@ -140,7 +130,6 @@ def compress_batch(datas: list[bytes], mode: int = cfg.MODE_BYTE, backend: str =
     whole file list and every container uses it.  Each container still
     embeds the codebook and decodes alone; compress_archive stores it once.
     conf.layout and backend select the container as in compress()."""
-    check_backend(backend)
     if shared_codebook:
         return _compress_batch_shared(datas, mode, backend, conf, pipeline, device)
     return _pipelined(

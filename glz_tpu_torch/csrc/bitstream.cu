@@ -142,12 +142,14 @@ struct BitReader {
 // the write (step 3): one that matches no codeword sets *err, which the
 // wrapper turns into an error (a guess may start anywhere, so its codes are
 // not checked).  They compute the table's function on the same bytes, so
-// share its bound.  The dual forms take each code as the loops do, a
-// dependent shared-memory load a level scanned or a bit walked, and a warp
-// runs to its longest code; the byte forms take the levels up to
-// glz::kRegLevels from registers, all of them for every code with no load
-// and no branch (glz::ByteLevels), so every lane's code costs the same few
-// instructions (PERF.md).
+// share its bound.  Neither runs the loops' dependent shared-memory load a
+// level: the byte forms take the levels up to glz::kRegLevels from
+// registers, all of them for every code with no load and no branch
+// (glz::ByteLevels), so every lane's code costs the same few instructions;
+// the dual forms step in parity pairs, each code of a pair on its own
+// set's register levels (glz::DualLevels: the deep set's kDeepLevels, the
+// shallow set's kShallowLevels), so no lane selects between the sets
+// (PERF.md).
 // A decoder's state is its bit position and, in the dual form, its next
 // token's parity (state = window-relative position << 1 | parity; the byte
 // form's parity is always 0).  Stream k's bits are [starts[k], starts[k+1])
@@ -195,8 +197,9 @@ struct BitReader {
 // stream (2^18-symbol streams are ~2,300 subsequences of 1,024 bits).  The
 // dual form's streams are short (16,384 tokens, ~87,000 bits on the
 // HuffWord benchmark: ~230 subsequences of 384 bits), so its blocks are 128
-// threads x 2 subsequences, as many as fit on the card (8 an SM), each
-// building its two tables once and walking the streams with a stride.  An
+// threads x 2 subsequences, as many as fit on the card (8 an SM; 7 for the
+// strategies without a table, whose register levels take 70 registers),
+// each building its tables once and walking the streams with a stride.  An
 // empty dictionary's codebook is (0, 0) and decodes a length of 0: no
 // valid token uses it, but a guess of the wrong parity can, so the guess
 // and the rounds advance by at least one bit and never stand still.
@@ -406,15 +409,10 @@ __device__ __forceinline__ glz::Code decode_code(const glz::ByteLevels<kStrategy
   return c;
 }
 
-template <int kStrategy>
-__device__ __forceinline__ glz::Code decode_code(const glz::DualCanon<kStrategy>& t,
-                                                 const uint8_t*, uint32_t v, int par) {
-  return glz::decode_untabled<kStrategy>(t.c[par], t.n_codes[par], v);
-}
-
 // What a run of codes (decode_span, write_run) decodes with: the table
 // itself, or for the byte strategies a register copy of its levels
-// (glz::ByteLevels), made once a run.
+// (glz::ByteLevels), made once a run (the dual strategies' runs, below,
+// make glz::DualLevels).
 template <class Table>
 __device__ __forceinline__ const Table& levels(const Table& t) { return t; }
 template <int kStrategy>
@@ -448,6 +446,48 @@ __device__ __forceinline__ int64_t decode_span(const Table& t, const uint8_t* lu
   }
   *pos = p;
   *par = q & 1;
+  return n;
+}
+
+// decode_span for the dual strategies, in parity pairs: a shallow-set code
+// first where the run starts at its parity, then (deep, shallow) pairs.
+// It and the dual strategies' write_run are called, not inlined: the kernel
+// runs decode_span from eight places (the guess's two runs and a round's
+// two, for each of a thread's two subsequences) and write_run from two, and
+// ten inlined copies of the register decodes outgrow the instruction cache
+// (PERF.md: the bit-walk 1.304 ms inlined, 0.958 called).
+template <int kStrategy>
+__device__ __noinline__ int64_t decode_span(const glz::DualCanon<kStrategy>& t,
+                                               const uint8_t*, const uint32_t* __restrict__ words,
+                                               int64_t n_words, int64_t* pos, int* par,
+                                               int64_t end) {
+  BitReader r(words, n_words, *pos, kFill<glz::DualCanon<kStrategy>>);
+  const glz::DualLevels<kStrategy> d(t);
+  int64_t p = *pos, n = 0;
+  int q = *par;
+  if (p < end && q != d.deep_par) {
+    const uint32_t ln = d.shallow.decode(r.window()).len;
+    r.skip(ln);
+    p += ln;
+    ++n;
+    q = d.deep_par;
+  }
+  while (p < end) {
+    uint32_t ln = d.deep.decode(r.window()).len;
+    r.skip(ln);
+    p += ln;
+    ++n;
+    if (p >= end) {
+      q = d.deep_par ^ 1;
+      break;
+    }
+    ln = d.shallow.decode(r.window()).len;
+    r.skip(ln);
+    p += ln;
+    ++n;
+  }
+  *pos = p;
+  *par = q;
   return n;
 }
 
@@ -524,7 +564,7 @@ __device__ __forceinline__ void write_run(const Table& t, const uint8_t* lut,
 // out[g0, g0 + c), four ranks to a 16-byte store on 16-byte boundaries
 // (the pieces at the run's ends go out in u32 stores).  The loop starts at
 // the piece boundary at or below g0, as write_run's does.
-template <class Table, std::enable_if_t<kIsDual<Table>, int> = 0>
+template <class Table, std::enable_if_t<std::is_same_v<Table, glz::DualTable>, int> = 0>
 __device__ __forceinline__ void write_run(const Table& t, const uint8_t* lut,
                                           const uint32_t* __restrict__ words, int64_t n_words,
                                           int64_t pos, int par, int64_t c, void* out_v,
@@ -563,6 +603,50 @@ __device__ __forceinline__ void write_run(const Table& t, const uint8_t* lut,
   if (w >= 1 && g - 1 >= g0) out[g - 1] = q2;
 }
 
+// write_run for the dual strategies: the same stores, from g0 on, with the
+// codes in decode_span's parity pairs.  A code that matches no codeword
+// sets *err.
+template <int kStrategy>
+__device__ __noinline__ void write_run(const glz::DualCanon<kStrategy>& t, const uint8_t*,
+                                          const uint32_t* __restrict__ words, int64_t n_words,
+                                          int64_t pos, int par, int64_t c, void* out_v,
+                                          int64_t g0, int* __restrict__ err) {
+  uint32_t* __restrict__ out = static_cast<uint32_t*>(out_v);
+  BitReader r(words, n_words, pos, kFill<glz::DualCanon<kStrategy>>);
+  const glz::DualLevels<kStrategy> d(t);
+  const int64_t g_end = g0 + c;
+  uint32_t q0 = 0u, q1 = 0u, q2 = 0u;  // ranks g - 3, g - 2 and g - 1 of the piece
+  int64_t g = g0;
+  auto put = [&](const glz::Code& k) {  // rank g, then the next
+    r.skip(k.len);
+    if (k.bad) *err = 1;
+    if ((g & 3) == 3) {
+      if (g - 3 >= g0) {
+        *reinterpret_cast<uint4*>(out + g - 3) = make_uint4(q0, q1, q2, k.out);
+      } else {
+        if (g - 2 >= g0) out[g - 2] = q1;
+        if (g - 1 >= g0) out[g - 1] = q2;
+        out[g] = k.out;
+      }
+    } else {
+      q0 = q1;
+      q1 = q2;
+      q2 = k.out;
+    }
+    ++g;
+  };
+  if (par != d.deep_par) put(d.shallow.decode(r.window()));  // c >= 1
+  while (g < g_end) {
+    put(d.deep.decode(r.window()));
+    if (g >= g_end) break;
+    put(d.shallow.decode(r.window()));
+  }
+  const int left = static_cast<int>(g & 3);  // the last piece's: the queue's last ones
+  if (left >= 3 && g - 3 >= g0) out[g - 3] = q0;
+  if (left >= 2 && g - 2 >= g0) out[g - 2] = q1;
+  if (left >= 1 && g - 1 >= g0) out[g - 1] = q2;
+}
+
 // The decode's codebooks: fc_lj / offsets ([2][34] u32 in the dual form,
 // set 0 for even tokens), the byte form's symtab, each set's length range
 // and (for the strategies without a table) its count of codes.
@@ -597,14 +681,8 @@ __device__ __forceinline__ void build(glz::ByteCanon<kStrategy>& t, uint8_t*,
 template <int kStrategy>
 __device__ __forceinline__ void build(glz::DualCanon<kStrategy>& t, uint8_t*,
                                       const Codebooks& cbs) {
-  for (int p = 0; p < 2; ++p)
-    glz::load_canon(t.c[p], cbs.fc + p * glz::kCodeLevels, cbs.offs + p * glz::kCodeLevels,
-                    cbs.min_len[p], cbs.max_len[p]);
-  if (threadIdx.x == 0) {
-    t.n_codes[0] = cbs.n_codes[0];
-    t.n_codes[1] = cbs.n_codes[1];
-  }
-  __syncthreads();
+  glz::build_dual_canon(t, cbs.fc, cbs.offs, cbs.min_len[0], cbs.max_len[0], cbs.min_len[1],
+                        cbs.max_len[1], cbs.n_codes[0], cbs.n_codes[1]);
 }
 
 template <bool kDual, int kThreads, int kSubs, int kMinBlocks, int kStrategy>
@@ -750,9 +828,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decode_streams_sync_kern
 // The byte form: 2,048-subsequence windows, 4 blocks an SM.
 constexpr int kSyncThreads = 256;
 constexpr int kSyncSubs = 8;
-// The dual form: 256-subsequence windows, 8 blocks an SM.
+// The dual form: 256-subsequence windows, 8 blocks an SM (the strategies
+// without a table: kDualStrategyBlocks).
 constexpr int kDualThreads = 128;
 constexpr int kDualSubs = 2;
+constexpr int kDualStrategyBlocks = 7;
 
 int blocks_for(int64_t items, int threads) {
   const int64_t want = (items + threads - 1) / threads;
@@ -787,7 +867,9 @@ template <int kStrategy>
 int launch_dual(const void* words, long long n_words, const void* starts, long long n_streams,
                 long long n_symbols, long long S, const Codebooks& cbs, int T, void* out,
                 int* err, size_t smem, void* stream) {
-  auto kernel = decode_streams_sync_kernel<true, kDualThreads, kDualSubs, 8, kStrategy>;
+  auto kernel = decode_streams_sync_kernel<true, kDualThreads, kDualSubs,
+                                           kStrategy == glz::kTable ? 8 : kDualStrategyBlocks,
+                                           kStrategy>;
   // as many blocks as fit on the card at once, each walking the streams
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);

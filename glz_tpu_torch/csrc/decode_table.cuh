@@ -309,9 +309,8 @@ __device__ __forceinline__ Code decode_untabled(const Canon& c, uint32_t n_codes
 constexpr int kRegLevels = 12;
 static_assert(kRegLevels >= 1 && kRegLevels <= 31, "acc and first_code stay below 2^31");
 
-// The codebooks of the strategies without a table: byte mode's one (with
-// its symbols and its register levels' limits) and the dual form's pair
-// (set 0 for even tokens).
+// The codebook of the byte strategies without a table, with its symbols
+// and its register levels' limits (the dual form's pair: DualCanon, below).
 template <int kStrategy>
 struct ByteCanon {
   Canon c;
@@ -319,12 +318,6 @@ struct ByteCanon {
   uint32_t symtab[256];
   uint32_t lim[kRegLevels];  // level l's at lim[l - 1]
   int counted;               // the compares that hold are a prefix of the levels
-};
-
-template <int kStrategy>
-struct DualCanon {
-  Canon c[2];
-  uint32_t n_codes[2];
 };
 
 // Level l's limit for strategy kStrategy (above), from the codebook's fc:
@@ -409,6 +402,125 @@ struct ByteLevels {
     const uint32_t rank = (w >> ((32 - len) & 31)) + t.c.offs[len];
     return {static_cast<uint32_t>(len), rank, rank >= n_codes};
   }
+};
+
+// ---- the dual strategies' levels in registers -----------------------------------
+//
+// The dual form's tokens alternate between two codebooks by parity, so the
+// lanes of a warp stand at different parities.  A run of codes (a guess, a
+// round or a write) therefore steps in parity pairs: one code of the
+// shallow set first where the run starts at its parity, then pairs of a
+// deep-set code and a shallow-set code, the end test and the write's count
+// checked between the two.  Each code of a pair takes its own set's levels
+// from registers (SetLevels, ByteLevels' count on one set), so no lane
+// selects between the sets level by level.  The deep set is the one with
+// the longer longest code (the words: 3-19 bits on the HuffWord benchmark,
+// ties to the even tokens' set), held to kDeepLevels levels; the other
+// (the separators: 1-3 bits) to kShallowLevels.  A set's levels are
+// ByteLevels': levels 1..k counted with no load and no branch where the
+// set's table is `counted`, deeper ones from shared memory, any other
+// table (and an empty dictionary's (0, 0) codebook, which a guess of the
+// wrong parity can reach) through the strategy's loop.  Every code ends in
+// `checked`, so a code that matches nothing has the loops' length,
+// max(max_len, 1), and is flagged.  18 and 3 levels at 7 blocks an SM were
+// the fastest of the depths 12-20, 2-4 and 6-8 blocks tried (PERF.md).
+constexpr int kDeepLevels = 18;
+constexpr int kShallowLevels = 3;
+static_assert(kDeepLevels <= 31 && kShallowLevels >= 1, "acc and first_code stay below 2^31");
+
+// The dual strategies' two codebooks (set p for the tokens of parity p),
+// with the deep and the shallow set's level limits.
+template <int kStrategy>
+struct DualCanon {
+  Canon c[2];
+  uint32_t n_codes[2];
+  uint32_t lim_deep[kDeepLevels];  // level l's at [l - 1]
+  uint32_t lim_shallow[kShallowLevels];
+  int counted[2];  // set p's compares that hold are a prefix of its levels
+  int deep;        // the parity of the deep set
+};
+
+// All threads of the block; synchronises before returning.  fc_g, off_g:
+// [2][kCodeLevels], set 0 first.
+template <int kStrategy>
+__device__ __forceinline__ void build_dual_canon(DualCanon<kStrategy>& t,
+                                                 const uint32_t* __restrict__ fc_g,
+                                                 const uint32_t* __restrict__ off_g, int min0,
+                                                 int max0, int min1, int max1, uint32_t n0,
+                                                 uint32_t n1) {
+  load_canon(t.c[0], fc_g, off_g, min0, max0);
+  load_canon(t.c[1], fc_g + kCodeLevels, off_g + kCodeLevels, min1, max1);
+  const int deep = max1 > max0;
+  const uint32_t* fc_deep = fc_g + deep * kCodeLevels;
+  const uint32_t* fc_shallow = fc_g + (deep ^ 1) * kCodeLevels;
+  const int min_d = deep ? min1 : min0, max_d = deep ? max1 : max0;
+  const int min_s = deep ? min0 : min1, max_s = deep ? max0 : max1;
+  for (int l = threadIdx.x; l < kDeepLevels; l += blockDim.x)
+    t.lim_deep[l] = level_limit<kStrategy>(fc_deep, l + 1, min_d, max_d);
+  for (int l = threadIdx.x; l < kShallowLevels; l += blockDim.x)
+    t.lim_shallow[l] = level_limit<kStrategy>(fc_shallow, l + 1, min_s, max_s);
+  if (threadIdx.x == 0) {
+    t.n_codes[0] = n0;
+    t.n_codes[1] = n1;
+    t.counted[0] = max0 >= 1 && counted_levels<kStrategy>(fc_g, min0, max0);
+    t.counted[1] = max1 >= 1 && counted_levels<kStrategy>(fc_g + kCodeLevels, min1, max1);
+    t.deep = deep;
+  }
+  __syncthreads();
+}
+
+// One set's register levels, copied from the block's DualCanon at the start
+// of each run of codes, and its decode of one code.
+template <int kStrategy, int kLevels>
+struct SetLevels {
+  const Canon& c;
+  uint32_t lim[kLevels];
+  uint32_t n_codes;
+  int min_len;
+  bool counted;
+
+  __device__ __forceinline__ SetLevels(const Canon& cs, const uint32_t* lim_s, uint32_t n,
+                                       int cnt)
+      : c(cs), n_codes(n), min_len(cs.min_len), counted(cnt != 0) {
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l) lim[l] = lim_s[l];
+  }
+
+  // decode_untabled<kStrategy>(c, n_codes, w), with the levels above
+  __device__ __forceinline__ Code decode(uint32_t w) const {
+    if (!counted) return decode_untabled<kStrategy>(c, n_codes, w);
+    int len = min_len;
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l) {  // level l + 1, as ByteLevels counts it
+      if (kStrategy == kBitwalk) acc = __funnelshift_l(w << l, acc, 1);
+      len += ((kStrategy == kBitwalk ? acc : w >> 1) - lim[l]) >> 31;
+    }
+    if (len > kLevels) {  // the deeper levels, one at a time from shared memory
+      if (kStrategy == kBitwalk) {
+        for (len = kLevels + 1; len <= c.max_len; ++len) {
+          acc = acc << 1 | ((w >> (32 - len)) & 1u);
+          if (len >= min_len && acc >= c.fc[len] >> ((32 - len) & 31)) break;
+        }
+      } else {
+        while (len <= c.max_len && w < c.fc[len]) ++len;
+      }
+    }
+    return checked(c, n_codes, w, len);
+  }
+};
+
+// A thread's copy of both sets' levels for a run of codes.
+template <int kStrategy>
+struct DualLevels {
+  SetLevels<kStrategy, kDeepLevels> deep;
+  SetLevels<kStrategy, kShallowLevels> shallow;
+  int deep_par;
+
+  __device__ __forceinline__ explicit DualLevels(const DualCanon<kStrategy>& t)
+      : deep(t.c[t.deep], t.lim_deep, t.n_codes[t.deep], t.counted[t.deep]),
+        shallow(t.c[t.deep ^ 1], t.lim_shallow, t.n_codes[t.deep ^ 1], t.counted[t.deep ^ 1]),
+        deep_par(t.deep) {}
 };
 
 }  // namespace glz

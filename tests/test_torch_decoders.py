@@ -173,6 +173,36 @@ extern "C" int levels_decode(int strategy, const uint32_t* fc, const uint32_t* o
              ? run<glz::kBitwalk>(fc, offs, n_codes, min_len, max_len, w, n, got, loop)
              : run<glz::kFast>(fc, offs, n_codes, min_len, max_len, w, n, got, loop);
 }
+
+// The dual strategies' decode (glz::DualLevels, built by glz::build_dual_canon):
+// each window under the set of each parity, as a run's parity pairs take it.
+template <int kStrategy>
+static int run_dual(const uint32_t* fc, const uint32_t* offs, uint32_t n0, uint32_t n1,
+                    int min0, int max0, int min1, int max1, const uint32_t* w, long long n,
+                    uint32_t* got, uint32_t* loop) {
+  static glz::DualCanon<kStrategy> t;
+  glz::build_dual_canon(t, fc, offs, min0, max0, min1, max1, n0, n1);
+  const glz::DualLevels<kStrategy> d(t);
+  for (int p = 0; p < 2; ++p) {
+    for (long long i = 0; i < n; ++i) {
+      const glz::Code c = p == d.deep_par ? d.deep.decode(w[i]) : d.shallow.decode(w[i]);
+      const glz::Code e = glz::decode_untabled<kStrategy>(t.c[p], t.n_codes[p], w[i]);
+      const long long j = 3 * (p * n + i);
+      got[j] = c.len, got[j + 1] = c.out, got[j + 2] = c.bad;
+      loop[j] = e.len, loop[j + 1] = e.out, loop[j + 2] = e.bad;
+    }
+  }
+  return t.counted[0] | t.counted[1] << 1 | t.deep << 2;
+}
+
+extern "C" int dual_levels_decode(int strategy, const uint32_t* fc, const uint32_t* offs,
+                                  uint32_t n0, uint32_t n1, int min0, int max0, int min1,
+                                  int max1, const uint32_t* w, long long n, uint32_t* got,
+                                  uint32_t* loop) {
+  return strategy == glz::kBitwalk
+             ? run_dual<glz::kBitwalk>(fc, offs, n0, n1, min0, max0, min1, max1, w, n, got, loop)
+             : run_dual<glz::kFast>(fc, offs, n0, n1, min0, max0, min1, max1, w, n, got, loop);
+}
 """
 KERNEL_STRATEGIES = {"bitwalk": (1, dt.bitwalk_step), "fast": (2, dt.fast_step)}
 
@@ -187,6 +217,8 @@ def levels_lib(tmp_path_factory):
     P = ctypes.c_void_p
     lib.levels_decode.argtypes = [ctypes.c_int, P, P, ctypes.c_uint32, ctypes.c_int,
                                   ctypes.c_int, P, ctypes.c_longlong, P, P]
+    lib.dual_levels_decode.argtypes = [ctypes.c_int, P, P, ctypes.c_uint32, ctypes.c_uint32,
+                                       *[ctypes.c_int] * 4, P, ctypes.c_longlong, P, P]
     return lib
 
 
@@ -254,6 +286,117 @@ def test_register_levels_on_any_table(levels_lib, order, variant):
         np.testing.assert_array_equal(got, loop)
 
 
+DUAL_TEXTS = {
+    "word_first": b"the cat-sat on its mat. " * 40 + b"a dog, a log; a frog!",
+    "nonword_first": b"  ...  " + b"the cat-sat on its mat. " * 40,
+    "no_separators": b"word",           # the nonword dictionary is empty
+    "no_words": b"  ...,;  !",          # the word dictionary is empty
+}
+
+
+def dual_levels_decode(lib, strategy: int, fc, offs, n_codes, min_lens, max_lens, w):
+    """(counted flags | deep parity << 2, the register decode's and the
+    loop's (len, out, bad) rows, parity 0's windows then parity 1's)."""
+    fc, offs, w = (np.ascontiguousarray(a, np.uint32) for a in (fc, offs, w))
+    got, loop = np.zeros((2 * w.size, 3), np.uint32), np.zeros((2 * w.size, 3), np.uint32)
+    flags = lib.dual_levels_decode(strategy, fc.ctypes.data, offs.ctypes.data, *n_codes,
+                                   min_lens[0], max_lens[0], min_lens[1], max_lens[1],
+                                   w.ctypes.data, w.size, got.ctypes.data, loop.ctypes.data)
+    return flags, got, loop
+
+
+def zipf_word_codebook():
+    """The HuffWord benchmark's word law (Zipf(1.1) over 20,000 words),
+    counted on 2^20 draws: codes of 3-20 bits."""
+    r = np.arange(1, 20_001)
+    p = r ** -1.1
+    ids = np.random.default_rng(20).choice(r.size, 1 << 20, p=p / p.sum())
+    return codebook_from_lengths(
+        tpu_build_codebook(np.bincount(ids, minlength=r.size), 32).lengths)
+
+
+def dual_codebooks(name: str):
+    """(even, odd) codebooks of a dual register-levels case."""
+    if name in DUAL_TEXTS:
+        blob = glz_tpu_torch.compress(DUAL_TEXTS[name], mode=cfg.MODE_HUFFWORD, device="cpu")
+        word_first, cb_w, cb_n, _, _ = port_hw.huffword_state_from_blob(
+            container.read_container(blob).codebook_blob)
+        return (cb_w, cb_n) if word_first else (cb_n, cb_w)
+    if name == "zipf20":
+        cb = zipf_word_codebook()
+        assert (cb.min_len, cb.max_len) == (3, 20)
+        sep = codebook_from_lengths(tpu_build_codebook(np.array([50, 30, 10, 5, 1]), 32).lengths)
+        return cb, sep
+    _, word_first, cbs, _, _, _ = chip_smoke.huffword_bitstream_case(name)
+    cb_w, cb_n = (codebook_from_lengths(cb.lengths) for cb in cbs)
+    return (cb_w, cb_n) if word_first else (cb_n, cb_w)
+
+
+DUAL_LEVEL_CASES = [*DUAL_TEXTS, "zipf20", *chip_smoke.HUFFWORD_SEAM_LIMITS, "hw_deep32_s999"]
+
+
+@pytest.mark.parametrize("variant", list(KERNEL_STRATEGIES))
+@pytest.mark.parametrize("name", DUAL_LEVEL_CASES)
+def test_dual_register_levels_match_the_loop(levels_lib, name, variant):
+    """The dual strategy kernels' decode of one code from either set's
+    register levels (the deep set's or the shallow set's, as a run's parity
+    pairs take them) gives what the strategy's loop gives under the codebook
+    of that parity, on every window of both codebooks' edges: the
+    codebooks of DUAL_TEXTS (an empty dictionary among them), a Zipf word
+    codebook of 3-20 bits, the seam cases' (longest codes at and one bit
+    past each set's depth) and a 32-bit one."""
+    even, odd = dual_codebooks(name)
+    fc, offs = (np.stack([f(cb) for cb in (even, odd)]) for f in
+                (lambda cb: cb.first_code_left_justified(), lambda cb: cb.decode_offsets()))
+    w = np.concatenate([edge_windows(fc[0], len(name)), edge_windows(fc[1], len(name) + 1)])
+    flags, got, loop = dual_levels_decode(levels_lib, KERNEL_STRATEGIES[variant][0], fc, offs,
+                                          (even.symbols.size, odd.symbols.size),
+                                          (even.min_len, odd.min_len),
+                                          (even.max_len, odd.max_len), w)
+    np.testing.assert_array_equal(got, loop)
+    sets = (even, odd)
+    assert flags >> 2 == int(odd.max_len > even.max_len)  # the deep set: the longer codes
+    for p, cb in enumerate(sets):
+        rows = got[p * w.size:(p + 1) * w.size]
+        if cb.max_len == 0:  # an empty dictionary: never counted; every code 1 bit, flagged
+            assert not flags >> p & 1
+            assert (rows[:, 0] == 1).all() and (rows[:, 2] == 1).all()
+        else:  # every encoder's table takes the count
+            assert flags >> p & 1
+            assert rows[:, 0].min() >= 1
+    if name in chip_smoke.HUFFWORD_SEAM_LIMITS:
+        deep, shallow = sorted((even.max_len, odd.max_len), reverse=True)
+        assert (deep, shallow) == chip_smoke.HUFFWORD_SEAM_LIMITS[name]
+
+
+@pytest.mark.parametrize("variant", list(KERNEL_STRATEGIES))
+@pytest.mark.parametrize("order", ["random", "non_increasing"])
+def test_dual_register_levels_on_any_table(levels_lib, order, variant):
+    """On pairs of tables no encoder writes (random limits, in any order or
+    non-increasing with bits below their levels; an empty (0, 0) set among
+    them), each set's decode still gives the loop's length, rank and flag."""
+    rng = np.random.default_rng(17 if order == "random" else 18)
+    for trial in range(30):
+        lo, hi = [], []
+        for _ in range(2):
+            a = int(rng.integers(1, 33))
+            b = int(rng.integers(a, 33))
+            lo.append(a)
+            hi.append(b)
+        if trial % 5 == 0:  # an empty dictionary's codebook
+            lo[trial % 2], hi[trial % 2] = 0, 0
+        fc = rng.integers(0, 1 << 32, (2, 34), dtype=np.uint64).astype(np.uint32)
+        if order == "non_increasing":
+            fc = np.sort(fc, axis=1)[:, ::-1]
+        offs = rng.integers(0, 1 << 32, (2, 34), dtype=np.uint64).astype(np.uint32)
+        n_codes = tuple(int(x) for x in rng.integers(0, 1 << 32, 2, dtype=np.uint64))
+        w = np.concatenate([edge_windows(fc[0], trial), edge_windows(fc[1], trial + 1)])
+        _, got, loop = dual_levels_decode(levels_lib, KERNEL_STRATEGIES[variant][0], fc, offs,
+                                          n_codes, lo, hi, w)
+        np.testing.assert_array_equal(got, loop)
+        assert got[:, 0].min() >= 1
+
+
 @pytest.mark.parametrize("case", list(chip_smoke.SEAM_LIMITS))
 def test_seam_cases_on_the_cpu(case):
     """chip_smoke.py's phase-3c cases at the register levels' seams (longest
@@ -265,15 +408,20 @@ def test_seam_cases_on_the_cpu(case):
     chip_smoke.check_strategy_case(case, CPU)
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.HUFFWORD_SEAM_LIMITS))
+def test_huffword_seam_cases_on_the_cpu(case):
+    """chip_smoke.py's HuffWord cases at the dual register levels' seams
+    (the word set's longest code at and one bit past kDeepLevels, the
+    separators' at and past kShallowLevels, words on either parity) hold
+    those limits, and round-trip through each strategy's plain decode as
+    the card's check runs them."""
+    ids, word_first, cbs, _, _, S = chip_smoke.huffword_bitstream_case(case)
+    assert (cbs[0].max_len, cbs[1].max_len) == chip_smoke.HUFFWORD_SEAM_LIMITS[case]
+    assert ids.size > 2 * S
+    chip_smoke.check_strategy_case(case, CPU)
+
+
 # ---- HuffWord: the dual plain strategies against _decode_tokens_host ----------
-
-DUAL_TEXTS = {
-    "word_first": b"the cat-sat on its mat. " * 40 + b"a dog, a log; a frog!",
-    "nonword_first": b"  ...  " + b"the cat-sat on its mat. " * 40,
-    "no_separators": b"word",           # the nonword dictionary is empty
-    "no_words": b"  ...,;  !",          # the word dictionary is empty
-}
-
 
 @pytest.mark.parametrize("variant", STRATEGIES)
 @pytest.mark.parametrize("name", list(DUAL_TEXTS))

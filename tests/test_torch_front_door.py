@@ -166,19 +166,47 @@ def test_huffword_shared(text_100kb, realtext, backend):
 
 
 def test_decompress_takes_glz_tpu_arguments(text_100kb):
-    """Every backend and decoder variant decodes (on the device given);
-    unknown ones raise, as does an unknown compress backend."""
+    """Every backend and decoder variant decodes (on the device given); an
+    unknown variant raises; an unknown backend means "host" in both
+    packages, for compress and decompress."""
     blob = glz_tpu.compress(text_100kb)
     for backend in ("host", "device"):
         for variant in (cfg.DECODER_BITWALK, cfg.DECODER_FAST, cfg.DECODER_TABLE,
                         cfg.DECODER_DEVICE):
             assert glz_tpu_torch.decompress(blob, backend, variant, device="cpu") == text_100kb
-    with pytest.raises(ValueError, match="backend"):
-        glz_tpu_torch.decompress(blob, backend="tpu", device="cpu")
+    assert glz_tpu_torch.decompress(blob, backend="tpu", device="cpu") \
+        == glz_tpu.decompress(blob, backend="tpu") == text_100kb
     with pytest.raises(ValueError, match="variant"):
         glz_tpu_torch.decompress(blob, variant="fastest", device="cpu")
-    with pytest.raises(ValueError, match="backend"):
-        glz_tpu_torch.compress(text_100kb, backend="tpu", device="cpu")
+    assert glz_tpu_torch.compress(text_100kb, backend="tpu", device="cpu") \
+        == glz_tpu.compress(text_100kb, backend="tpu") == blob
+
+
+@pytest.mark.parametrize("mode", [cfg.MODE_BYTE, cfg.MODE_HUFFWORD, cfg.MODE_NORMAL_TREE],
+                         ids=["byte", "huffword", "normal_tree"])
+def test_unknown_backend_means_host(text_100kb, mode):
+    """backend="cpu" (glz_tpu routes only "device"; any other backend is
+    the host's): the same container as glz_tpu's for the same call, and as
+    backend "host"'s, and it decodes under that backend."""
+    data = text_100kb[:30_000]
+    blob = _same(data, mode, "cpu")
+    assert blob == glz_tpu_torch.compress(data, mode=mode, device="cpu")
+    assert glz_tpu_torch.decompress(blob, backend="cpu", device="cpu") == data
+    assert glz_tpu.decompress(blob, backend="cpu") == data
+
+
+@pytest.mark.parametrize("mode", [cfg.MODE_BYTE, cfg.MODE_HUFFWORD], ids=["byte", "huffword"])
+def test_unknown_backend_batch_and_archive(text_100kb, mode):
+    """compress_batch and compress_archive with backend="cpu" write
+    glz_tpu's bytes for the same call; decompress_batch and
+    decompress_archive with it give the files back."""
+    files = [text_100kb[:20_000], text_100kb[50_000:61_000], b""]
+    blobs = glz_tpu_torch.compress_batch(files, mode=mode, backend="cpu", device="cpu")
+    assert blobs == glz_tpu.compress_batch(files, mode=mode, backend="cpu")
+    assert glz_tpu_torch.decompress_batch(blobs, backend="cpu", device="cpu") == files
+    arc = glz_tpu_torch.compress_archive(files, mode=mode, backend="cpu", device="cpu")
+    assert arc == glz_tpu.compress_archive(files, mode=mode, backend="cpu")
+    assert glz_tpu_torch.decompress_archive(arc, backend="cpu", device="cpu") == files
 
 
 def test_pinned_host_digests(realtext):

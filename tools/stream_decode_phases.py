@@ -34,24 +34,37 @@ and at its subsequence length across the swept table sizes, and the
 meeting distances at DUAL_MEET_AT.  Both forms share the template, so one
 set of builds serves both.
 
---strategies times the byte bit-walk and fast kernels instead (the same
-template, kStrategy kBitwalk and kFast) at the byte main path's shape:
+--strategies times the bit-walk and fast kernels instead (the same
+template, kStrategy kBitwalk and kFast), byte and dual (--form), each at
+its main path's shape (the dual one at the HuffWord bitstream shape above):
 full, no_write and guess_only of each, and a counting build (levels):
 per code decoded (guesses, rounds and the write), the levels its lane
 walks (the bit-walk's len, the fast scan's len - min_len + 1), the levels
 its warp runs on that code step (the largest of the lanes that step
 together), the lanes that step together, and for each depth k of
 LEVEL_DEPTHS the share of codes longer than k and of warp steps with such
-a code.  It prints each build's registers and spills (ptxas -v).  Then
-the candidates of CANDIDATES, each timed whole and checked against the
-input: the source with other levels held in registers (decode_table.cuh's
-kRegLevels), the strategy kernels at fewer blocks an SM (more registers a
-thread), and the designs that lost (the count as a compare, the
-accumulation as a shift and a merge, the first design that had both, the
-limits packed two to a register).
---parent DIR also builds the csrc/ directory DIR (another commit's; one
-without kRegLevels gets no candidates) and times it the same way in the
-same process, parent and source in turns.
+a code.  The dual form's counting build counts each codebook's codes apart
+(the word set and the separators', told apart by their longest code):
+the levels a lane walks, the lanes of one set that step together and the
+most levels among them, the levels the whole warp runs a step (its lanes
+on either set), and for each depth of DUAL_DEPTHS the share of codes
+longer than it and of steps with such a code.  It prints each build's
+registers and spills (ptxas -v).  Then the candidates, each timed whole
+and checked against the input (the tokens' ranks): for the byte form
+CANDIDATES, the source with other levels held in registers
+(decode_table.cuh's kRegLevels), the strategy kernels at fewer blocks an
+SM (more registers a thread), and the designs that lost (the count as a
+compare, the accumulation as a shift and a merge, the first design that
+had both, the limits packed two to a register); for the dual form
+DUAL_CANDIDATES, the deep and the shallow set's register levels
+(kDeepLevels, kShallowLevels), the blocks an SM (kDualStrategyBlocks), one
+depth for both sets, the runs inlined (the first design), and the
+bit-walk's code taken whole each level.
+--parent DIR also builds the csrc/ directory DIR (another commit's; its
+phases and counting build, no candidates) and times it the same way in
+the same process, parent and source in turns.
+The counting builds' edits are anchored on lines every csrc/ since the
+register levels has (CODE_OUT, CHECKED), so they build for --parent too.
 """
 
 from __future__ import annotations
@@ -103,6 +116,12 @@ MEET_BITS = "constexpr int kMeetBits = 128;"
 CODE_OUT = "  c.out = t.symtab[c.out & 255u];\n  return c;\n"
 LEVEL_DEPTHS = tuple(range(8, 17))
 BYTE_STRATEGIES = {"bitwalk": 1, "fast": 2}  # decode_table.cuh: kBitwalk, kFast
+# the canonical check every dual strategy code ends in (decode_table.cuh; the
+# same in every version since the strategies' port): where the dual counting
+# build counts each code
+CHECKED = ("__device__ __forceinline__ Code checked(const Canon& c, uint32_t n_codes, uint32_t v,\n"
+           "                                        int len) {\n")
+DUAL_DEPTHS = tuple(range(8, 21))
 # Edits of decode_table.cuh's register levels, each a design that lost
 # (PERF.md).  COUNT_LINE and ACC_LINE are the source's.
 COUNT_LINE = ("      len += ((kStrategy == kBitwalk ? acc : w >> 1) - lim[l - 1]) >> 31;"
@@ -146,6 +165,37 @@ BYTE_LAUNCH = "  decode_streams_sync_kernel<false, kSyncThreads, kSyncSubs, 4, k
 def blocks(b: int) -> tuple[tuple[str, str], ...]:
     return ((BYTE_LAUNCH, "  decode_streams_sync_kernel<false, kSyncThreads, kSyncSubs, "
                           f"kStrategy == glz::kTable ? 4 : {b}, kStrategy>"),)
+
+
+# Edits of the dual strategies' source, each a candidate of --strategies:
+# decode_span's (guesses' and rounds') and write_run's parity-pair runs
+# inlined at every call site (8 and 2 copies) where the source calls one
+# function each; the bit-walk's accumulated code taken whole at each level
+# (w >> (32 - l), not a bit a level: what the accumulation costs)
+SPAN = "__device__ __noinline__ int64_t decode_span(const glz::DualCanon<kStrategy>& t,"
+WRITE_DUAL = ("__device__ __noinline__ void write_run(const glz::DualCanon<kStrategy>& t, "
+              "const uint8_t*,")
+INLINE_SPAN = ((SPAN, SPAN.replace("__noinline__", "__forceinline__")),)
+INLINE_RUNS = INLINE_SPAN + ((WRITE_DUAL, WRITE_DUAL.replace("__noinline__",
+                                                            "__forceinline__")),)
+PREFIX_ACC = (("      if (kStrategy == kBitwalk) acc = __funnelshift_l(w << l, acc, 1);",
+               "      if (kStrategy == kBitwalk) acc = w >> (31 - l);"),)
+# The dual candidates of --strategies: (constants set, edits made).  The
+# constants: the deep set's register levels (kDeepLevels: other depths), the
+# shallow set's (kShallowLevels), and blocks an SM of the dual strategy
+# kernels (kDualStrategyBlocks); "both": (a), one depth for both sets; the
+# first design, every run inlined (at 20 levels, 4 and 6 blocks); the
+# bit-walk's code taken whole at each level.
+DUAL_CANDIDATES = {
+    **{f"deep{d}": ({"kDeepLevels": d}, ()) for d in (12, 14, 16, 20)},
+    **{f"blocks{b}_dual": ({"kDualStrategyBlocks": b}, ()) for b in (6, 8)},
+    **{f"shallow{k}": ({"kShallowLevels": k}, ()) for k in (2, 4)},
+    "both18_blocks6": ({"kShallowLevels": 18, "kDualStrategyBlocks": 6}, ()),
+    "inline_runs": ({"kDeepLevels": 20, "kShallowLevels": 4, "kDualStrategyBlocks": 6},
+                    INLINE_RUNS),
+    "inline_span": ({}, INLINE_SPAN),
+    "prefix_acc": ({}, PREFIX_ACC),
+}
 
 
 # The candidates of --strategies, each the source with decode_table.cuh's
@@ -193,6 +243,55 @@ extern "C" void probe_levels_take(unsigned long long* out) {
   cudaMemcpyToSymbol(probe_levels_counts, zero, sizeof(zero));
 }
 """ % {"n": len(LEVEL_DEPTHS), "k0": LEVEL_DEPTHS[0]}
+DUAL_LEVEL_COUNTER = """
+// the dual counting build: per codebook (binned by its longest code), [0]
+// codes, [1] their bit-walk levels (len), [2] their fast-scan levels (len -
+// min_len + 1), [3] steps of the set's lanes that step together, [4] their
+// longest len a step, [5 + i] codes longer than DUAL_DEPTHS[i], [5 + n + i]
+// steps with such a code; then the warp's steps, its longest len a step and
+// its most fast-scan levels a step
+constexpr int kProbeBins = 34;
+constexpr int kProbePer = 5 + 2 * %(n)d;
+__device__ unsigned long long probe_dual_counts[kProbeBins * kProbePer + 3];
+__device__ __forceinline__ void probe_dual(const Canon& c, int len) {
+  const unsigned mask = __activemask();
+  const unsigned bw = static_cast<unsigned>(len);
+  const unsigned fs = static_cast<unsigned>(len - c.min_len + 1);
+  const unsigned group = __match_any_sync(mask, c.max_len);
+  const unsigned top = __reduce_max_sync(group, bw);
+  const unsigned sum_bw = __reduce_add_sync(group, bw);
+  const unsigned sum_fs = __reduce_add_sync(group, fs);
+  const unsigned wtop = __reduce_max_sync(mask, bw);
+  const unsigned wtop_fs = __reduce_max_sync(mask, fs);
+  unsigned past[%(n)d];
+#pragma unroll
+  for (int i = 0; i < %(n)d; ++i) past[i] = __popc(__ballot_sync(group, bw > %(k0)d + i));
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  if (lane == __ffs(group) - 1) {
+    unsigned long long* b = probe_dual_counts + c.max_len * kProbePer;
+    atomicAdd(&b[0], static_cast<unsigned long long>(__popc(group)));
+    atomicAdd(&b[1], static_cast<unsigned long long>(sum_bw));
+    atomicAdd(&b[2], static_cast<unsigned long long>(sum_fs));
+    atomicAdd(&b[3], 1ull);
+    atomicAdd(&b[4], static_cast<unsigned long long>(top));
+    for (int i = 0; i < %(n)d; ++i) {
+      if (top > %(k0)d + i) atomicAdd(&b[5 + i], 1ull);
+      atomicAdd(&b[5 + %(n)d + i], static_cast<unsigned long long>(past[i]));
+    }
+  }
+  if (lane == __ffs(mask) - 1) {
+    unsigned long long* w = probe_dual_counts + kProbeBins * kProbePer;
+    atomicAdd(&w[0], 1ull);
+    atomicAdd(&w[1], static_cast<unsigned long long>(wtop));
+    atomicAdd(&w[2], static_cast<unsigned long long>(wtop_fs));
+  }
+}
+extern "C" void probe_dual_levels_take(unsigned long long* out) {
+  static unsigned long long zero[kProbeBins * kProbePer + 3] = {};
+  cudaMemcpyFromSymbol(out, probe_dual_counts, sizeof(zero));
+  cudaMemcpyToSymbol(probe_dual_counts, zero, sizeof(zero));
+}
+""" % {"n": len(DUAL_DEPTHS), "k0": DUAL_DEPTHS[0]}
 COUNTER = """
 extern "C" unsigned long long probe_take(int which) {
   unsigned long long r[3], zero[3] = {0, 0, 0};
@@ -234,22 +333,41 @@ def variants(src: str) -> dict[str, str]:
     return out
 
 
-def strategy_variants(src: str, header: str) -> dict[str, tuple[str, str]]:
+def strategy_variants(src: str, header: str, forms=("bytes", "dual")
+                      ) -> dict[str, tuple[str, str]]:
     """(bitstream.cu, decode_table.cuh) of each --strategies build: the
-    phases, the counting build and, where the source holds register levels
-    (kRegLevels), the candidates of CANDIDATES."""
+    phases, the counting build (byte and dual) and, for each form of
+    `forms` whose register levels the source holds (kRegLevels,
+    kDeepLevels), its candidates (CANDIDATES, DUAL_CANDIDATES)."""
     phase = {name: text for name, text in variants(src).items()
              if name in ("full", "no_write", "guess_only")}
     if src.count(CODE_OUT) != 1:
         raise RuntimeError(f"bitstream.cu no longer has the probe's marker:\n{CODE_OUT}")
+    if header.count(CHECKED) != 1:
+        raise RuntimeError(f"decode_table.cuh no longer has the probe's marker:\n{CHECKED}")
     levels = src.replace(CODE_OUT, "  probe_levels(c.len, t.c.min_len, kStrategy == glz::kBitwalk);\n"
                          + CODE_OUT)
     levels = levels.replace('#include "decode_table.cuh"\n',
                             '#include "decode_table.cuh"\n' + LEVEL_COUNTER, 1)
     out = {name: (text, header) for name, text in phase.items()}
-    out["levels"] = (levels, header)
-    if "constexpr int kRegLevels = " not in header:
-        return out  # a source from before the register levels: no candidates
+    out["levels"] = (levels, header.replace(CHECKED, DUAL_LEVEL_COUNTER + CHECKED
+                                            + "  probe_dual(c, len);\n"))
+    if "dual" in forms and "constexpr int kShallowLevels = " in header:
+        for name, (consts, edits) in DUAL_CANDIDATES.items():
+            text, hdr = src, header
+            for const, value in consts.items():
+                pattern, new = rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};"
+                text, n = re.subn(pattern, new, text)
+                hdr, m = re.subn(pattern, new, hdr)
+                if n + m != 1:
+                    raise RuntimeError(f"candidate {name}: the sources have no one {const}")
+            for old, new in edits:
+                if hdr.count(old) + text.count(old) != 1:
+                    raise RuntimeError(f"candidate {name}: the sources have no one\n{old}")
+                hdr, text = hdr.replace(old, new), text.replace(old, new)
+            out[name] = (text, hdr)
+    if "bytes" not in forms or "constexpr int kRegLevels = " not in header:
+        return out  # a source from before the register levels: no byte candidates
     for name, (levels_held, edits) in CANDIDATES.items():
         text, hdr = src, header
         if levels_held is not None:
@@ -293,7 +411,7 @@ def finish_builds(tmp: pathlib.Path, procs: dict[str, subprocess.Popen]
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
         lib = ctypes.CDLL(str(tmp / name / "lib.so"))
         for entry in ("glz_decode_streams", "glz_decode_streams_dual",
-                      "glz_decode_streams_strategy"):
+                      "glz_decode_streams_strategy", "glz_decode_streams_dual_strategy"):
             fn = getattr(lib, entry)
             fn.argtypes = _kernels._SIGNATURES[entry]
             fn.restype = ctypes.c_int
@@ -302,6 +420,7 @@ def finish_builds(tmp: pathlib.Path, procs: dict[str, subprocess.Popen]
             lib.probe_take.restype = ctypes.c_ulonglong
         if name.endswith("levels"):
             lib.probe_levels_take.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+            lib.probe_dual_levels_take.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
         libs[name] = lib
     return libs
 
@@ -351,11 +470,7 @@ def dual_main(libs, dev: torch.device, stream) -> None:
     shape: phase 4d's 100 MiB of word text under DEFAULT (streams of 16,384
     tokens), at each swept word-table size and subsequence length, and the
     meeting distances at DUAL_MEET_AT."""
-    _, _, wf, wv, nv, ids = tok.build_vocabs(chip_smoke.make_word_corpus(chip_smoke.HUFFWORD_BYTES))
-    cbs = [build_codebook(v.counts, cfg.DEFAULT.length_limit) for v in (wv, nv)]
-    inp = chip_smoke.HuffwordBitstreamInputs(ids, bool(wf), cbs, wv.n, nv.n,
-                                             min(cfg.DEFAULT.stream_symbols, 1 << 14), dev)
-    want = inp.decode(bd.decode_streams_dual_ref)
+    inp, want = dual_inputs(dev)
     out = torch.empty_like(want)
     (min0, min1), (max0, max1) = inp.len_range
     for tb in chip_smoke.DUAL_TABLE_BITS_SWEEP:
@@ -383,9 +498,10 @@ def dual_main(libs, dev: torch.device, stream) -> None:
                 print(f"dual decode table_bits {tb} T {T} meeting point {bits} bits: "
                       f"{t_ms:.3f} ms; {met} of {redone} restarted subsequences met their "
                       f"guess", flush=True)
+    word, sep = (inp.even, inp.odd) if inp.word_first else (inp.odd, inp.even)
     print(f"dual decode phases at the HuffWord bitstream shape ({inp.starts.numel()} streams "
-          f"of {inp.S} tokens, {inp.T} tokens; word codes {cbs[0].min_len}-{cbs[0].max_len} "
-          f"bits, separators {cbs[1].min_len}-{cbs[1].max_len})", flush=True)
+          f"of {inp.S} tokens, {inp.T} tokens; word codes {word.min_len}-{word.max_len} "
+          f"bits, separators {sep.min_len}-{sep.max_len})", flush=True)
 
 
 def byte_main_inputs(dev: torch.device):
@@ -432,13 +548,76 @@ def level_counts(lib, run) -> dict[str, float]:
     return out
 
 
-def strategies_main(parent: pathlib.Path | None, dev: torch.device, smi: str) -> None:
-    """--strategies: the byte bit-walk and fast kernels' phases, levels,
-    registers and candidates (see the docstring)."""
-    arr, f, cb, words, starts, tables = byte_main_inputs(dev)
-    want = torch.from_numpy(arr).to(dev)
-    out = torch.empty_like(want)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+def dual_inputs(dev: torch.device):
+    """(inputs, the tokens' ranks) of the HuffWord bitstream path: phase
+    4d's 100 MiB of word text under DEFAULT (streams of 16,384 tokens),
+    the ranks from the plain table decode."""
+    _, _, wf, wv, nv, ids = tok.build_vocabs(chip_smoke.make_word_corpus(chip_smoke.HUFFWORD_BYTES))
+    cbs = [build_codebook(v.counts, cfg.DEFAULT.length_limit) for v in (wv, nv)]
+    inp = chip_smoke.HuffwordBitstreamInputs(ids, bool(wf), cbs, wv.n, nv.n,
+                                             min(cfg.DEFAULT.stream_symbols, 1 << 14), dev)
+    return inp, inp.decode(bd.decode_streams_dual_ref)
+
+
+def dual_strategy_runner(strategy: int, inp, out, err, stream):
+    """run(lib): one launch of lib's dual strategy kernel on the inputs."""
+    (min0, min1), (max0, max1) = inp.len_range
+
+    def run(lib):
+        rc = lib.glz_decode_streams_dual_strategy(
+            strategy, _kernels.ptr(inp.words), inp.words.numel(), _kernels.ptr(inp.starts),
+            inp.starts.numel(), inp.T, inp.S, _kernels.ptr(inp.fc), _kernels.ptr(inp.off),
+            min0, max0, min1, max1, inp.even.symbols.size, inp.odd.symbols.size,
+            bd.DUAL_SUBSEQ_BITS, _kernels.ptr(err), _kernels.ptr(out), stream)
+        if rc:
+            raise RuntimeError(f"glz_decode_streams_dual_strategy: CUDA error {rc}")
+    return run
+
+
+def dual_level_counts(lib, run, sets: dict[str, tuple[int, int]]) -> dict[str, dict]:
+    """The dual counting build's figures over one run (see the docstring):
+    for each set of `sets` (name -> (min_len, max_len); sets with the same
+    longest code are counted together), and for the warp ("warp")."""
+    per = 5 + 2 * len(DUAL_DEPTHS)
+    got = (ctypes.c_ulonglong * (34 * per + 3))()
+    lib.probe_dual_levels_take(got)
+    run(lib)
+    torch.cuda.synchronize()
+    lib.probe_dual_levels_take(got)
+    out = {}
+    for name, (min_len, max_len) in sets.items():
+        codes, bw, fs, steps, top, *past = got[max_len * per:(max_len + 1) * per]
+        if not codes:
+            continue
+        c = {"codes": codes, "bitwalk_lane": bw / codes, "fast_lane": fs / codes,
+             "lanes_a_step": codes / steps, "bitwalk_step": top / steps,
+             "fast_step": top / steps - min_len + 1}
+        for i, k in enumerate(DUAL_DEPTHS):
+            c[f"steps_past_{k}"] = past[i] / steps
+            c[f"codes_past_{k}"] = past[len(DUAL_DEPTHS) + i] / codes
+        out[name] = c
+    steps, top, top_fs = got[34 * per:34 * per + 3]
+    out["warp"] = {"steps": steps, "bitwalk_step": top / steps, "fast_step": top_fs / steps}
+    return out
+
+
+def dual_levels_line(v: str, label: str, c: dict) -> str:
+    """One line of the dual counting build's figures for strategy v."""
+    sets = "; ".join(
+        f"{name} codes {s['codes']}: a lane {s[f'{v}_lane']:.2f} levels a code, "
+        f"{s['lanes_a_step']:.2f} lanes of the set a step {s[f'{v}_step']:.2f}; longer than "
+        + ", ".join(f"{k}: {100 * s[f'codes_past_{k}']:.3f}% (steps {100 * s[f'steps_past_{k}']:.2f}%)"
+                    for k in DUAL_DEPTHS)
+        for name, s in c.items() if name != "warp")
+    return (f"dual {v} {label} levels: {sets}; the warp (its lanes on either set) "
+            f"{c['warp'][f'{v}_step']:.2f} levels a code step over {c['warp']['steps']} steps")
+
+
+def strategies_main(parent: pathlib.Path | None, dev: torch.device, smi: str,
+                    forms: tuple[str, ...]) -> None:
+    """--strategies: the bit-walk and fast kernels' phases, levels,
+    registers and candidates, for each form of `forms` (see the
+    docstring)."""
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     sources = {"source": _kernels.CSRC}
     if parent is not None:
@@ -446,7 +625,8 @@ def strategies_main(parent: pathlib.Path | None, dev: torch.device, smi: str) ->
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         builds = {label: strategy_variants((d / "bitstream.cu").read_text(),
-                                           (d / "decode_table.cuh").read_text())
+                                           (d / "decode_table.cuh").read_text(),
+                                           forms if label == "source" else ())
                   for label, d in sources.items()}
         libs_all = build(pathlib.Path(tmp), {f"{label}.{name}": v for label, b in builds.items()
                                              for name, v in b.items()})
@@ -457,63 +637,122 @@ def strategies_main(parent: pathlib.Path | None, dev: torch.device, smi: str) ->
         for label, lb in libs.items():
             for name, lib in lb.items():
                 regs = [line for line in chip_smoke.ptxas_summary(lib.ptxas)
-                        if line.startswith("decode_streams_sync_kernel") and ",bytes," in line
+                        if line.startswith("decode_streams_sync_kernel")
+                        and any(f",{form}," in line for form in forms)
                         and not line.split(":")[0].endswith("table>")]
                 print(f"registers {label} {name}: {'; '.join(regs)}", flush=True)
-        for v, code in BYTE_STRATEGIES.items():
-            run = strategy_runner(code, f, cb, words, starts, tables, out, err, stream)
-            for label, lb in libs.items():
-                for name, lib in lb.items():
-                    if name == "levels":
-                        continue
-                    out.zero_()
-                    run(lib)
-                    torch.cuda.synchronize()
-                    if int(err.item()) or (name not in ("no_write", "guess_only")
-                                           and not torch.equal(out, want)):
-                        raise RuntimeError(f"{v} {label} {name}: the decode differs from the input")
-            # the times: each build twice, the labels in turns (parent, source,
-            # source, parent)
-            order = list(libs)
-            times: dict[tuple[str, str], list[dict]] = {}
-            for turn in (order, order[::-1]):
-                for label in turn:
-                    for name, lib in libs[label].items():
-                        if name != "levels":
-                            times.setdefault((label, name), []).append(
-                                chip_smoke.cuda_spread(lambda lib=lib: run(lib)))
-            for label in order:
-                ms = {name: statistics.median(t["ms"] for t in times[(label, name)])
-                      for (lb, name) in times if lb == label}
-                spread = {name: (min(t["min_ms"] for t in times[(label, name)]),
-                                 max(t["max_ms"] for t in times[(label, name)]))
-                          for (lb, name) in times if lb == label}
-                medians = ", ".join(f"{t['ms']:.3f}" for t in times[(label, "full")])
-                print(f"{v} {label}: full {ms['full']:.3f} ms (medians of 9: {medians}; "
-                      f"{spread['full'][0]:.3f}-{spread['full'][1]:.3f}) = guess "
-                      f"{ms['guess_only']:.3f} + rounds {ms['no_write'] - ms['guess_only']:.3f} + "
-                      f"write {ms['full'] - ms['no_write']:.3f}", flush=True)
-                cands = [n for n in ms if n in CANDIDATES]
-                if cands:
-                    print(f"{v} {label} candidates: " + "; ".join(
-                        f"{n} {ms[n]:.3f} ms ({spread[n][0]:.3f}-{spread[n][1]:.3f})"
-                        for n in cands), flush=True)
-                c = level_counts(libs[label]["levels"], run)
-                print(f"{v} {label} levels: {c['codes']} codes decoded; a lane "
-                      f"{c['lane_levels']:.2f} levels a code, its warp {c['warp_levels']:.2f} "
-                      f"a code step, {c['lanes_a_step']:.2f} lanes a step; codes longer than "
-                      + ", ".join(f"{k}: {100 * c[f'codes_past_{k}']:.3f}% (warp steps "
-                                  f"{100 * c[f'steps_past_{k}']:.2f}%)" for k in LEVEL_DEPTHS),
-                      flush=True)
+        if "bytes" in forms:
+            byte_strategies(libs, dev, stream)
+        if "dual" in forms:
+            dual_strategies(libs, dev, stream)
+    print(f"on {torch.cuda.get_device_name(0)} ({smi})", flush=True)
+
+
+def time_strategy(v: str, libs: dict, run, check, candidates: dict, what: str,
+                  levels) -> None:
+    """The phase builds and the candidates of libs (label -> name ->
+    library) checked (check(name) after a run), then timed in turns
+    (parent, source, source, parent), each label's phases and its
+    candidates printed, and its counting build's line (levels(label, lib)
+    -> str)."""
+    libs = {label: {name: lib for name, lib in lb.items()
+                    if name in ("full", "no_write", "guess_only", "levels") or name in candidates}
+            for label, lb in libs.items()}
+    for label, lb in libs.items():
+        for name, lib in lb.items():
+            if name == "levels":
+                continue
+            run(lib)
+            torch.cuda.synchronize()
+            if not check(name):
+                raise RuntimeError(f"{what} {v} {label} {name}: the decode differs from the input")
+    order = list(libs)
+    times: dict[tuple[str, str], list[dict]] = {}
+    for turn in (order, order[::-1]):
+        for label in turn:
+            for name, lib in libs[label].items():
+                if name != "levels":
+                    times.setdefault((label, name), []).append(
+                        chip_smoke.cuda_spread(lambda lib=lib: run(lib)))
+    for label in order:
+        ms = {name: statistics.median(t["ms"] for t in times[(label, name)])
+              for (lb, name) in times if lb == label}
+        spread = {name: (min(t["min_ms"] for t in times[(label, name)]),
+                         max(t["max_ms"] for t in times[(label, name)]))
+                  for (lb, name) in times if lb == label}
+        medians = ", ".join(f"{t['ms']:.3f}" for t in times[(label, "full")])
+        print(f"{what}{v} {label}: full {ms['full']:.3f} ms (medians of 9: {medians}; "
+              f"{spread['full'][0]:.3f}-{spread['full'][1]:.3f}) = guess "
+              f"{ms['guess_only']:.3f} + rounds {ms['no_write'] - ms['guess_only']:.3f} + "
+              f"write {ms['full'] - ms['no_write']:.3f}", flush=True)
+        cands = [n for n in ms if n in candidates]
+        if cands:
+            print(f"{what}{v} {label} candidates: " + "; ".join(
+                f"{n} {ms[n]:.3f} ms ({spread[n][0]:.3f}-{spread[n][1]:.3f})"
+                for n in cands), flush=True)
+        print(levels(label, libs[label]["levels"]), flush=True)
+
+
+def byte_strategies(libs: dict, dev: torch.device, stream) -> None:
+    """The byte bit-walk and fast kernels at the byte main path's shape."""
+    arr, f, cb, words, starts, tables = byte_main_inputs(dev)
+    want = torch.from_numpy(arr).to(dev)
+    out = torch.empty_like(want)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    for v, code in BYTE_STRATEGIES.items():
+        run = strategy_runner(code, f, cb, words, starts, tables, out, err, stream)
+
+        def check(name):
+            return not int(err.item()) and (name in ("no_write", "guess_only")
+                                            or torch.equal(out, want))
+
+        def levels(label, lib, v=v, run=run):
+            c = level_counts(lib, run)
+            return (f"{v} {label} levels: {c['codes']} codes decoded; a lane "
+                    f"{c['lane_levels']:.2f} levels a code, its warp {c['warp_levels']:.2f} "
+                    f"a code step, {c['lanes_a_step']:.2f} lanes a step; codes longer than "
+                    + ", ".join(f"{k}: {100 * c[f'codes_past_{k}']:.3f}% (warp steps "
+                                f"{100 * c[f'steps_past_{k}']:.2f}%)" for k in LEVEL_DEPTHS))
+
+        out.zero_()
+        time_strategy(v, libs, run, check, CANDIDATES, "", levels)
     print(f"strategy phases at 512 MiB DEFAULT ({f.n_streams} streams of {f.stream_symbols}, "
-          f"codes {cb.min_len}-{cb.max_len} bits, T {bd.SUBSEQ_BITS}) on "
-          f"{torch.cuda.get_device_name(0)} ({smi})", flush=True)
+          f"codes {cb.min_len}-{cb.max_len} bits, T {bd.SUBSEQ_BITS})", flush=True)
+
+
+def dual_strategies(libs: dict, dev: torch.device, stream) -> None:
+    """The dual bit-walk and fast kernels at the HuffWord bitstream path's
+    shape, each build's output against the plain version's ranks."""
+    inp, want = dual_inputs(dev)
+    out = torch.empty_like(want)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    word, sep = (inp.even, inp.odd) if inp.word_first else (inp.odd, inp.even)
+    sets = {"word": (word.min_len, word.max_len), "separator": (sep.min_len, sep.max_len)}
+    for v, code in BYTE_STRATEGIES.items():
+        run = dual_strategy_runner(code, inp, out, err, stream)
+
+        def check(name):
+            ok = not int(err.item()) and (name in ("no_write", "guess_only")
+                                          or torch.equal(out, want))
+            out.zero_()
+            return ok
+
+        def levels(label, lib, v=v, run=run):
+            return dual_levels_line(v, label, dual_level_counts(lib, run, sets))
+
+        out.zero_()
+        time_strategy(v, libs, run, check, DUAL_CANDIDATES, "dual ", levels)
+    print(f"dual strategy phases at the HuffWord bitstream shape ({inp.starts.numel()} streams "
+          f"of {inp.S} tokens, {inp.T} tokens; word codes {word.min_len}-{word.max_len} bits, "
+          f"separators {sep.min_len}-{sep.max_len}, T {bd.DUAL_SUBSEQ_BITS})", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--strategies", action="store_true",
-                    help="the byte bit-walk and fast kernels instead of the table decodes")
+                    help="the bit-walk and fast kernels instead of the table decodes")
+    ap.add_argument("--form", choices=("bytes", "dual", "both"), default="both",
+                    help="with --strategies: the byte kernels, the dual ones, or both")
     ap.add_argument("--parent", type=pathlib.Path,
                     help="with --strategies: another csrc/ directory, timed beside this one")
     args = ap.parse_args()
@@ -525,7 +764,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     if args.strategies:
-        strategies_main(args.parent, dev, smi)
+        strategies_main(args.parent, dev, smi,
+                        ("bytes", "dual") if args.form == "both" else (args.form,))
         return 0
     arr, f, cb, words, starts, (fc, offs, symtab) = byte_main_inputs(dev)
     want = torch.from_numpy(arr).to(dev)
