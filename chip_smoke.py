@@ -10,8 +10,9 @@ mode (DEFAULT), the byte one through glz_tpu's default front door
 .glzb archive, and the command line (python -m glz_tpu_torch.cli) on every
 path, which run every kernel again; then the device mesh (world size 1)
 and the multi-process paths with two processes sharing the card, a device
-trace of each main path's compress and decompress, and last the bitstream
-paths' decompress through each of the reference's decoder strategies.  Phases
+trace of each main path's compress and decompress, the bitstream paths'
+decompress through each of the reference's decoder strategies, and last
+the benches (bench_torch.py, bench_huffword_torch.py).  Phases
 (each prints one line or more; any failure exits non-zero before the
 last):
   1. environment: torch, the card, nvidia-smi, nvcc, g++;
@@ -171,6 +172,16 @@ last):
      the codes that go past the register levels; and the dual ones' (the
      same build) on phase 4d's container, the word and separator codes
      apart.
+  10. the benches: python3 bench_torch.py at its defaults (512 MiB of the
+     benchmark corpus at S 512, rows 64, 5 repeats: the codebook, K1 + K2,
+     K3 and the two edge round trips; 100 MiB of HuffWord text at S 512,
+     rows 32, end to end and kernels only; the four-quarter batch) and
+     GLZ_HW_PROFILE=1 python3 bench_huffword_torch.py (100 MiB), each a
+     subprocess on the card that must exit 0 within BENCH_TIMEOUT with a
+     last line of positive numbers (bench_torch.py's keys exactly
+     bench.py's), and each part's launch counts exactly its encodes and
+     decodes times the kernels each launches; their stderr (the card, the
+     Profiler report, the counts) and JSON lines are printed.
 Then the kernels JSON line, the nvidia-smi line and the result line.
 """
 
@@ -323,6 +334,25 @@ STRATEGIES = ("table", "bitwalk", "fast")
 STREAM_DECODES = {(False, "table"): "decode_streams", (True, "table"): "decode_streams_dual",
                   **{(dual, v): f"decode_streams{'_dual' if dual else ''}_{v}"
                      for dual in (False, True) for v in ("bitwalk", "fast")}}
+
+
+# Phase 10: bench_torch.py's JSON keys (bench.py's), and the kernels each
+# encode and each decode of a bench part launches: {part: {wrapper:
+# (launches an encode, launches a decode)}}.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "huffword_GBps", "huffword_tokenize_s",
+              "huffword_e2e_GBps", "huffword_kernel_GBps", "huffword_kernel_enc_GBps",
+              "huffword_kernel_dec_GBps", "batch4_serial_GBps", "batch4_pipelined_GBps",
+              "batch4_dec_serial_GBps", "batch4_dec_pipelined_GBps")
+_BYTE_CALLS = {"lane_totals": (1, 0), "encode_groups": (1, 0), "decode_groups": (0, 1)}
+_HUFFWORD_CALLS = {"lut_gather": (1, 1), "lane_totals_entries": (1, 0),
+                   "encode_entries": (1, 0), "decode_dual": (0, 1)}
+BENCH_PARTS = {"bench_torch.py": {"byte": _BYTE_CALLS, "huffword": _HUFFWORD_CALLS,
+                                  "huffword_kernels": _HUFFWORD_CALLS, "batch": _BYTE_CALLS},
+               "bench_huffword_torch.py": {"huffword": _HUFFWORD_CALLS,
+                                           "huffword_subphases": _HUFFWORD_CALLS}}
+BENCH_TIMEOUT = 900  # seconds a bench subprocess may take
+_LAUNCH_LINE = re.compile(r"^launches\[(\w+)\] after (\d+) encodes and (\d+) decodes: (\{.*\})$",
+                          re.M)
 
 
 def require(cond, msg: str) -> None:
@@ -2527,6 +2557,72 @@ def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob
     return rows
 
 
+# ---- phase 10: the benches ---------------------------------------------------
+
+def run_bench(script: str, **env) -> tuple[dict, str, float]:
+    """python3 <script> from the repository root on the card (GLZ_PLATFORM
+    and the GLZ_BENCH_* knobs cleared, then `env` set): (its last stdout
+    line as JSON, its stderr, wall seconds).  Fails unless it exits with 0
+    within BENCH_TIMEOUT, its last line is one JSON object with only
+    positive numbers, and its launch counts are right (check_bench_launches)."""
+    base = {k: v for k, v in os.environ.items()
+            if k != "GLZ_PLATFORM" and not k.startswith("GLZ_BENCH_")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script], cwd=ROOT, env={**base, **env},
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    dt = time.perf_counter() - t0
+    require(proc.returncode == 0, f"{script}: exit code {proc.returncode}\n{proc.stderr[-6000:]}")
+    lines = proc.stdout.strip().splitlines()
+    require(lines, f"{script}: printed nothing")
+    result = json.loads(lines[-1])
+    require(isinstance(result, dict), f"{script}: last line is not a JSON object")
+    bad = {k: v for k, v in result.items()
+           if k not in ("metric", "unit") and not (isinstance(v, (int, float)) and v > 0)}
+    require(not bad, f"{script}: values not > 0: {bad}")
+    check_bench_launches(script, proc.stderr)
+    return result, proc.stderr, dt
+
+
+def check_bench_launches(script: str, stderr: str) -> None:
+    """Each part of BENCH_PARTS[script] logged its launch counts, and they
+    are exactly its encodes and decodes times the kernels each launches."""
+    found = {m[1]: (int(m[2]), int(m[3]), json.loads(m[4]))
+             for m in _LAUNCH_LINE.finditer(stderr)}
+    parts = BENCH_PARTS[script]
+    require(set(found) == set(parts), f"{script}: launch lines for {sorted(found)}, "
+                                      f"expected {sorted(parts)}")
+    for part, per_call in parts.items():
+        encodes, decodes, counts = found[part]
+        want = {k: e * encodes + d * decodes for k, (e, d) in per_call.items()}
+        require(encodes > 0 and decodes > 0 and counts == want,
+                f"{script} {part}: launches {counts} after {encodes} encodes and "
+                f"{decodes} decodes, expected {want}")
+
+
+def bench_phase(card: str) -> None:
+    """Phase 10: bench_torch.py at its defaults (512 MiB at S 512, rows 64, 5
+    repeats; 100 MiB of HuffWord text at S 512, rows 32; the four-quarter
+    batch), then GLZ_HW_PROFILE=1 bench_huffword_torch.py at its default 100
+    MiB, each a subprocess on the card.  Prints each one's stderr (the card,
+    the libraries, the Profiler report, the launch counts) and its JSON
+    line."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for script, env in (("bench_torch.py", {}),
+                        ("bench_huffword_torch.py", {"GLZ_HW_PROFILE": "1"})):
+        result, stderr, dt = run_bench(script, **env)
+        if script == "bench_torch.py":
+            require(sorted(result) == sorted(BENCH_KEYS), f"{script}: keys {list(result)}")
+        else:
+            require(result["metric"] == "huffword_device_codec_GBps_per_chip"
+                    and "sub[device decode kernel]" in stderr,
+                    f"{script}: metric {result['metric']} or no sub-step lines")
+        for line in stderr.strip().splitlines():
+            print(f"bench: {script}: {line}", flush=True)
+        print(f"bench: {script} on {card} in {dt:.1f} s: {json.dumps(result)}", flush=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -2824,6 +2920,9 @@ def main() -> int:
 
     # ---- 9. the decoder strategies on the bitstream paths
     rows += strategy_phase(card, arr, bblob, hw_text, hbblob, vocabs[5], levels, dev)
+
+    # ---- 10. the benches, each in its own process
+    bench_phase(card)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -393,3 +393,12 @@ def test_two_process_lockstep_multihost(cuda, tmp_path):
     assert b"".join(p[1] for p in parts) == arr.tobytes()
     for *_, counts in got:
         assert counts["encode_groups"] and counts["decode_groups"]
+
+
+def test_bench_on_the_card(cuda):
+    """bench_torch.py at 16 MiB on the card (chip_smoke.py's phase 10 at a
+    smaller size): exit 0, bench.py's keys, every value > 0, and each part's
+    launch counts exactly its encodes and decodes times its kernels."""
+    result, stderr, _ = chip_smoke.run_bench("bench_torch.py", GLZ_BENCH_MB="16")
+    assert sorted(result) == sorted(chip_smoke.BENCH_KEYS)
+    assert "device: " + torch.cuda.get_device_name(0) in stderr
