@@ -12,17 +12,23 @@ lockstep container; like glz_tpu, any backend but "device" means "host".  decomp
 as glz_tpu's does (see decompress).  Every backend and strategy runs on
 the card; device='cpu' runs the kernels' plain versions.  Every entry
 point passes `device` down to each call it makes.
+
+Each entry point is a root span of utils/timer.py (`compress`,
+`decompress`, `compress_batch`, `decompress_batch`; the archive goes
+through the batch), and the steps below it are its child spans.
 """
 
 from __future__ import annotations
 
 import struct
+import time
 import zlib
 
 import numpy as np
 
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container
+from glz_tpu_torch.utils import timer
 
 def _plan_streams(n_symbols: int, conf: cfg.GlzConfig) -> int:
     """Pick symbols-per-stream: honor conf.stream_symbols but cap stream
@@ -39,21 +45,38 @@ def _plan_streams(n_symbols: int, conf: cfg.GlzConfig) -> int:
 def _verify(data: bytes, f: container.GlzFile) -> bytes:
     """crc32 integrity check when the container carries one."""
     if f.checksum is not None:
-        if zlib.crc32(data) & 0xFFFFFFFF != f.checksum:
-            raise ValueError("checksum mismatch: corrupt container or decoder bug")
+        with timer.span("verify"):
+            if zlib.crc32(data) & 0xFFFFFFFF != f.checksum:
+                raise ValueError("checksum mismatch: corrupt container or decoder bug")
     return data
 
 
 def _pipelined(fn, datas, pipeline: bool) -> list:
     """Per-file compress with a 2-deep overlap: with pipeline=True two files
     are in flight at once on a thread pool, so one file's host phases run
-    while the other's kernels do.  Results come back in input order."""
+    while the other's kernels do.  Results come back in input order.
+
+    Each file's call is a `batch.file` span; on the pool, a `batch.wait`
+    span before it runs from the submission to the worker's start.  Both
+    take the caller's open span (the batch) as their parent."""
     if len(datas) <= 1 or not pipeline:
-        return [fn(d) for d in datas]
+        def serial(d):
+            with timer.span("batch.file"):
+                return fn(d)
+        return [serial(d) for d in datas]
     import concurrent.futures
 
+    batch = timer.current()
+    submitted = time.perf_counter_ns()
+
+    def one(d):
+        with timer.span("batch.wait", parent=batch, start_ns=submitted):
+            pass
+        with timer.span("batch.file", parent=batch):
+            return fn(d)
+
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        return list(ex.map(fn, datas))
+        return list(ex.map(one, datas))
 
 
 def compress(data: bytes, mode: int = cfg.MODE_BYTE, backend: str = "host",
@@ -65,6 +88,11 @@ def compress(data: bytes, mode: int = cfg.MODE_BYTE, backend: str = "host",
     mode a bitstream container ("host") or a lockstep one ("device").
 
     device: None runs on the card; 'cpu' runs the kernels' plain versions."""
+    with timer.span("compress"):
+        return _compress(data, mode, backend, conf, device)
+
+
+def _compress(data, mode, backend, conf, device) -> bytes:
     if mode == cfg.MODE_HUFFWORD:
         from glz_tpu_torch.models.huffword import compress_huffword
         return compress_huffword(data, conf, backend=backend, device=device)
@@ -94,6 +122,11 @@ def decompress(blob: bytes, backend: str = "host", variant: str = cfg.DECODER_TA
       lockstep, normal tree   the one decoder, whatever the variant
 
     Every strategy gives the same bytes for a valid container."""
+    with timer.span("decompress"):
+        return _decompress(blob, backend, variant, device)
+
+
+def _decompress(blob, backend, variant, device) -> bytes:
     from glz_tpu_torch.models.canonical_byte import decompress_bytes_device, resolve_device
     from glz_tpu_torch.models.huffword import decompress_huffword
 
@@ -130,11 +163,12 @@ def compress_batch(datas: list[bytes], mode: int = cfg.MODE_BYTE, backend: str =
     whole file list and every container uses it.  Each container still
     embeds the codebook and decodes alone; compress_archive stores it once.
     conf.layout and backend select the container as in compress()."""
-    if shared_codebook:
-        return _compress_batch_shared(datas, mode, backend, conf, pipeline, device)
-    return _pipelined(
-        lambda d: compress(d, mode=mode, backend=backend, conf=conf, device=device),
-        datas, pipeline)
+    with timer.span("compress_batch"):
+        if shared_codebook:
+            return _compress_batch_shared(datas, mode, backend, conf, pipeline, device)
+        return _pipelined(
+            lambda d: compress(d, mode=mode, backend=backend, conf=conf, device=device),
+            datas, pipeline)
 
 
 def _compress_batch_shared(datas, mode, backend, conf, pipeline, device) -> list[bytes]:
@@ -149,7 +183,8 @@ def _compress_batch_shared(datas, mode, backend, conf, pipeline, device) -> list
 
     hist = np.zeros(256, np.int64)
     for d in datas:
-        hist += sampled_histogram(np.frombuffer(d, np.uint8), conf.histogram_budget)
+        with timer.span("histogram"):
+            hist += sampled_histogram(np.frombuffer(d, np.uint8), conf.histogram_budget)
     if conf.layout == cfg.LAYOUT_LOCKSTEP:
         from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN
         encode = cb_model.compress_bytes_lockstep
@@ -158,7 +193,8 @@ def _compress_batch_shared(datas, mode, backend, conf, pipeline, device) -> list
         encode = (cb_model.compress_bytes_device if backend == "device"
                   else cb_model.compress_bytes_host)
         limit = conf.length_limit
-    cb = build_codebook(hist, limit)
+    with timer.span("codebook"):
+        cb = build_codebook(hist, limit)
     return _pipelined(lambda d: encode(d, conf, codebook=cb, device=device), datas, pipeline)
 
 
@@ -167,8 +203,9 @@ def decompress_batch(blobs: list[bytes], backend: str = "host", pipeline: bool =
     """Decompress containers with compress_batch's 2-deep pipeline (one
     file's host phases, detokenize and crc32, while the other's kernels
     run)."""
-    return _pipelined(lambda b: decompress(b, backend=backend, device=device), blobs,
-                      pipeline)
+    with timer.span("decompress_batch"):
+        return _pipelined(lambda b: decompress(b, backend=backend, device=device), blobs,
+                          pipeline)
 
 
 # ---- .glzb archive: a shared-codebook batch with the codebook stored ONCE -----

@@ -36,6 +36,11 @@ Layout (little-endian):
 
 Byte-mode codebook blob: u8 max_len; if max_len <= 15, 128 B of packed
 nibbles (symbol 2i in the high nibble), else 256 B of u8 lengths.
+
+write_container and read_container are the `container.write` and
+`container.read` spans of utils/timer.py, each counting the bytes it copies
+(the container written; the codebook and payload sections read out) as
+`host_copy_bytes`.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ import dataclasses
 import struct
 
 import numpy as np
+
+from glz_tpu_torch.utils import timer
 
 
 MAGIC = b"GLZ1"
@@ -111,6 +118,13 @@ class GlzFile:
 
 
 def write_container(f: GlzFile) -> bytes:
+    with timer.span("container.write"):
+        out = _write_container(f)
+        timer.count(timer.HOST_COPY_BYTES, len(out))
+        return out
+
+
+def _write_container(f: GlzFile) -> bytes:
     flags = f.layout | (FLAG_CHECKSUM if f.checksum is not None else 0)
     wide = f.layout == LAYOUT_LOCKSTEP and f.group_rows != 8
     header = struct.pack(
@@ -128,7 +142,7 @@ def write_container(f: GlzFile) -> bytes:
     )
     table = np.asarray(f.stream_bits, dtype=np.uint32).astype("<u4").tobytes()
     tail = struct.pack("<I", f.checksum & 0xFFFFFFFF) if f.checksum is not None else b""
-    return header + f.codebook_blob + table + f.payload + tail
+    return b"".join((header, f.codebook_blob, table, f.payload, tail))
 
 
 def is_glz(blob: bytes | memoryview) -> bool:
@@ -152,6 +166,13 @@ def peek_layout(blob: bytes | memoryview) -> int:
 
 
 def read_container(blob: bytes | memoryview) -> GlzFile:
+    with timer.span("container.read"):
+        f = _read_container(blob)
+        timer.count(timer.HOST_COPY_BYTES, len(f.codebook_blob) + len(f.payload))
+        return f
+
+
+def _read_container(blob: bytes | memoryview) -> GlzFile:
     blob = memoryview(blob)
     if len(blob) < HEADER_SIZE:
         raise ValueError(

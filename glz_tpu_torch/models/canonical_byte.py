@@ -22,6 +22,11 @@ stream decode.  Two containers, as in the JAX package:
     dispatch's payload padded to whole u32 words (stored big-endian), the
     pad bits added to the recorded bit count of the dispatch's last stream.
 Decode never reads past a stream's symbol count, so it reads both.
+
+Each step is a span of utils/timer.py (`histogram`, `codebook`, `tables`,
+`pad`, `h2d`, `encode` / `decode`, `d2h`, `serialize`, `verify`; the
+container's own in core/container.py), and the steps that copy host
+buffers count the bytes they write as `host_copy_bytes`.
 """
 
 from __future__ import annotations
@@ -36,13 +41,14 @@ from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import bitio, container
 from glz_tpu_torch.core.api import _plan_streams, _verify
 from glz_tpu_torch.core.codebook import (Codebook, build_codebook, canonical_codebook,
-                                         histogram_bytes, sampled_histogram)
+                                         sampled_histogram)
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.ops.decode import decode_streams
 from glz_tpu_torch.ops.encode import encode_block_fast
 from glz_tpu_torch.ops.lockstep_decode import decode_groups
 from glz_tpu_torch.ops.lockstep_encode import (MAX_FUSED_LEN,
                                                encode_payload_from_symbols)
+from glz_tpu_torch.utils import timer
 
 # Symbols per bitstream dispatch (rounded down to whole streams).  Not a
 # knob: it decides where the device container's word-alignment pads go, so
@@ -69,7 +75,10 @@ def _as_array(data) -> np.ndarray:
 def _crc(arr: np.ndarray, conf: cfg.GlzConfig) -> int | None:
     if not conf.checksum:
         return None
-    return zlib.crc32(arr.tobytes())
+    with timer.span("verify"):
+        data = arr.tobytes()
+        timer.count(timer.HOST_COPY_BYTES, len(data))
+        return zlib.crc32(data)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -92,27 +101,68 @@ def _i32_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32)).to(dev)
 
 
+def payload_words_on(words: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """_i32_tensor of a container's payload words, in two spans: the host
+    copy into the bit-pattern array (`serialize`), then the copy to `dev`
+    (`h2d`)."""
+    with timer.span("serialize"):
+        host = np.ascontiguousarray(words).astype(np.uint32).view(np.int32)
+        timer.count(timer.HOST_COPY_BYTES, host.nbytes)
+    with timer.span("h2d"):
+        return torch.from_numpy(host).to(dev)
+
+
+def host_bytes(out: torch.Tensor) -> bytes:
+    """A decoded u8 tensor as bytes: the copy to the host (`d2h`, which
+    waits for the kernels ahead of it), then into a bytes object
+    (`serialize`)."""
+    with timer.span("d2h"):
+        host = out.cpu()
+    with timer.span("serialize"):
+        data = host.numpy().tobytes()
+        timer.count(timer.HOST_COPY_BYTES, len(data))
+    return data
+
+
 def entry_table(cb: Codebook, dev: torch.device) -> torch.Tensor:
     """The fused lj|len entry table of the encode kernels (max_len <= 26)."""
-    return _i32_tensor(cb.left_justified_codes() | cb.lengths.astype(np.uint32), dev)
+    with timer.span("tables"):
+        return _i32_tensor(cb.left_justified_codes() | cb.lengths.astype(np.uint32), dev)
 
 
 def decode_tables(cb: Codebook, dev: torch.device):
     """(fc_lj, offsets, symtab) int32 tensors of the decode kernel."""
-    symtab = np.zeros(256, np.uint32)
-    symtab[: cb.symbols.size] = cb.symbols
-    return (_i32_tensor(cb.first_code_left_justified(), dev),
-            _i32_tensor(cb.decode_offsets(), dev), _i32_tensor(symtab, dev))
+    with timer.span("tables"):
+        symtab = np.zeros(256, np.uint32)
+        symtab[: cb.symbols.size] = cb.symbols
+        return (_i32_tensor(cb.first_code_left_justified(), dev),
+                _i32_tensor(cb.decode_offsets(), dev), _i32_tensor(symtab, dev))
 
 
 def group_tables(group_words: np.ndarray, n_symbols: int, G: int, S: int,
                  dev: torch.device):
     """(group_starts int64, group_counts int32) tensors from the padded
     per-group word counts a container stores."""
-    group_words = np.asarray(group_words, dtype=np.int64)
-    starts = np.cumsum(group_words) - group_words
-    counts = np.clip(n_symbols - np.arange(group_words.size) * G * S, 0, G * S)
-    return torch.from_numpy(starts).to(dev), _i32_tensor(counts, dev)
+    with timer.span("tables"):
+        group_words = np.asarray(group_words, dtype=np.int64)
+        starts = np.cumsum(group_words) - group_words
+        counts = np.clip(n_symbols - np.arange(group_words.size) * G * S, 0, G * S)
+        return torch.from_numpy(starts).to(dev), _i32_tensor(counts, dev)
+
+
+def _byte_codebook(arr: np.ndarray, budget: int | None, limit: int | None) -> Codebook:
+    """The codebook of one input: its histogram (sampled within `budget`
+    bytes; budget None counts every byte), then the length-limited code."""
+    with timer.span("histogram"):
+        hist = sampled_histogram(arr, budget)
+    with timer.span("codebook"):
+        return build_codebook(hist, limit)
+
+
+def _parsed_byte_codebook(f: container.GlzFile) -> Codebook:
+    """The codebook a byte-mode container stores."""
+    with timer.span("codebook"):
+        return canonical_codebook(container.decode_byte_codebook(f.codebook_blob))
 
 
 def empty_container(conf: cfg.GlzConfig, lengths: np.ndarray | None = None) -> bytes:
@@ -160,20 +210,28 @@ def compress_bytes_lockstep(data: bytes | np.ndarray,
                 f"shared codebook max_len {cb.max_len} exceeds the "
                 f"fused-entry limit {MAX_FUSED_LEN}")
     else:
-        cb = build_codebook(sampled_histogram(arr, conf.histogram_budget), limit)
+        cb = _byte_codebook(arr, conf.histogram_budget, limit)
     tbl = entry_table(cb, dev)
-    host = np.zeros(_round_up(n, group_syms), dtype=np.uint8)
-    host[:n] = arr
-    sym = torch.from_numpy(host).to(dev)
-    payload, group_counts = encode_payload_from_symbols(sym, n, tbl, S, rows)
-    words = payload.cpu().numpy()
+    with timer.span("pad"):
+        host = np.zeros(_round_up(n, group_syms), dtype=np.uint8)
+        host[:n] = arr
+        timer.count(timer.HOST_COPY_BYTES, n)
+    with timer.span("h2d"):
+        sym = torch.from_numpy(host).to(dev)
+    with timer.span("encode"):
+        payload, group_counts = encode_payload_from_symbols(sym, n, tbl, S, rows)
+    with timer.span("d2h"):
+        words = payload.cpu().numpy()
+    with timer.span("serialize"):
+        payload = words.astype("<i4", copy=False).tobytes()
+        timer.count(timer.HOST_COPY_BYTES, len(payload))
     f = container.GlzFile(
         mode=cfg.MODE_BYTE,
         n_symbols=n,
         stream_symbols=S,
         stream_bits=group_counts,
         codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
-        payload=words.astype("<i4", copy=False).tobytes(),
+        payload=payload,
         layout=container.LAYOUT_LOCKSTEP,
         checksum=_crc(arr, conf),
         group_rows=rows,
@@ -189,7 +247,7 @@ def decompress_bytes_lockstep(blob: bytes, device=None) -> bytes:
         raise ValueError("not a lockstep-layout container")
     if f.n_symbols == 0:
         return b""
-    cb = canonical_codebook(container.decode_byte_codebook(f.codebook_blob))
+    cb = _parsed_byte_codebook(f)
     S = f.stream_symbols
     if S & (S - 1) or not 64 <= S <= 8192:
         raise ValueError(f"corrupt .glz container: lockstep stream_symbols {S}")
@@ -197,22 +255,28 @@ def decompress_bytes_lockstep(blob: bytes, device=None) -> bytes:
     if f.n_streams * G * S < f.n_symbols:
         raise ValueError("corrupt .glz container: group table too short")
     starts, counts = group_tables(f.stream_bits, f.n_symbols, G, S, dev)
+    tables = decode_tables(cb, dev)
     words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
-    out = decode_groups(_i32_tensor(words, dev), starts, counts,
-                        *decode_tables(cb, dev), S, cb.min_len, cb.max_len,
-                        f.group_rows)
-    return _verify(out[: f.n_symbols].cpu().numpy().tobytes(), f)
+    payload = payload_words_on(words, dev)
+    with timer.span("decode"):
+        out = decode_groups(payload, starts, counts, *tables, S, cb.min_len, cb.max_len,
+                            f.group_rows)
+    return _verify(host_bytes(out[: f.n_symbols]), f)
 
 
 # ---- bitstream layout (layout 0) ---------------------------------------------
 
 def _symbols_on(chunk: np.ndarray, padded: int, dev: torch.device) -> torch.Tensor:
     """A u8 chunk on `dev`, zero-padded to `padded` symbols (read-only input
-    buffers are only read)."""
-    out = torch.zeros(padded, dtype=torch.uint8, device=dev)
-    with warnings.catch_warnings():
+    buffers are only read): the zeros (`pad`), then the chunk's copy into
+    them (`h2d`; on the CPU a host copy)."""
+    with timer.span("pad"):
+        out = torch.zeros(padded, dtype=torch.uint8, device=dev)
+    with timer.span("h2d"), warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
         out[: chunk.size].copy_(torch.from_numpy(chunk))
+        if dev.type == "cpu":
+            timer.count(timer.HOST_COPY_BYTES, chunk.size)
     return out
 
 
@@ -235,32 +299,40 @@ def compress_bytes_device(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DE
         return empty_container(conf)
     S = _plan_streams(n, conf)
     dispatch = max((MAX_DISPATCH_SYMBOLS // S) * S, S)
-    cb = codebook if codebook is not None else build_codebook(
-        sampled_histogram(arr, conf.histogram_budget), conf.length_limit)
-    lj_tbl = _i32_tensor(cb.left_justified_codes(), dev)
-    len_tbl = _i32_tensor(cb.lengths, dev)
+    cb = codebook if codebook is not None else _byte_codebook(arr, conf.histogram_budget,
+                                                              conf.length_limit)
+    lj_tbl, len_tbl = _lj_len_tables(cb, dev)
 
     payload_parts: list[bytes] = []
     stream_bits_parts: list[np.ndarray] = []
     for lo in range(0, n, dispatch):
         n_valid = min(n, lo + dispatch) - lo
         sym = _symbols_on(arr[lo : lo + n_valid], _round_up(n_valid, S), dev)
-        words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl, len_tbl, S)
+        with timer.span("encode"):
+            words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl, len_tbl,
+                                                               S)
         del sym
-        sb = stream_bits[: -(-n_valid // S)].cpu().numpy()
+        with timer.span("d2h"):
+            sb = stream_bits[: -(-n_valid // S)].cpu().numpy()
+            host = words.cpu().numpy()
         # word-align this dispatch: inflate its last stream's recorded advance
         sb[-1] += 32 * words.numel() - total_bits
-        payload_parts.append(words.cpu().numpy().view(np.uint32).astype(">u4").tobytes())
+        with timer.span("serialize"):
+            payload_parts.append(host.view(np.uint32).astype(">u4").tobytes())
+            timer.count(timer.HOST_COPY_BYTES, 2 * host.nbytes)
         stream_bits_parts.append(sb)
         del words
 
+    with timer.span("serialize"):
+        payload = b"".join(payload_parts)
+        timer.count(timer.HOST_COPY_BYTES, len(payload))
     f = container.GlzFile(
         mode=cfg.MODE_BYTE,
         n_symbols=n,
         stream_symbols=S,
         stream_bits=np.concatenate(stream_bits_parts),
         codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
-        payload=b"".join(payload_parts),
+        payload=payload,
         checksum=_crc(arr, conf),
     )
     return container.write_container(f)
@@ -285,10 +357,8 @@ def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFA
         return empty_container(conf, None if codebook is None else codebook.lengths)
     S = _plan_streams(n, conf)
     dispatch = max((MAX_DISPATCH_SYMBOLS // S) * S, S)
-    cb = codebook if codebook is not None else build_codebook(histogram_bytes(arr),
-                                                              conf.length_limit)
-    lj_tbl = _i32_tensor(cb.left_justified_codes(), dev)
-    len_tbl = _i32_tensor(cb.lengths, dev)
+    cb = codebook if codebook is not None else _byte_codebook(arr, None, conf.length_limit)
+    lj_tbl, len_tbl = _lj_len_tables(cb, dev)
 
     word_parts: list[np.ndarray] = []
     stream_bits_parts: list[np.ndarray] = []
@@ -297,27 +367,32 @@ def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFA
     for lo in range(0, n, dispatch):
         n_valid = min(n, lo + dispatch) - lo
         sym = _symbols_on(arr[lo : lo + n_valid], _round_up(n_valid, S), dev)
-        words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl, len_tbl, S,
-                                                           bit_offset=pos)
-        del sym
-        if carry is not None:
-            words[:1].bitwise_or_(carry)
+        with timer.span("encode"):
+            words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl, len_tbl,
+                                                               S, bit_offset=pos)
+            del sym
+            if carry is not None:
+                words[:1].bitwise_or_(carry)
         pos += total_bits
         whole = words.numel() - (1 if pos & 31 else 0)
         carry = words[whole:] if pos & 31 else None
-        word_parts.append(words[:whole].cpu().numpy().view(np.uint32))
-        stream_bits_parts.append(stream_bits[: -(-n_valid // S)].cpu().numpy())
+        with timer.span("d2h"):
+            word_parts.append(words[:whole].cpu().numpy().view(np.uint32))
+            stream_bits_parts.append(stream_bits[: -(-n_valid // S)].cpu().numpy())
         del words
     if carry is not None:
         word_parts.append(carry.cpu().numpy().view(np.uint32))
 
+    with timer.span("serialize"):
+        payload = bitio.words_to_bytes(np.concatenate(word_parts), pos)
+        timer.count(timer.HOST_COPY_BYTES, len(payload))
     f = container.GlzFile(
         mode=cfg.MODE_BYTE,
         n_symbols=n,
         stream_symbols=S,
         stream_bits=np.concatenate(stream_bits_parts).astype(np.uint64),
         codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
-        payload=bitio.words_to_bytes(np.concatenate(word_parts), pos),
+        payload=payload,
         checksum=_crc(arr, conf),
     )
     return container.write_container(f)
@@ -338,16 +413,33 @@ def decompress_bytes_device(blob: bytes, device=None, variant: str = cfg.DECODER
     dev = resolve_device(device)
     if f.n_symbols == 0:
         return _verify(b"", f)
-    cb = canonical_codebook(container.decode_byte_codebook(f.codebook_blob))
+    cb = _parsed_byte_codebook(f)
     if cb.max_len == 0:
         raise ValueError("corrupt .glz container: no byte has a code")
     S = f.stream_symbols
     if S < 1 or f.n_streams * S < f.n_symbols:
         raise ValueError("corrupt .glz container: stream table too short")
-    sbits = f.stream_bits.astype(np.int64)
-    starts = np.cumsum(sbits) - sbits
-    out = decode_streams(_i32_tensor(bitio.bytes_to_words(f.payload), dev),
-                         torch.from_numpy(starts).to(dev), f.n_symbols, S,
-                         *decode_tables(cb, dev), cb.min_len, cb.max_len, variant=variant,
-                         n_codes=cb.symbols.size)
-    return _verify(out.cpu().numpy().tobytes(), f)
+    with timer.span("tables"):
+        sbits = f.stream_bits.astype(np.int64)
+        starts = torch.from_numpy(np.cumsum(sbits) - sbits).to(dev)
+    tables = decode_tables(cb, dev)
+    payload = payload_words_on(bitstream_words(f.payload), dev)
+    with timer.span("decode"):
+        out = decode_streams(payload, starts, f.n_symbols, S, *tables, cb.min_len, cb.max_len,
+                             variant=variant, n_codes=cb.symbols.size)
+    return _verify(host_bytes(out), f)
+
+
+def bitstream_words(payload: bytes) -> np.ndarray:
+    """A bitstream payload's big-endian u32 words (bitio.bytes_to_words, a
+    host copy: `serialize`)."""
+    with timer.span("serialize"):
+        words = bitio.bytes_to_words(payload)
+        timer.count(timer.HOST_COPY_BYTES, words.nbytes)
+        return words
+
+
+def _lj_len_tables(cb: Codebook, dev: torch.device):
+    """(lj, length) int32 tables of the byte lookup (K7)."""
+    with timer.span("tables"):
+        return _i32_tensor(cb.left_justified_codes(), dev), _i32_tensor(cb.lengths, dev)

@@ -28,6 +28,10 @@ card.  All kernel index math is 64-bit.
 
 backend="device" writes a lockstep container even under a bitstream conf,
 as the JAX package's compress_huffword does.
+
+The steps are spans of utils/timer.py, as in canonical_byte.py (`vocab` and
+`detokenize` in utils/tokenizer.py), and the host copies count their bytes
+as `host_copy_bytes`.
 """
 
 from __future__ import annotations
@@ -43,13 +47,15 @@ from glz_tpu_torch.core import bitio, container
 from glz_tpu_torch.core.api import _pipelined, _verify
 from glz_tpu_torch.core.codebook import Codebook, build_codebook, canonical_codebook
 from glz_tpu_torch.core.lockstep import LANES
-from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, group_tables,
+from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, bitstream_words,
+                                                 group_tables, payload_words_on,
                                                  resolve_device)
 from glz_tpu_torch.ops.decode import decode_streams_dual
 from glz_tpu_torch.ops.encode import pack_codes
 from glz_tpu_torch.ops.lockstep_decode import decode_groups_dual
 from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN, encode_payload_from_entries
 from glz_tpu_torch.ops.lut import gather_entries, map_ranks
+from glz_tpu_torch.utils import timer
 from glz_tpu_torch.utils import tokenizer as tok
 
 
@@ -96,25 +102,33 @@ def _decode_dict_blob(mv: memoryview, off: int):
 
 
 def huffword_cb_blob(word_first: bool, wv, nv, cbs) -> bytes:
-    return (struct.pack("<B", 1 if word_first else 0)
-            + _encode_dict_blob(wv, cbs[0].lengths if wv.n else np.zeros(0))
-            + _encode_dict_blob(nv, cbs[1].lengths if nv.n else np.zeros(0)))
+    """The codebook section of a container (a `container.write` span)."""
+    with timer.span("container.write"):
+        blob = (struct.pack("<B", 1 if word_first else 0)
+                + _encode_dict_blob(wv, cbs[0].lengths if wv.n else np.zeros(0))
+                + _encode_dict_blob(nv, cbs[1].lengths if nv.n else np.zeros(0)))
+        timer.count(timer.HOST_COPY_BYTES, len(blob))
+        return blob
 
 
 def huffword_state_from_blob(codebook_blob: bytes):
     """A container's codebook section -> (word_first, cb_word, cb_nonword,
     word_vocab, nonword_vocab): the whole state of a HuffWord codec.  The
     vocabularies carry token text and offsets; their counts are None (a
-    container stores code lengths, not counts)."""
-    mv = memoryview(codebook_blob)
-    if len(mv) < 1:
-        _corrupt("truncated before word_first")
-    word_first = bool(mv[0])
-    wl, woff, wblob, off = _decode_dict_blob(mv, 1)
-    nl, noff, nblob, off = _decode_dict_blob(mv, off)
-    wv = tok.TokenVocab.from_parts(wblob, np.diff(woff), None)
-    nv = tok.TokenVocab.from_parts(nblob, np.diff(noff), None)
-    return word_first, canonical_codebook(wl), canonical_codebook(nl), wv, nv
+    container stores code lengths, not counts).  The parse is a
+    `container.read` span, the codes a `codebook` one."""
+    with timer.span("container.read"):
+        mv = memoryview(codebook_blob)
+        if len(mv) < 1:
+            _corrupt("truncated before word_first")
+        word_first = bool(mv[0])
+        wl, woff, wblob, off = _decode_dict_blob(mv, 1)
+        nl, noff, nblob, off = _decode_dict_blob(mv, off)
+        timer.count(timer.HOST_COPY_BYTES, len(wblob) + len(nblob))
+        wv = tok.TokenVocab.from_parts(wblob, np.diff(woff), None)
+        nv = tok.TokenVocab.from_parts(nblob, np.diff(noff), None)
+    with timer.span("codebook"):
+        return word_first, canonical_codebook(wl), canonical_codebook(nl), wv, nv
 
 
 # ---- geometry: stream tokens and group rows --------------------------------
@@ -187,34 +201,50 @@ def encode_lockstep_tokens(ids: np.ndarray, T: int, word_first: bool,
     so token parity == step parity."""
     dev = resolve_device(device)
     group_syms = rows * LANES * S
-    ent_tbls = [cb.left_justified_codes() | cb.lengths.astype(np.uint32)
-                for cb in cbs]
     padded_T = _round_up(max(T, 1), group_syms)
     n0 = max(n_word, 1)
-    combined_tbl = np.concatenate(
-        [ent_tbls[0] if n_word else np.zeros(1, np.uint32),
-         ent_tbls[1] if n_nonword else np.zeros(1, np.uint32)])
+    with timer.span("tables"):
+        ent_tbls = [cb.left_justified_codes() | cb.lengths.astype(np.uint32)
+                    for cb in cbs]
+        combined_tbl = _i32_tensor(np.concatenate(
+            [ent_tbls[0] if n_word else np.zeros(1, np.uint32),
+             ent_tbls[1] if n_nonword else np.zeros(1, np.uint32)]), dev)
     small = max(n_word, n_nonword) <= 0xFFFF
-    ids_pad = np.zeros(padded_T, np.uint16 if small else np.uint32)
-    ids_pad[:T] = ids.astype(ids_pad.dtype)
-    ids_d = torch.from_numpy(ids_pad.view(np.int16 if small else np.int32)).to(dev)
-    ent = gather_entries(ids_d, _i32_tensor(combined_tbl, dev), 0, n0, T,
-                         bool(word_first))
-    del ids_d
-    payload, group_counts = encode_payload_from_entries(ent, S, rows)
-    return payload.cpu().numpy().view(np.uint32), group_counts
+    ids_d = _ids_on(ids, T, padded_T, small, dev)
+    with timer.span("encode"):
+        ent = gather_entries(ids_d, combined_tbl, 0, n0, T, bool(word_first))
+        del ids_d
+        payload, group_counts = encode_payload_from_entries(ent, S, rows)
+    with timer.span("d2h"):
+        return payload.cpu().numpy().view(np.uint32), group_counts
+
+
+def _ids_on(ids: np.ndarray, T: int, padded: int, small: bool,
+            dev: torch.device) -> torch.Tensor:
+    """Token ids as u16 (`small`) or u32 bit patterns on `dev`, zero-padded
+    to `padded`: the padded host copy (`pad`), then the copy to `dev`
+    (`h2d`)."""
+    with timer.span("pad"):
+        ids_pad = np.zeros(padded, np.uint16 if small else np.uint32)
+        ids_pad[:T] = ids.astype(ids_pad.dtype)
+        timer.count(timer.HOST_COPY_BYTES, 2 * T * ids_pad.itemsize)
+    with timer.span("h2d"):
+        return torch.from_numpy(ids_pad.view(np.int16 if small else np.int32)).to(dev)
 
 
 def _lockstep_container(data, conf: cfg.GlzConfig, T: int, S: int, rows: int,
                         group_counts: np.ndarray, cb_blob: bytes,
                         payload: np.ndarray) -> bytes:
+    with timer.span("serialize"):
+        payload = payload.astype("<u4", copy=False).tobytes()
+        timer.count(timer.HOST_COPY_BYTES, len(payload))
     return container.write_container(container.GlzFile(
         mode=cfg.MODE_HUFFWORD,
         n_symbols=T,
         stream_symbols=S,
         stream_bits=group_counts,
         codebook_blob=cb_blob,
-        payload=payload.astype("<u4", copy=False).tobytes(),
+        payload=payload,
         layout=container.LAYOUT_LOCKSTEP,
         checksum=zlib.crc32(data) if conf.checksum else None,
         group_rows=rows,
@@ -230,7 +260,8 @@ def _compress_huffword_device(data, conf: cfg.GlzConfig, word_first: bool,
     small = max(wv.n, nv.n) <= 0xFFFF
     rows = _capped_rows(conf.group_rows, S, small)
     limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
-    cbs = [build_codebook(wv.counts, limit), build_codebook(nv.counts, limit)]
+    with timer.span("codebook"):
+        cbs = [build_codebook(wv.counts, limit), build_codebook(nv.counts, limit)]
     payload, group_counts = encode_lockstep_tokens(
         ids, T, word_first, cbs, wv.n, nv.n, S, rows=rows, device=device)
     return _lockstep_container(data, conf, T, S, rows, group_counts,
@@ -246,8 +277,9 @@ def bitstream_tables(cbs: list[Codebook], n_word: int, n_nonword: int,
             [column(cbs[0]) if n_word else np.zeros(1, np.uint32),
              column(cbs[1]) if n_nonword else np.zeros(1, np.uint32)]), dev)
 
-    return (table(Codebook.left_justified_codes),
-            table(lambda cb: cb.lengths.astype(np.uint32)))
+    with timer.span("tables"):
+        return (table(Codebook.left_justified_codes),
+                table(lambda cb: cb.lengths.astype(np.uint32)))
 
 
 def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
@@ -263,17 +295,20 @@ def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
     bytes up to the last code bit, the last partial byte padded with 1s."""
     dev = resolve_device(device)
     small = max(n_word, n_nonword) <= 0xFFFF
-    ids_pad = np.zeros(n_streams * stream_tokens, np.uint16 if small else np.uint32)
-    ids_pad[:T] = ids.astype(ids_pad.dtype)
-    ids_d = torch.from_numpy(ids_pad.view(np.int16 if small else np.int32)).to(dev)
+    ids_d = _ids_on(ids, T, n_streams * stream_tokens, small, dev)
     n0 = max(n_word, 1)
     lj_tbl, len_tbl = bitstream_tables(cbs, n_word, n_nonword, dev)
-    lj = gather_entries(ids_d, lj_tbl, 0, n0, T, bool(word_first))
-    lens = gather_entries(ids_d, len_tbl, 0, n0, T, bool(word_first))
-    del ids_d
-    words, total_bits, stream_bits = pack_codes(lj, lens, stream_tokens)
-    payload = bitio.words_to_bytes(words.cpu().numpy().view(np.uint32), total_bits)
-    return payload, stream_bits.cpu().numpy()
+    with timer.span("encode"):
+        lj = gather_entries(ids_d, lj_tbl, 0, n0, T, bool(word_first))
+        lens = gather_entries(ids_d, len_tbl, 0, n0, T, bool(word_first))
+        del ids_d
+        words, total_bits, stream_bits = pack_codes(lj, lens, stream_tokens)
+    with timer.span("d2h"):
+        words, stream_bits = words.cpu().numpy(), stream_bits.cpu().numpy()
+    with timer.span("serialize"):
+        payload = bitio.words_to_bytes(words.view(np.uint32), total_bits)
+        timer.count(timer.HOST_COPY_BYTES, len(payload))
+    return payload, stream_bits
 
 
 def _bitstream_container(data, conf: cfg.GlzConfig, T: int, word_first: bool, wv, nv,
@@ -321,8 +356,9 @@ def compress_huffword(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAUL
     _, _, word_first, wv, nv, ids = tok.build_vocabs(data)
     if lockstep:
         return _compress_huffword_device(data, conf, word_first, wv, nv, ids, dev)
-    cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), conf.length_limit)
-           for v in (wv, nv)]
+    with timer.span("codebook"):
+        cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), conf.length_limit)
+               for v in (wv, nv)]
     return _bitstream_container(data, conf, ids.size, word_first, wv, nv, ids, cbs, dev)
 
 
@@ -361,7 +397,8 @@ def compress_huffword_shared(datas: list[bytes], conf: cfg.GlzConfig = cfg.DEFAU
         limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
     else:
         limit = conf.length_limit
-    cbs = [build_codebook(uwv.counts, limit), build_codebook(unv.counts, limit)]
+    with timer.span("codebook"):
+        cbs = [build_codebook(uwv.counts, limit), build_codebook(unv.counts, limit)]
 
     def one(args):
         data, (starts, lengths, word_first, wv, nv, ids), k = args
@@ -393,21 +430,29 @@ def _ranks_to_ids(ranks: torch.Tensor, cb_even: Codebook, cb_odd: Codebook, smal
     card, then D2H as u16 when the vocabularies fit (`small`: 2 bytes per
     token instead of 4)."""
     n_even = max(cb_even.symbols.size, 1)
-    sym_cat = np.concatenate(
-        [cb_even.symbols if cb_even.symbols.size else np.zeros(1, np.uint32),
-         cb_odd.symbols if cb_odd.symbols.size else np.zeros(1, np.uint32)])
-    ids = map_ranks(ranks, _i32_tensor(sym_cat, dev), n_even, small)
-    del ranks
-    ids = ids[:T].cpu().numpy().view(np.uint16 if small else np.uint32)
-    return ids.astype(np.int64)
+    with timer.span("tables"):
+        sym_cat = _i32_tensor(np.concatenate(
+            [cb_even.symbols if cb_even.symbols.size else np.zeros(1, np.uint32),
+             cb_odd.symbols if cb_odd.symbols.size else np.zeros(1, np.uint32)]), dev)
+    with timer.span("decode"):
+        ids = map_ranks(ranks, sym_cat, n_even, small)
+        del ranks
+    with timer.span("d2h"):
+        ids = ids[:T].cpu().numpy().view(np.uint16 if small else np.uint32)
+    with timer.span("serialize"):
+        ids = ids.astype(np.int64)
+        timer.count(timer.HOST_COPY_BYTES, ids.nbytes)
+        return ids
 
 
 def _dual_tables(cb_even: Codebook, cb_odd: Codebook, dev: torch.device):
     """(fc_lj, offsets) int32 [2, 34] tensors of the dual decodes, row 0 the
     even tokens' codebook."""
-    fc = np.stack([cb_even.first_code_left_justified(), cb_odd.first_code_left_justified()])
-    offsets = np.stack([cb_even.decode_offsets(), cb_odd.decode_offsets()])
-    return _i32_tensor(fc, dev), _i32_tensor(offsets, dev)
+    with timer.span("tables"):
+        fc = np.stack([cb_even.first_code_left_justified(),
+                       cb_odd.first_code_left_justified()])
+        offsets = np.stack([cb_even.decode_offsets(), cb_odd.decode_offsets()])
+        return _i32_tensor(fc, dev), _i32_tensor(offsets, dev)
 
 
 def _decompress_huffword_device(f: container.GlzFile, device=None,
@@ -435,18 +480,22 @@ def _decompress_huffword_device(f: container.GlzFile, device=None,
             raise ValueError("corrupt .glz container: group table too short")
         starts, counts = group_tables(f.stream_bits, T, G, S, dev)
         words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
-        ranks = decode_groups_dual(_i32_tensor(words, dev), starts, counts, fc, offsets, S,
-                                   *lens, rows)
+        payload = payload_words_on(words, dev)
+        with timer.span("decode"):
+            ranks = decode_groups_dual(payload, starts, counts, fc, offsets, S, *lens, rows)
     else:
         if S < 1 or f.n_streams * S < T:
             raise ValueError("corrupt .glz container: stream table too short")
-        sbits = f.stream_bits.astype(np.int64)
-        starts = torch.from_numpy(np.cumsum(sbits) - sbits).to(dev)
+        with timer.span("tables"):
+            sbits = f.stream_bits.astype(np.int64)
+            starts = torch.from_numpy(np.cumsum(sbits) - sbits).to(dev)
         strategy = variant if variant in (cfg.DECODER_BITWALK, cfg.DECODER_FAST) \
             else cfg.DECODER_TABLE
-        ranks = decode_streams_dual(_i32_tensor(bitio.bytes_to_words(f.payload), dev),
-                                    starts, T, S, fc, offsets, *lens, variant=strategy,
-                                    n_codes=(cb_even.symbols.size, cb_odd.symbols.size))
+        payload = payload_words_on(bitstream_words(f.payload), dev)
+        with timer.span("decode"):
+            ranks = decode_streams_dual(payload, starts, T, S, fc, offsets, *lens,
+                                        variant=strategy,
+                                        n_codes=(cb_even.symbols.size, cb_odd.symbols.size))
     small = max(wv.n, nv.n) <= 0xFFFF
     return _ranks_to_ids(ranks, cb_even, cb_odd, small, T, dev), word_first, wv, nv
 

@@ -27,21 +27,22 @@ import threading
 
 import torch
 
+from glz_tpu_torch.utils import timer
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = [CSRC / name for name in ("lockstep.cu", "bitstream.cu", "histogram.cu")]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Kernel launches since the last reset_launch_counts(), by wrapper name.
-_LAUNCHES = {"lane_totals": 0, "encode_groups": 0, "decode_groups": 0,
-             "lane_totals_entries": 0, "encode_entries": 0, "decode_dual": 0,
-             "lut_gather": 0, "lookup_lj_lens": 0, "pack_scan": 0, "pack_tiles": 0,
-             "decode_streams": 0, "decode_streams_dual": 0, "histogram": 0,
-             "decode_streams_bitwalk": 0, "decode_streams_fast": 0,
-             "decode_streams_dual_bitwalk": 0, "decode_streams_dual_fast": 0}
-_COUNT_LOCK = threading.Lock()  # the pipelined batch launches from two threads
-_LIB_LOCK = threading.Lock()    # ... and its first files build and load from both
+# The wrappers whose launches are counted, each as timer's "launch.<wrapper>".
+WRAPPERS = ("lane_totals", "encode_groups", "decode_groups", "lane_totals_entries",
+            "encode_entries", "decode_dual", "lut_gather", "lookup_lj_lens", "pack_scan",
+            "pack_tiles", "decode_streams", "decode_streams_dual", "histogram",
+            "decode_streams_bitwalk", "decode_streams_fast", "decode_streams_dual_bitwalk",
+            "decode_streams_dual_fast")
+LAUNCH = "launch."
+_LIB_LOCK = threading.Lock()  # the pipelined batch's first files build and load from two threads
 _LIB: ctypes.CDLL | None = None
 _BUILD_LOG = ""
 
@@ -146,8 +147,7 @@ def launch(name: str, counter: str, *args) -> None:
     rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
-    with _COUNT_LOCK:
-        _LAUNCHES[counter] += 1
+    timer.count(LAUNCH + counter, 1)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -155,12 +155,13 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    """Kernel launches since the last reset_launch_counts(), by wrapper."""
+    counted = timer.totals(LAUNCH)
+    return {w: counted.get(LAUNCH + w, 0) for w in WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    timer.reset_totals(LAUNCH)
 
 
 def runs_plain(t: torch.Tensor) -> bool:

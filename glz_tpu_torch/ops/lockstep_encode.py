@@ -25,6 +25,7 @@ import torch
 
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.ops import _kernels
+from glz_tpu_torch.utils import timer
 
 LEN_BITS = 6          # entry word = lj | len; needs max_len <= 32 - LEN_BITS
 LEN_MASK = (1 << LEN_BITS) - 1
@@ -321,12 +322,16 @@ def encode_payload_from_entries(ent: torch.Tensor, S: int, rows: int
 
 
 def _exact_sweep(sweep, gw: torch.Tensor) -> tuple[torch.Tensor, np.ndarray]:
-    """Exact geometry from the real word counts (one small D2H), then
-    sweep(grow, n_words); raises unless every group's cursor ends at 0."""
-    padded, grow = group_layout(gw.cpu().numpy())
+    """Exact geometry from the real word counts (one small D2H, the wait for
+    the lane totals: span `sync.layout`), then sweep(grow, n_words); raises
+    unless every group's cursor ends at 0 (a wait for the sweep:
+    `sync.cursor`)."""
+    with timer.span("sync.layout"):
+        padded, grow = group_layout(gw.cpu().numpy())
     grow_t = torch.from_numpy(grow.astype(np.int32)).to(gw.device)
     payload, cursor_end = sweep(grow_t, int(padded.sum()))
-    bad = torch.nonzero(cursor_end).flatten()
+    with timer.span("sync.cursor"):
+        bad = torch.nonzero(cursor_end).flatten()
     if bad.numel():
         g = int(bad[0])
         raise RuntimeError(f"lockstep encode: group {g} cursor ended at "

@@ -29,6 +29,8 @@ import threading
 
 import numpy as np
 
+from glz_tpu_torch.utils import timer
+
 SOURCE = pathlib.Path(__file__).resolve().parents[1] / "native" / "glz_native.cpp"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
@@ -107,8 +109,14 @@ def _p(arr, ctype):
 def histogram(data: np.ndarray, threads: int | None = None) -> np.ndarray:
     """256-bin byte histogram (int64).  Shards across CPU threads for large
     inputs, one per 16 MiB up to the core count (the ctypes call releases
-    the GIL, so threads scale on real cores)."""
+    the GIL, so threads scale on real cores).  A `native.histogram` span,
+    as each entry point below is `native.<its name>`."""
     L = library()
+    with timer.span("native.histogram"):
+        return _histogram(L, data, threads)
+
+
+def _histogram(L, data: np.ndarray, threads: int | None) -> np.ndarray:
     data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
     n = data.size
     if threads is None:
@@ -132,12 +140,13 @@ def histogram(data: np.ndarray, threads: int | None = None) -> np.ndarray:
 def tokenize(data: np.ndarray) -> tuple[np.ndarray, bool]:
     """(bounds u64[T+1], first_is_word): token t is data[bounds[t]:bounds[t+1]]."""
     L = library()
-    data = np.ascontiguousarray(data, dtype=np.uint8)
-    bounds = np.zeros(data.size + 1, dtype=np.uint64)
-    first = np.zeros(1, dtype=np.uint8)
-    t = L.glz_tokenize(_p(data, ctypes.c_uint8), data.size, _p(bounds, ctypes.c_uint64),
-                       _p(first, ctypes.c_uint8))
-    return bounds[: int(t) + 1], bool(first[0])
+    with timer.span("native.tokenize"):
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        bounds = np.zeros(data.size + 1, dtype=np.uint64)
+        first = np.zeros(1, dtype=np.uint8)
+        t = L.glz_tokenize(_p(data, ctypes.c_uint8), data.size, _p(bounds, ctypes.c_uint64),
+                           _p(first, ctypes.c_uint8))
+        return bounds[: int(t) + 1], bool(first[0])
 
 
 def build_vocab(arr: np.ndarray, bounds: np.ndarray, T: int, cls: int, ids: np.ndarray,
@@ -151,6 +160,11 @@ def build_vocab(arr: np.ndarray, bounds: np.ndarray, T: int, cls: int, ids: np.n
     L = library()
     if ids.dtype != np.uint32 or ids.size < T or not ids.flags.c_contiguous:
         raise ValueError("ids must be a contiguous uint32 array of at least T entries")
+    with timer.span("native.build_vocab"):
+        return _build_vocab(L, arr, bounds, T, cls, ids, cap_tokens)
+
+
+def _build_vocab(L, arr, bounds, T, cls, ids, cap_tokens):
     arr = np.ascontiguousarray(arr, dtype=np.uint8)
     bounds = np.ascontiguousarray(bounds, dtype=np.uint64)
     while True:
@@ -174,8 +188,14 @@ def detokenize(ids: np.ndarray, first_dict: int, off0: np.ndarray, blob0: bytes,
     """Token ids -> the original bytes by one memcpy a token; token i draws
     from dictionary (i & 1) ^ first_dict, each an (offsets, text) pool.
     Raises ValueError for an id past its dictionary (a corrupt container).
-    Inputs of 2^20 tokens and more are split in two halves on two threads."""
+    Inputs of 2^20 tokens and more are split in two halves on two threads.
+    The output's copy into bytes counts as host_copy_bytes of its span."""
     L = library()
+    with timer.span("native.detokenize"):
+        return _detokenize(L, ids, first_dict, off0, blob0, off1, blob1)
+
+
+def _detokenize(L, ids, first_dict, off0, blob0, off1, blob1) -> bytes:
     ids = np.ascontiguousarray(ids, dtype=np.uint32)
     offs = [np.ascontiguousarray(o, dtype=np.uint64) for o in (off0, off1)]
     blobs = [np.frombuffer(b or b"\0", dtype=np.uint8) for b in (blob0, blob1)]
@@ -207,7 +227,9 @@ def detokenize(ids: np.ndarray, first_dict: int, off0: np.ndarray, blob0: bytes,
                 h.result()
     else:
         run(0, T, 0)
-    return out.tobytes()
+    data = out.tobytes()
+    timer.count(timer.HOST_COPY_BYTES, len(data))
+    return data
 
 
 def decode_crs2(payload: bytes, fc_lj: np.ndarray, start_pos: np.ndarray,

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from glz_tpu_torch.utils import timer
+
 _ALNUM = np.zeros(256, dtype=bool)
 for _c in range(256):
     _ALNUM[_c] = chr(_c).isascii() and chr(_c).isalnum()
@@ -194,7 +196,15 @@ def build_vocabs(data: bytes | np.ndarray):
     Returns (starts, lengths, word_first, word_vocab, nonword_vocab,
     token_ids) where token_ids[i] (uint32) is the id of token i within its
     own class's vocab.
+
+    A `vocab` span of utils/timer.py; each class's build on the pool is a
+    `vocab` span under it.
     """
+    with timer.span("vocab"):
+        return _build_vocabs(data)
+
+
+def _build_vocabs(data):
     import concurrent.futures
 
     from glz_tpu_torch.utils import native
@@ -203,12 +213,14 @@ def build_vocabs(data: bytes | np.ndarray):
     bounds, first_word = native.tokenize(arr)
     T = bounds.size - 1
     ids = np.empty(T, np.uint32)
+    parent = timer.current()
 
     def one_class(c):
         if (T - c + 1) // 2 == 0:
             return TokenVocab([], np.zeros(0, np.int64))
-        blob, tok_lens, counts = native.build_vocab(arr, bounds, T, c, ids)
-        return TokenVocab.from_parts(blob, tok_lens, counts)
+        with timer.span("vocab", parent=parent):
+            blob, tok_lens, counts = native.build_vocab(arr, bounds, T, c, ids)
+            return TokenVocab.from_parts(blob, tok_lens, counts)
 
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
         vocabs = list(ex.map(one_class, (0, 1)))
@@ -315,13 +327,14 @@ def merge_vocab_parts(blobs, tok_lens_list, counts_list):
 def detokenize(ids: np.ndarray, word_first: bool,
                wv: TokenVocab, nv: TokenVocab) -> bytes:
     """ids -> original byte stream, with the host library (one memcpy a
-    token; detokenize_ref is the numpy version)."""
+    token; detokenize_ref is the numpy version).  A `detokenize` span."""
     if ids.size == 0:
         return b""
     from glz_tpu_torch.utils import native
 
-    return native.detokenize(ids, 0 if word_first else 1, wv.offsets, wv.blob,
-                             nv.offsets, nv.blob)
+    with timer.span("detokenize"):
+        return native.detokenize(ids, 0 if word_first else 1, wv.offsets, wv.blob,
+                                 nv.offsets, nv.blob)
 
 
 def detokenize_ref(ids: np.ndarray, word_first: bool,

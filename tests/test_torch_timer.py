@@ -187,3 +187,147 @@ def test_trace_summary_names_every_port_kernel():
                   "void at::native::(anonymous namespace)::kernelHistogram1D<long>(long*)",
                   "void cub::DeviceScanKernel<int>(int*)", "Memcpy DtoH (Device -> Pageable)"):
         assert chip_smoke.wrapper_of(other) is None
+
+
+# ---- the program's spans and counters -----------------------------------------
+
+def test_span_off_is_one_shared_no_op_that_allocates_nothing(monkeypatch):
+    import tracemalloc
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the off path made a span, took a lock or read a stack")
+
+    class Refused:
+        __enter__ = __exit__ = acquire = refuse
+
+    monkeypatch.setattr(timer, "_Span", refuse)
+    monkeypatch.setattr(timer, "_stack", refuse)
+    monkeypatch.setattr(timer, "_switch_lock", Refused())
+    monkeypatch.setattr(timer, "_totals_lock", Refused())
+    assert timer.span("a") is timer.span("b") is timer.span("c", parent=None)
+    assert timer.current() is None
+    monkeypatch.undo()
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        for _ in range(1000):
+            with timer.span("pad"):
+                pass
+            assert timer.current() is None
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    mine = [tracemalloc.Filter(True, timer.__file__)]
+    grown = after.filter_traces(mine).compare_to(before.filter_traces(mine), "lineno")
+    assert sum(d.size_diff for d in grown) == 0
+
+
+def test_recording_keeps_each_span_with_its_parent_and_root():
+    with timer.recording() as spans:
+        with timer.span("compress") as root:
+            assert timer.current() is root
+            with timer.span("pad"):
+                with timer.span("inner"):
+                    pass
+            with timer.span("encode"):
+                pass
+        with timer.span("decompress"):
+            pass
+    assert timer.current() is None and timer.span("x") is timer.span("y")
+    by = {r.name: r for r in spans}
+    assert [r.name for r in spans] == ["inner", "pad", "encode", "compress", "decompress"]
+    assert by["compress"].parent is None and by["compress"].root == by["compress"].id
+    assert by["pad"].parent == by["encode"].parent == by["compress"].id
+    assert by["inner"].parent == by["pad"].id
+    assert {by[n].root for n in ("inner", "pad", "encode")} == {by["compress"].id}
+    assert by["decompress"].root == by["decompress"].id != by["compress"].id
+    assert all(r.start_ns <= r.end_ns for r in spans)
+    assert by["compress"].start_ns <= by["pad"].start_ns <= by["inner"].end_ns \
+        <= by["pad"].end_ns <= by["encode"].start_ns <= by["compress"].end_ns
+    assert len({r.thread for r in spans}) == 1
+
+
+def test_nesting_recording_raises_and_leaves_the_first_on():
+    with timer.recording() as spans:
+        with pytest.raises(RuntimeError, match="already on"):
+            with timer.recording():
+                pass
+        with timer.span("still"):
+            pass
+    assert [r.name for r in spans] == ["still"]
+    with timer.recording() as again:
+        pass
+    assert again == [] and again is not spans
+
+
+def test_counts_land_on_the_innermost_span_and_on_the_totals():
+    timer.reset_totals("test.")
+    timer.count("test.bytes", 5)  # nothing records: the totals alone
+    with timer.recording() as spans:
+        timer.count("test.bytes", 7)  # no span open: the totals alone
+        with timer.span("outer"):
+            timer.count("test.bytes", 1)
+            with timer.span("inner"):
+                timer.count("test.bytes", 10)
+                timer.count("test.calls", 1)
+            timer.count("test.bytes", 100)
+    by = {r.name: r for r in spans}
+    assert by["outer"].counts == {"test.bytes": 101}
+    assert by["inner"].counts == {"test.bytes": 10, "test.calls": 1}
+    assert timer.totals("test.") == {"test.bytes": 123, "test.calls": 1}
+    timer.reset_totals("test.b")
+    assert timer.totals("test.") == {"test.bytes": 0, "test.calls": 1}
+
+
+def test_a_span_passed_across_threads_is_the_parent():
+    import threading
+
+    def work(parent, out):
+        with timer.span("child", parent=parent):
+            with timer.span("leaf"):
+                timer.count("test.leaf", 1)
+        out.append(timer.current())
+
+    with timer.recording() as spans:
+        with timer.span("batch") as batch:
+            seen: list = []
+            t = threading.Thread(target=work, args=(timer.current(), seen))
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive() and seen == [None]
+        with timer.span("wait", start_ns=batch.start - 5):
+            pass
+    by = {r.name: r for r in spans}
+    assert by["child"].parent == by["batch"].id and by["child"].root == by["batch"].id
+    assert by["leaf"].parent == by["child"].id and by["leaf"].counts == {"test.leaf": 1}
+    assert by["child"].thread == by["leaf"].thread != by["batch"].thread
+    assert by["wait"].start_ns == by["batch"].start_ns - 5
+
+
+def test_a_span_that_ends_after_its_recording_is_dropped():
+    with timer.recording() as first:
+        span = timer.span("late")
+        span.__enter__()
+    with timer.recording() as second:
+        span.__exit__(None, None, None)
+    assert first == [] and second == []
+
+
+def test_recorded_spans_are_profiler_spans_under_a_profiler(monkeypatch):
+    entered = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: entered.append(name) or real(name))
+    with timer.recording():
+        with timer.span("no_profiler"):
+            pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with timer.recording():
+            with timer.span("pad"):
+                torch.arange(10).sum()
+        with timer.span("unrecorded"):
+            pass
+    names = {e.key for e in prof.key_averages()}
+    assert timer.SPAN_PREFIX + "pad" in names
+    assert timer.SPAN_PREFIX + "unrecorded" not in names
+    assert entered == [timer.SPAN_PREFIX + "pad"]

@@ -1,0 +1,167 @@
+"""The program's spans and counters (glz_tpu_torch/utils/timer.py) on the
+front door's paths, on the CPU: which spans a call records, under which
+parent and root, what host_copy_bytes counts, and that recording changes
+no output."""
+
+import struct
+
+import numpy as np
+import pytest
+
+import glz_tpu_torch as gt
+from glz_tpu_torch import config as cfg
+from glz_tpu_torch.core import api, container
+from glz_tpu_torch.utils import timer
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+# 64-symbol streams in 8-row groups: 65,536 symbols a group
+LOCKSTEP = cfg.GlzConfig(stream_symbols=64, layout=cfg.LAYOUT_LOCKSTEP, group_rows=8)
+GROUP = 8 * 128 * 64
+COMPRESS_STEPS = {"histogram", "codebook", "tables", "pad", "h2d", "encode", "sync.layout",
+                  "sync.cursor", "d2h", "serialize", "container.write"}
+DECOMPRESS_STEPS = {"container.read", "codebook", "tables", "serialize", "h2d", "decode",
+                    "d2h"}
+
+
+def corpus(n: int, seed: int = 7) -> bytes:
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, n, dtype=np.uint8) & rng.integers(0, 256, n, dtype=np.uint8)
+            ).tobytes()
+
+
+def tree(spans):
+    """{name: [records]} and {id: record}."""
+    by_name: dict = {}
+    for r in spans:
+        by_name.setdefault(r.name, []).append(r)
+    return by_name, {r.id: r for r in spans}
+
+
+def copied(spans) -> int:
+    return sum(r.counts.get(timer.HOST_COPY_BYTES, 0) for r in spans)
+
+
+@pytest.fixture(scope="module")
+def round_trip():
+    data = corpus(3 * GROUP - 999)  # three groups, the last one short
+    with timer.recording() as spans:
+        blob = gt.compress(data, conf=LOCKSTEP, device="cpu")
+        out = gt.decompress(blob, device="cpu")
+    return data, blob, out, spans
+
+
+def test_a_lockstep_round_trip_records_each_step_under_its_root(round_trip):
+    data, blob, out, spans = round_trip
+    assert out == data
+    by_name, by_id = tree(spans)
+    roots = {name: by_name[name] for name in ("compress", "decompress")}
+    assert all(len(r) == 1 and r[0].parent is None for r in roots.values())
+    for direction, steps in (("compress", COMPRESS_STEPS), ("decompress", DECOMPRESS_STEPS)):
+        root = roots[direction][0]
+        mine = [r for r in spans if r.root == root.id and r is not root]
+        assert {r.name for r in mine} == steps
+        for r in mine:
+            want = "encode" if r.name.startswith("sync.") else direction
+            assert by_id[r.parent].name == want, r
+            assert root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
+    # the decompress reads the container three times: the front door, the
+    # byte model, the lockstep decode
+    assert len(by_name["container.read"]) == 3
+    assert len({r.thread for r in spans}) == 1
+
+
+def test_host_copy_bytes_is_what_the_sizes_give(round_trip):
+    data, blob, _, spans = round_trip
+    n_groups, _, cb_size = struct.unpack_from("<III", blob, 16)
+    payload = len(blob) - container.HEADER_SIZE - cb_size - 4 * n_groups
+    roots = {r.name: r.id for r in spans if r.parent is None}
+    mine = {d: [r for r in spans if r.root == roots[d]] for d in roots}
+    # compress: the pad's copy of the input, the payload's bytes, the container
+    assert copied(mine["compress"]) == len(data) + payload + len(blob)
+    # decompress: three reads of the codebook and payload, the payload's
+    # words, the output's bytes
+    assert copied(mine["decompress"]) == 3 * (cb_size + payload) + payload + len(data)
+    by_name, _ = tree(spans)
+    assert [r.counts for r in by_name["pad"]] == [{timer.HOST_COPY_BYTES: len(data)}]
+    assert all(r.counts == {} for r in by_name["h2d"] + by_name["encode"] + by_name["decode"])
+
+
+def test_a_checksum_is_a_verify_span_each_way():
+    data = corpus(GROUP // 2, seed=3)
+    conf = cfg.GlzConfig(stream_symbols=64, layout=cfg.LAYOUT_LOCKSTEP, group_rows=8,
+                         checksum=True)
+    with timer.recording() as spans:
+        assert gt.decompress(gt.compress(data, conf=conf, device="cpu"), device="cpu") == data
+    verify = [r for r in spans if r.name == "verify"]
+    roots = {r.id: r.name for r in spans if r.parent is None}
+    assert sorted(roots[r.root] for r in verify) == ["compress", "decompress"]
+    assert sorted(copied([r]) for r in verify) == [0, len(data)]  # arr.tobytes(), crc alone
+
+
+def test_the_batch_spans_take_the_batch_as_parent_across_threads():
+    datas = [corpus(5000 + 1000 * k, seed=k) for k in range(4)]
+    with timer.recording() as spans:
+        blobs = api.compress_batch(datas, conf=LOCKSTEP, pipeline=True, device="cpu")
+        outs = api.decompress_batch(blobs, pipeline=True, device="cpu")
+    assert outs == datas
+    by_name, by_id = tree(spans)
+    for direction in ("compress", "decompress"):
+        batch, = by_name[direction + "_batch"]
+        assert batch.parent is None
+        for name in ("batch.wait", "batch.file"):
+            mine = [r for r in by_name[name] if r.root == batch.id]
+            assert len(mine) == len(datas) and {r.parent for r in mine} == {batch.id}
+            assert all(r.thread != batch.thread for r in mine)
+        files = [r for r in by_name["batch.file"] if r.root == batch.id]
+        calls = [r for r in by_name[direction] if r.root == batch.id]
+        assert len(calls) == len(datas)
+        assert {by_id[r.parent].name for r in calls} == {"batch.file"}
+        assert all(batch.start_ns <= r.start_ns <= r.end_ns <= batch.end_ns for r in files)
+        waits = [r for r in by_name["batch.wait"] if r.root == batch.id]
+        assert len({r.start_ns for r in waits}) == 1  # every file submitted at once
+
+
+def test_the_serial_batch_has_a_file_span_a_file():
+    datas = [corpus(3000, seed=k) for k in range(2)]
+    with timer.recording() as spans:
+        api.compress_batch(datas, conf=LOCKSTEP, pipeline=False, device="cpu")
+    by_name, _ = tree(spans)
+    batch, = by_name["compress_batch"]
+    assert [r.parent for r in by_name["batch.file"]] == [batch.id, batch.id]
+    assert "batch.wait" not in by_name
+
+
+def test_a_huffword_round_trip_records_the_host_library_under_its_root():
+    text = b"the cat-sat on its mat. " * 2000
+    with timer.recording() as spans:
+        blob = gt.compress(text, mode=cfg.MODE_HUFFWORD, conf=LOCKSTEP, device="cpu")
+        assert gt.decompress(blob, device="cpu") == text
+    by_name, by_id = tree(spans)
+    roots = {r.name: r for r in spans if r.parent is None}
+    assert set(roots) == {"compress", "decompress"}
+    vocab = [r for r in by_name["vocab"] if by_id[r.parent].name == "compress"]
+    assert len(vocab) == 1
+    classes = [r for r in by_name["vocab"] if r.parent == vocab[0].id]
+    assert len(classes) == 2 and all(r.thread != vocab[0].thread for r in classes)
+    assert {by_id[r.parent].name for r in by_name["native.build_vocab"]} == {"vocab"}
+    assert by_id[by_name["native.tokenize"][0].parent].name == "vocab"
+    detok, = by_name["native.detokenize"]
+    assert by_id[detok.parent].name == "detokenize"
+    assert {r.root for r in by_name["detokenize"]} == {roots["decompress"].id}
+    assert copied([detok]) == len(text)  # the output's copy, counted on the library's span
+    assert not [r for r in spans if r.parent == detok.id]
+
+
+@pytest.mark.parametrize("mode, conf", [(cfg.MODE_BYTE, LOCKSTEP), (cfg.MODE_BYTE, cfg.DEFAULT),
+                                        (cfg.MODE_HUFFWORD, LOCKSTEP),
+                                        (cfg.MODE_HUFFWORD, cfg.DEFAULT)],
+                         ids=["byte-lockstep", "byte-bitstream", "huffword-lockstep",
+                              "huffword-bitstream"])
+def test_recording_changes_no_output(mode, conf):
+    data = (b"the cat-sat on its mat. " * 999) if mode == cfg.MODE_HUFFWORD else corpus(70000)
+    off = gt.compress(data, mode=mode, conf=conf, device="cpu")
+    with timer.recording() as spans:
+        on = gt.compress(data, mode=mode, conf=conf, device="cpu")
+        back = gt.decompress(on, device="cpu")
+    assert on == off and back == data == gt.decompress(off, device="cpu")
+    assert {"compress", "decompress", "serialize", "d2h"} <= {r.name for r in spans}
