@@ -39,8 +39,13 @@ nibbles (symbol 2i in the high nibble), else 256 B of u8 lengths.
 
 write_container and read_container are the `container.write` and
 `container.read` spans of utils/timer.py, each counting the bytes it copies
-(the container written; the codebook and payload sections read out) as
-`host_copy_bytes`.
+as `host_copy_bytes`.  write_container copies each section once, into the
+one container it returns (the payload may be any buffer, such as the
+D2H'd words' memoryview: it is not copied before the join).  read_container
+copies only the codebook section (129-257 B in byte mode): GlzFile.payload
+is a read-only memoryview of the caller's blob, so a parse costs
+microseconds whatever the payload's size, and the GlzFile keeps the blob
+alive.
 """
 
 from __future__ import annotations
@@ -107,7 +112,8 @@ class GlzFile:
     stream_symbols: int
     stream_bits: np.ndarray  # layout 0: bits per stream; layout 2: words per group
     codebook_blob: bytes
-    payload: bytes          # layout 0: MSB-first bit stream; layout 2: '<u4' words
+    payload: bytes | memoryview  # layout 0: MSB-first bit stream; layout 2: '<u4'
+                                 # words; read_container's is a view of the blob
     layout: int = LAYOUT_BITSTREAM
     checksum: int | None = None  # crc32 of the ORIGINAL data when present
     group_rows: int = 8          # lockstep group geometry (rows of 128 lanes)
@@ -168,12 +174,12 @@ def peek_layout(blob: bytes | memoryview) -> int:
 def read_container(blob: bytes | memoryview) -> GlzFile:
     with timer.span("container.read"):
         f = _read_container(blob)
-        timer.count(timer.HOST_COPY_BYTES, len(f.codebook_blob) + len(f.payload))
+        timer.count(timer.HOST_COPY_BYTES, len(f.codebook_blob))
         return f
 
 
 def _read_container(blob: bytes | memoryview) -> GlzFile:
-    blob = memoryview(blob)
+    blob = memoryview(blob).toreadonly()
     if len(blob) < HEADER_SIZE:
         raise ValueError(
             f"not a .glz container: {len(blob)} bytes, header needs {HEADER_SIZE}")
@@ -203,7 +209,7 @@ def _read_container(blob: bytes | memoryview) -> GlzFile:
     off += cb_size
     table = np.frombuffer(blob, dtype="<u4", count=n_streams, offset=off).astype(np.uint64)
     off += 4 * n_streams
-    payload = bytes(blob[off:end])
+    payload = blob[off:end]
     if layout == LAYOUT_LOCKSTEP and len(payload) < 4 * int(table.sum()):
         raise ValueError(
             "corrupt .glz container: lockstep payload shorter than the "

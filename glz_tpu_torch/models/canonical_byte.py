@@ -26,7 +26,15 @@ Decode never reads past a stream's symbol count, so it reads both.
 Each step is a span of utils/timer.py (`histogram`, `codebook`, `tables`,
 `pad`, `h2d`, `encode` / `decode`, `d2h`, `serialize`, `verify`; the
 container's own in core/container.py), and the steps that copy host
-buffers count the bytes they write as `host_copy_bytes`.
+buffers count the bytes they write as `host_copy_bytes`.  On the card the
+lockstep paths copy each byte on the host at most once a call: a compress
+sends the caller's bytes unpadded into a device buffer whose tail is
+zeroed there (`pad`) and joins the D2H'd payload words into the container
+as they are (`container.write`, the one copy); a decompress parses the
+container into views (`container.read` copies only the codebook), sends
+the payload's bytes from the blob as they lie (`h2d`) and copies only the
+output into the bytes it returns (`serialize`).  With device='cpu' the
+copies into the device buffers are host copies too, and are counted.
 """
 
 from __future__ import annotations
@@ -101,15 +109,28 @@ def _i32_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32)).to(dev)
 
 
-def payload_words_on(words: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """_i32_tensor of a container's payload words, in two spans: the host
-    copy into the bit-pattern array (`serialize`), then the copy to `dev`
-    (`h2d`)."""
-    with timer.span("serialize"):
-        host = np.ascontiguousarray(words).astype(np.uint32).view(np.int32)
-        timer.count(timer.HOST_COPY_BYTES, host.nbytes)
-    with timer.span("h2d"):
-        return torch.from_numpy(host).to(dev)
+def payload_words_on(payload, dev: torch.device) -> torch.Tensor:
+    """A payload's little-endian u32 words (a container's '<u4' payload, or
+    bitstream_words' array) as an int32 bit-pattern tensor on `dev`: the
+    bytes sent as they lie, with no host copy on the way to the card, then
+    viewed as int32 on the device's allocation, which is aligned wherever
+    they lay in the blob (`h2d`; on the CPU a host copy, counted)."""
+    raw = np.frombuffer(payload, dtype=np.uint8)
+    raw = raw[: raw.size // 4 * 4]
+    with timer.span("h2d"), warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        out = torch.from_numpy(raw).to(dev, copy=True)
+        if dev.type == "cpu":
+            timer.count(timer.HOST_COPY_BYTES, raw.size)
+    return out.view(torch.int32)
+
+
+def words_buffer(words: np.ndarray) -> memoryview:
+    """D2H'd payload words as the '<u4' bytes a container stores: a view of
+    the words on a little-endian host, so that write_container's join is
+    their one host copy."""
+    return memoryview(np.ascontiguousarray(words).view(np.uint32).astype("<u4", copy=False)
+                      ).cast("B")
 
 
 def host_bytes(out: torch.Tensor) -> bytes:
@@ -212,26 +233,18 @@ def compress_bytes_lockstep(data: bytes | np.ndarray,
     else:
         cb = _byte_codebook(arr, conf.histogram_budget, limit)
     tbl = entry_table(cb, dev)
-    with timer.span("pad"):
-        host = np.zeros(_round_up(n, group_syms), dtype=np.uint8)
-        host[:n] = arr
-        timer.count(timer.HOST_COPY_BYTES, n)
-    with timer.span("h2d"):
-        sym = torch.from_numpy(host).to(dev)
+    sym = _symbols_on(arr, _round_up(n, group_syms), dev)
     with timer.span("encode"):
         payload, group_counts = encode_payload_from_symbols(sym, n, tbl, S, rows)
     with timer.span("d2h"):
         words = payload.cpu().numpy()
-    with timer.span("serialize"):
-        payload = words.astype("<i4", copy=False).tobytes()
-        timer.count(timer.HOST_COPY_BYTES, len(payload))
     f = container.GlzFile(
         mode=cfg.MODE_BYTE,
         n_symbols=n,
         stream_symbols=S,
         stream_bits=group_counts,
         codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
-        payload=payload,
+        payload=words_buffer(words),
         layout=container.LAYOUT_LOCKSTEP,
         checksum=_crc(arr, conf),
         group_rows=rows,
@@ -256,8 +269,7 @@ def decompress_bytes_lockstep(blob: bytes, device=None) -> bytes:
         raise ValueError("corrupt .glz container: group table too short")
     starts, counts = group_tables(f.stream_bits, f.n_symbols, G, S, dev)
     tables = decode_tables(cb, dev)
-    words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
-    payload = payload_words_on(words, dev)
+    payload = payload_words_on(f.payload, dev)
     with timer.span("decode"):
         out = decode_groups(payload, starts, counts, *tables, S, cb.min_len, cb.max_len,
                             f.group_rows)
@@ -267,11 +279,13 @@ def decompress_bytes_lockstep(blob: bytes, device=None) -> bytes:
 # ---- bitstream layout (layout 0) ---------------------------------------------
 
 def _symbols_on(chunk: np.ndarray, padded: int, dev: torch.device) -> torch.Tensor:
-    """A u8 chunk on `dev`, zero-padded to `padded` symbols (read-only input
-    buffers are only read): the zeros (`pad`), then the chunk's copy into
-    them (`h2d`; on the CPU a host copy)."""
+    """A u8 chunk on `dev`, zero-padded to `padded` symbols, with no host
+    copy on the way (read-only input buffers are only read): the tail's
+    zeros on `dev` (`pad`), then the chunk's copy straight from the caller's
+    buffer into the rest (`h2d`; on the CPU a host copy, counted)."""
     with timer.span("pad"):
-        out = torch.zeros(padded, dtype=torch.uint8, device=dev)
+        out = torch.empty(padded, dtype=torch.uint8, device=dev)
+        out[chunk.size :].zero_()
     with timer.span("h2d"), warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
         out[: chunk.size].copy_(torch.from_numpy(chunk))

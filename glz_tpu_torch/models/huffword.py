@@ -49,7 +49,7 @@ from glz_tpu_torch.core.codebook import Codebook, build_codebook, canonical_code
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, bitstream_words,
                                                  group_tables, payload_words_on,
-                                                 resolve_device)
+                                                 resolve_device, words_buffer)
 from glz_tpu_torch.ops.decode import decode_streams_dual
 from glz_tpu_torch.ops.encode import pack_codes
 from glz_tpu_torch.ops.lockstep_decode import decode_groups_dual
@@ -235,16 +235,13 @@ def _ids_on(ids: np.ndarray, T: int, padded: int, small: bool,
 def _lockstep_container(data, conf: cfg.GlzConfig, T: int, S: int, rows: int,
                         group_counts: np.ndarray, cb_blob: bytes,
                         payload: np.ndarray) -> bytes:
-    with timer.span("serialize"):
-        payload = payload.astype("<u4", copy=False).tobytes()
-        timer.count(timer.HOST_COPY_BYTES, len(payload))
     return container.write_container(container.GlzFile(
         mode=cfg.MODE_HUFFWORD,
         n_symbols=T,
         stream_symbols=S,
         stream_bits=group_counts,
         codebook_blob=cb_blob,
-        payload=payload,
+        payload=words_buffer(payload),
         layout=container.LAYOUT_LOCKSTEP,
         checksum=zlib.crc32(data) if conf.checksum else None,
         group_rows=rows,
@@ -479,8 +476,7 @@ def _decompress_huffword_device(f: container.GlzFile, device=None,
         if f.n_streams * G * S < T:
             raise ValueError("corrupt .glz container: group table too short")
         starts, counts = group_tables(f.stream_bits, T, G, S, dev)
-        words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
-        payload = payload_words_on(words, dev)
+        payload = payload_words_on(f.payload, dev)
         with timer.span("decode"):
             ranks = decode_groups_dual(payload, starts, counts, fc, offsets, S, *lens, rows)
     else:

@@ -18,7 +18,7 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 LOCKSTEP = cfg.GlzConfig(stream_symbols=64, layout=cfg.LAYOUT_LOCKSTEP, group_rows=8)
 GROUP = 8 * 128 * 64
 COMPRESS_STEPS = {"histogram", "codebook", "tables", "pad", "h2d", "encode", "sync.layout",
-                  "sync.cursor", "d2h", "serialize", "container.write"}
+                  "sync.cursor", "d2h", "container.write"}
 DECOMPRESS_STEPS = {"container.read", "codebook", "tables", "serialize", "h2d", "decode",
                     "d2h"}
 
@@ -73,17 +73,28 @@ def test_a_lockstep_round_trip_records_each_step_under_its_root(round_trip):
 def test_host_copy_bytes_is_what_the_sizes_give(round_trip):
     data, blob, _, spans = round_trip
     n_groups, _, cb_size = struct.unpack_from("<III", blob, 16)
-    payload = len(blob) - container.HEADER_SIZE - cb_size - 4 * n_groups
+    start = container.HEADER_SIZE + cb_size + 4 * n_groups
+    payload = len(blob) - start
+    assert cb_size == 129 and start % 4  # the payload's words lie unaligned in the blob
     roots = {r.name: r.id for r in spans if r.parent is None}
     mine = {d: [r for r in spans if r.root == roots[d]] for d in roots}
-    # compress: the pad's copy of the input, the payload's bytes, the container
-    assert copied(mine["compress"]) == len(data) + payload + len(blob)
-    # decompress: three reads of the codebook and payload, the payload's
-    # words, the output's bytes
-    assert copied(mine["decompress"]) == 3 * (cb_size + payload) + payload + len(data)
+    # compress: the input's copy into the (CPU) device buffer, the container
+    assert copied(mine["compress"]) == len(data) + len(blob)
+    # decompress: three reads of the codebook alone, the payload's copy into
+    # the (CPU) device buffer, the output's bytes
+    assert copied(mine["decompress"]) == 3 * cb_size + payload + len(data)
     by_name, _ = tree(spans)
-    assert [r.counts for r in by_name["pad"]] == [{timer.HOST_COPY_BYTES: len(data)}]
-    assert all(r.counts == {} for r in by_name["h2d"] + by_name["encode"] + by_name["decode"])
+    h2d = {d: [r.counts for r in by_name["h2d"] if r.root == roots[d]] for d in roots}
+    assert h2d["compress"] == [{timer.HOST_COPY_BYTES: len(data)}]
+    assert h2d["decompress"] == [{timer.HOST_COPY_BYTES: payload}]
+    # on the card the h2d spans copy nothing on the host: each byte once a call
+    assert copied([r for r in mine["compress"] if r.name != "h2d"]) == len(blob)
+    assert copied([r for r in mine["decompress"] if r.name != "h2d"]) == 3 * cb_size + len(data)
+    assert all(r.counts == {} for r in by_name["pad"] + by_name["encode"] + by_name["decode"])
+    # the parse's payload is a view of the blob, not a copy
+    f = container.read_container(blob)
+    assert np.shares_memory(np.frombuffer(f.payload, np.uint8), np.frombuffer(blob, np.uint8))
+    assert f.payload.readonly and len(f.payload) == payload
 
 
 def test_a_checksum_is_a_verify_span_each_way():
