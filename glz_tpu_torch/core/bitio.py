@@ -6,11 +6,20 @@ are emitted most-significant bit first; a word w covers stream bits
 [32w, 32w + 32), and its bytes are stored big-endian.  A bitstream payload
 that ends inside a byte pads that byte with 1s (the reference codec's
 flush_bits).
+
+words_to_bytes (or words_to_payload, its in-place form) and bytes_to_words
+are the `bitio.words_to_bytes` and `bitio.bytes_to_words` spans of
+utils/timer.py (inside the callers' `serialize`), each counting as
+`host_copy_bytes` every payload-sized host buffer it writes.
 """
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
+
+from glz_tpu_torch.utils import timer
 
 _U64 = np.uint64
 _U32 = np.uint32
@@ -49,9 +58,34 @@ def pack_codes_msb(codes: np.ndarray, lens: np.ndarray) -> tuple[np.ndarray, int
 
 def words_to_bytes(words: np.ndarray, total_bits: int, pad_ones: bool = True) -> bytes:
     """Serialize u32 bit-words to bytes; pad the final partial byte with 1s
-    (matching reference flush_bits) unless pad_ones=False (zero padding)."""
+    (matching reference flush_bits) unless pad_ones=False (zero padding).
+    The caller's words stay as they are: two host copies, the big-endian
+    words and the bytes returned."""
+    with timer.span("bitio.words_to_bytes"):
+        big = words.astype(">u4")
+        out = _cut_and_pad(big.view(np.uint8), total_bits, pad_ones).tobytes()
+        timer.count(timer.HOST_COPY_BYTES, big.nbytes + len(out))
+        return out
+
+
+def words_to_payload(words: np.ndarray, total_bits: int, pad_ones: bool = True) -> memoryview:
+    """words_to_bytes in place, for u32 words the caller hands over (a
+    D2H'd buffer): they are swapped to big-endian where they lie and the
+    final partial byte is padded there, and the payload's bytes are returned
+    as a view of that memory.  No host copy."""
+    with timer.span("bitio.words_to_bytes"):
+        if words.dtype != np.uint32 or not words.flags.c_contiguous:
+            raise ValueError(f"words_to_payload takes contiguous uint32 words, not {words.dtype}")
+        if sys.byteorder == "little":
+            words.byteswap(inplace=True)
+        return memoryview(_cut_and_pad(words.view(np.uint8), total_bits, pad_ones))
+
+
+def _cut_and_pad(raw: np.ndarray, total_bits: int, pad_ones: bool) -> np.ndarray:
+    """The stream's bytes of big-endian words' bytes `raw`, the final partial
+    byte's unused bits set to 1 (pad_ones) or 0, in place."""
     n_bytes = (total_bits + 7) >> 3
-    raw = bytearray(words.astype(">u4").tobytes()[:n_bytes])
+    raw = raw[:n_bytes]
     rem = total_bits & 7
     if rem and n_bytes:
         mask = (1 << (8 - rem)) - 1
@@ -59,19 +93,28 @@ def words_to_bytes(words: np.ndarray, total_bits: int, pad_ones: bool = True) ->
             raw[-1] |= mask
         else:
             raw[-1] &= ~mask & 0xFF
-    return bytes(raw)
+    return raw
 
 
 def bytes_to_words(data: bytes | np.ndarray) -> np.ndarray:
-    """Byte stream -> u32 big-endian bit words (zero-padded tail)."""
-    if isinstance(data, (bytes, bytearray, memoryview)):
-        arr = np.frombuffer(data, dtype=np.uint8)
-    else:
-        arr = np.asarray(data, dtype=np.uint8)
-    pad = (-arr.size) % 4
-    if pad:
-        arr = np.concatenate([arr, np.zeros(pad, dtype=np.uint8)])
-    return arr.view(">u4").astype(np.uint32)
+    """Byte stream -> u32 big-endian bit words (zero-padded tail), converted
+    into one new buffer."""
+    with timer.span("bitio.bytes_to_words"):
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            arr = np.frombuffer(data, dtype=np.uint8)
+            copied = 0
+        else:
+            arr = np.asarray(data, dtype=np.uint8)
+            copied = 0 if arr is data else arr.nbytes  # another dtype is converted
+        whole = arr.size // 4
+        words = np.empty(-(-arr.size // 4), dtype=np.uint32)
+        words[:whole] = arr[: 4 * whole].view(">u4")
+        if whole < words.size:
+            tail = np.zeros(4, dtype=np.uint8)
+            tail[: arr.size - 4 * whole] = arr[4 * whole :]
+            words[whole] = tail.view(">u4")[0]
+        timer.count(timer.HOST_COPY_BYTES, copied + words.nbytes)
+        return words
 
 
 class BitWriter:

@@ -25,16 +25,17 @@ Decode never reads past a stream's symbol count, so it reads both.
 
 Each step is a span of utils/timer.py (`histogram`, `codebook`, `tables`,
 `pad`, `h2d`, `encode` / `decode`, `d2h`, `serialize`, `verify`; the
-container's own in core/container.py), and the steps that copy host
-buffers count the bytes they write as `host_copy_bytes`.  On the card the
-lockstep paths copy each byte on the host at most once a call: a compress
-sends the caller's bytes unpadded into a device buffer whose tail is
-zeroed there (`pad`) and joins the D2H'd payload words into the container
-as they are (`container.write`, the one copy); a decompress parses the
-container into views (`container.read` copies only the codebook), sends
-the payload's bytes from the blob as they lie (`h2d`) and copies only the
-output into the bytes it returns (`serialize`).  With device='cpu' the
-copies into the device buffers are host copies too, and are counted.
+container's own in core/container.py, the bit streams' in core/bitio.py),
+and the steps that copy host buffers count the bytes they write as
+`host_copy_bytes`.  On the card the lockstep paths copy each byte on the
+host at most once a call: a compress sends the caller's bytes unpadded into
+a device buffer whose tail is zeroed there (`pad`) and joins the D2H'd
+payload words into the container as they are (`container.write`, the one
+copy); a decompress parses the container into views (`container.read`
+copies only the codebook), sends the payload's bytes from the blob as they
+lie (`h2d`) and copies only the output into the bytes it returns
+(`serialize`).  With device='cpu' the copies into the device buffers are
+host copies too, and are counted.
 """
 
 from __future__ import annotations
@@ -361,7 +362,9 @@ def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFA
 
     Dispatch k is packed from bit pos_k (the bits of dispatches 0..k-1), so
     its first word is the previous one's last when pos_k % 32 != 0: that
-    word stays on the card and is ORed into the next dispatch's first.
+    word stays on the card and is ORed into the next dispatch's first.  The
+    D2H'd words become the payload where they lie (bitio.words_to_payload),
+    so the container's join is the payload's one host copy.
 
     codebook: optional pre-built shared Codebook."""
     dev = resolve_device(device)
@@ -388,18 +391,21 @@ def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFA
             if carry is not None:
                 words[:1].bitwise_or_(carry)
         pos += total_bits
-        whole = words.numel() - (1 if pos & 31 else 0)
-        carry = words[whole:] if pos & 31 else None
+        last = lo + n_valid == n
+        whole = words.numel() - (1 if pos & 31 and not last else 0)
+        carry = words[whole:] if whole < words.numel() else None
         with timer.span("d2h"):
             word_parts.append(words[:whole].cpu().numpy().view(np.uint32))
             stream_bits_parts.append(stream_bits[: -(-n_valid // S)].cpu().numpy())
         del words
-    if carry is not None:
-        word_parts.append(carry.cpu().numpy().view(np.uint32))
 
     with timer.span("serialize"):
-        payload = bitio.words_to_bytes(np.concatenate(word_parts), pos)
-        timer.count(timer.HOST_COPY_BYTES, len(payload))
+        if len(word_parts) == 1:
+            words = word_parts[0]
+        else:
+            words = np.concatenate(word_parts)
+            timer.count(timer.HOST_COPY_BYTES, words.nbytes)
+        payload = bitio.words_to_payload(words, pos)
     f = container.GlzFile(
         mode=cfg.MODE_BYTE,
         n_symbols=n,
@@ -446,11 +452,9 @@ def decompress_bytes_device(blob: bytes, device=None, variant: str = cfg.DECODER
 
 def bitstream_words(payload: bytes) -> np.ndarray:
     """A bitstream payload's big-endian u32 words (bitio.bytes_to_words, a
-    host copy: `serialize`)."""
+    host copy, which it counts: `serialize`)."""
     with timer.span("serialize"):
-        words = bitio.bytes_to_words(payload)
-        timer.count(timer.HOST_COPY_BYTES, words.nbytes)
-        return words
+        return bitio.bytes_to_words(payload)
 
 
 def _lj_len_tables(cb: Codebook, dev: torch.device):

@@ -304,7 +304,6 @@ def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
         words, stream_bits = words.cpu().numpy(), stream_bits.cpu().numpy()
     with timer.span("serialize"):
         payload = bitio.words_to_bytes(words.view(np.uint32), total_bits)
-        timer.count(timer.HOST_COPY_BYTES, len(payload))
     return payload, stream_bits
 
 

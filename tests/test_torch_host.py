@@ -122,6 +122,22 @@ def test_bitio_matches_reference(rng, total_bits):
         assert np.array_equal(got, tpu_bitio.bytes_to_words(src))
 
 
+@pytest.mark.parametrize("total_bits", [0, 1, 7, 8, 31, 32, 33, 1000, 32 * 64])
+def test_words_to_payload_is_words_to_bytes_in_place(rng, total_bits):
+    """words_to_payload gives the reference's words_to_bytes as a view of
+    the words it was handed, and refuses words it cannot swap in place."""
+    words = rng.integers(0, 1 << 32, 64, dtype=np.uint64).astype(np.uint32)
+    for pad_ones in (True, False):
+        mine = words.copy()
+        got = port_bitio.words_to_payload(mine, total_bits, pad_ones)
+        assert bytes(got) == tpu_bitio.words_to_bytes(words, total_bits, pad_ones)
+        assert len(got) == (total_bits + 7) // 8
+        assert np.shares_memory(np.frombuffer(got, np.uint8), mine) or not len(got)
+    for bad in (words.astype(np.uint64), words[::2]):
+        with pytest.raises(ValueError):
+            port_bitio.words_to_payload(bad, total_bits)
+
+
 @pytest.mark.parametrize("n", [0, 1, 4096, 4097, 1 << 20, (1 << 30) + 3])
 @pytest.mark.parametrize("preset", ["DEFAULT", "RATIO", "THROUGHPUT"])
 def test_plan_streams_matches_reference(n, preset):

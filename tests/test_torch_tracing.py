@@ -176,3 +176,52 @@ def test_recording_changes_no_output(mode, conf):
         back = gt.decompress(on, device="cpu")
     assert on == off and back == data == gt.decompress(off, device="cpu")
     assert {"compress", "decompress", "serialize", "d2h"} <= {r.name for r in spans}
+
+
+@pytest.fixture(scope="module")
+def default_round_trip():
+    data = corpus(70001, seed=1)
+    with timer.recording() as spans:
+        blob = gt.compress(data, device="cpu")  # the DEFAULT preset: bitstream layout
+        out = gt.decompress(blob, device="cpu")
+    return data, blob, out, spans
+
+
+def test_a_default_round_trip_records_bitio_inside_serialize(default_round_trip):
+    data, blob, out, spans = default_round_trip
+    assert out == data
+    by_name, by_id = tree(spans)
+    roots = {r.name: r for r in spans if r.parent is None}
+    assert set(roots) == {"compress", "decompress"}
+    for name, direction in (("bitio.words_to_bytes", "compress"),
+                            ("bitio.bytes_to_words", "decompress")):
+        r, = by_name[name]
+        parent = by_id[r.parent]
+        assert parent.name == "serialize" and r.root == roots[direction].id
+        assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
+    bitio = {r.id for r in spans if r.name.startswith("bitio.")}
+    assert not [r for r in spans if r.parent in bitio]  # innermost: they hold their counts
+
+
+def test_bitio_counts_every_payload_sized_buffer_it_writes(default_round_trip):
+    data, blob, _, spans = default_round_trip
+    n_streams, S, cb_size = struct.unpack_from("<III", blob, 16)
+    payload = len(blob) - container.HEADER_SIZE - cb_size - 4 * n_streams
+    words = -(-payload // 4)  # the stream's u32 words
+    assert (n_streams, S) == (1, cfg.DEFAULT.stream_symbols) and payload % 4
+    by_name, _ = tree(spans)
+    # compress: the D2H'd words become the payload where they lie (no copy);
+    # decompress: the payload converted into whole words, one buffer
+    to_words = 4 * words
+    assert [r.counts for r in by_name["bitio.words_to_bytes"]] == [{}]
+    assert [r.counts for r in by_name["bitio.bytes_to_words"]] == [
+        {timer.HOST_COPY_BYTES: to_words}]
+    roots = {r.name: r.id for r in spans if r.parent is None}
+    mine = {d: [r for r in spans if r.root == roots[d]] for d in roots}
+    # compress: the input into the (CPU) device buffer, the container
+    assert copied(mine["compress"]) == len(data) + len(blob)
+    # decompress: two reads of the codebook alone, bitio's copy, the words
+    # into the (CPU) device buffer, the output's bytes
+    assert copied(mine["decompress"]) == 2 * cb_size + to_words + 4 * words + len(data)
+    serialize = [r for r in by_name["serialize"] if r.root == roots["compress"]]
+    assert [r.counts for r in serialize] == [{}]  # one dispatch: no words joined
