@@ -36,6 +36,13 @@ copies only the codebook), sends the payload's bytes from the blob as they
 lie (`h2d`) and copies only the output into the bytes it returns
 (`serialize`).  With device='cpu' the copies into the device buffers are
 host copies too, and are counted.
+
+Every payload-sized copy from the card (the payload words, the decoded
+output) lands in page-locked memory that PyTorch's caching host allocator
+hands back call after call (host_array), so it runs at the DMA's rate
+instead of faulting in a fresh pageable tensor; the call's one host copy
+then reads from there, and nothing returned aliases it.  The small ones
+(stream bit counts, group counts) stay plain `.cpu()` copies.
 """
 
 from __future__ import annotations
@@ -134,14 +141,39 @@ def words_buffer(words: np.ndarray) -> memoryview:
                       ).cast("B")
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A payload-sized tensor on the host, as a numpy array.  From the card
+    it lands in a page-locked block of PyTorch's caching host allocator,
+    which hands a freed block out again for a later request of its size
+    class, so calls in a steady state allocate none (a fresh pageable
+    tensor of that size is mapped anew each call, and the copy faults in
+    its pages).  The block is released once the array and its views are
+    dropped: callers read it once and return nothing that aliases it.
+    Counts `d2h_bytes` and, through page-locked memory, `d2h_pinned_bytes`;
+    when none can be allocated, the pageable `.cpu()`.  A tensor on the CPU
+    comes back as `.cpu()` gives it: its own storage, nothing counted."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    nbytes = t.numel() * t.element_size()
+    timer.count(timer.D2H_BYTES, nbytes)
+    try:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    except RuntimeError:  # page-locked memory exhausted
+        return t.cpu().numpy()
+    host.copy_(t)
+    timer.count(timer.D2H_PINNED_BYTES, nbytes)
+    return host.numpy()
+
+
 def host_bytes(out: torch.Tensor) -> bytes:
     """A decoded u8 tensor as bytes: the copy to the host (`d2h`, which
-    waits for the kernels ahead of it), then into a bytes object
-    (`serialize`)."""
+    waits for the kernels ahead of it; from the card into a page-locked
+    block, host_array), then into a bytes object (`serialize`), the call's
+    one host copy of the output, after which the block is released."""
     with timer.span("d2h"):
-        host = out.cpu()
+        host = host_array(out)
     with timer.span("serialize"):
-        data = host.numpy().tobytes()
+        data = host.tobytes()
         timer.count(timer.HOST_COPY_BYTES, len(data))
     return data
 
@@ -238,7 +270,7 @@ def compress_bytes_lockstep(data: bytes | np.ndarray,
     with timer.span("encode"):
         payload, group_counts = encode_payload_from_symbols(sym, n, tbl, S, rows)
     with timer.span("d2h"):
-        words = payload.cpu().numpy()
+        words = host_array(payload)
     f = container.GlzFile(
         mode=cfg.MODE_BYTE,
         n_symbols=n,
@@ -329,7 +361,7 @@ def compress_bytes_device(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DE
         del sym
         with timer.span("d2h"):
             sb = stream_bits[: -(-n_valid // S)].cpu().numpy()
-            host = words.cpu().numpy()
+            host = host_array(words)
         # word-align this dispatch: inflate its last stream's recorded advance
         sb[-1] += 32 * words.numel() - total_bits
         with timer.span("serialize"):
@@ -395,7 +427,7 @@ def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFA
         whole = words.numel() - (1 if pos & 31 and not last else 0)
         carry = words[whole:] if whole < words.numel() else None
         with timer.span("d2h"):
-            word_parts.append(words[:whole].cpu().numpy().view(np.uint32))
+            word_parts.append(host_array(words[:whole]).view(np.uint32))
             stream_bits_parts.append(stream_bits[: -(-n_valid // S)].cpu().numpy())
         del words
 

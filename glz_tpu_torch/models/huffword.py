@@ -48,8 +48,9 @@ from glz_tpu_torch.core.api import _pipelined, _verify
 from glz_tpu_torch.core.codebook import Codebook, build_codebook, canonical_codebook
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, bitstream_words,
-                                                 group_tables, payload_words_on,
-                                                 resolve_device, words_buffer)
+                                                 group_tables, host_array,
+                                                 payload_words_on, resolve_device,
+                                                 words_buffer)
 from glz_tpu_torch.ops.decode import decode_streams_dual
 from glz_tpu_torch.ops.encode import pack_codes
 from glz_tpu_torch.ops.lockstep_decode import decode_groups_dual
@@ -216,7 +217,7 @@ def encode_lockstep_tokens(ids: np.ndarray, T: int, word_first: bool,
         del ids_d
         payload, group_counts = encode_payload_from_entries(ent, S, rows)
     with timer.span("d2h"):
-        return payload.cpu().numpy().view(np.uint32), group_counts
+        return host_array(payload).view(np.uint32), group_counts
 
 
 def _ids_on(ids: np.ndarray, T: int, padded: int, small: bool,
@@ -301,7 +302,7 @@ def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
         del ids_d
         words, total_bits, stream_bits = pack_codes(lj, lens, stream_tokens)
     with timer.span("d2h"):
-        words, stream_bits = words.cpu().numpy(), stream_bits.cpu().numpy()
+        words, stream_bits = host_array(words), stream_bits.cpu().numpy()
     with timer.span("serialize"):
         payload = bitio.words_to_bytes(words.view(np.uint32), total_bits)
     return payload, stream_bits
@@ -434,7 +435,7 @@ def _ranks_to_ids(ranks: torch.Tensor, cb_even: Codebook, cb_odd: Codebook, smal
         ids = map_ranks(ranks, sym_cat, n_even, small)
         del ranks
     with timer.span("d2h"):
-        ids = ids[:T].cpu().numpy().view(np.uint16 if small else np.uint32)
+        ids = host_array(ids[:T]).view(np.uint16 if small else np.uint32)
     with timer.span("serialize"):
         ids = ids.astype(np.int64)
         timer.count(timer.HOST_COPY_BYTES, ids.nbytes)

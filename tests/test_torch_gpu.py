@@ -10,13 +10,17 @@ with a card (no JAX needed there) with
 import dataclasses
 import hashlib
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 import glz_tpu_torch
+from glz_tpu_torch.core import container
 from glz_tpu_torch.models import canonical_byte as port_model
+from glz_tpu_torch.models import huffword as port_huffword
 from glz_tpu_torch.ops import _kernels
+from glz_tpu_torch.utils import timer
 
 pytestmark = pytest.mark.gpu
 
@@ -402,3 +406,136 @@ def test_bench_on_the_card(cuda):
     result, stderr, _ = chip_smoke.run_bench("bench_torch.py", GLZ_BENCH_MB="16")
     assert sorted(result) == sorted(chip_smoke.BENCH_KEYS)
     assert "device: " + torch.cuda.get_device_name(0) in stderr
+
+
+# ---- payload-sized D2H into page-locked staging (canonical_byte.host_array) ----
+
+# name: (mode, conf, backend)
+STAGED_PATHS = {
+    "byte-lockstep": (glz_tpu_torch.config.MODE_BYTE, glz_tpu_torch.config.THROUGHPUT, "host"),
+    "byte-bitstream-host": (glz_tpu_torch.config.MODE_BYTE, glz_tpu_torch.config.DEFAULT,
+                            "host"),
+    "byte-bitstream-device": (glz_tpu_torch.config.MODE_BYTE, glz_tpu_torch.config.DEFAULT,
+                              "device"),
+    "huffword-lockstep": (glz_tpu_torch.config.MODE_HUFFWORD, chip_smoke.huffword_conf(64, 8),
+                          "host"),
+    "huffword-bitstream": (glz_tpu_torch.config.MODE_HUFFWORD, glz_tpu_torch.config.DEFAULT,
+                           "host"),
+}
+
+
+def _staged_input(mode, n: int = 3 << 20, seed: int = 0xE58) -> bytes:
+    if mode == glz_tpu_torch.config.MODE_HUFFWORD:
+        return chip_smoke.make_word_corpus(n, seed=seed)
+    return chip_smoke.make_corpus(n, seed=seed).tobytes()
+
+
+def _pageable(t):
+    return t.cpu().numpy()
+
+
+@pytest.fixture
+def pageable_d2h(monkeypatch):
+    """Turns every payload-sized D2H back into the pageable `.cpu()`."""
+    def on():
+        monkeypatch.setattr(port_model, "host_array", _pageable)
+        monkeypatch.setattr(port_huffword, "host_array", _pageable)
+    return on
+
+
+@pytest.mark.parametrize("path", list(STAGED_PATHS))
+def test_pinned_staging_writes_the_pageable_bytes(cuda, pageable_d2h, path):
+    """Containers and outputs byte-identical to the `.cpu()` path, and every
+    payload-sized byte from the card through page-locked memory: the
+    payload's words, then the output (the token ids in HuffWord mode)."""
+    mode, conf, backend = STAGED_PATHS[path]
+    data = _staged_input(mode)
+    timer.reset_totals("d2h")
+    blob = glz_tpu_torch.compress(data, mode=mode, conf=conf, backend=backend)
+    assert glz_tpu_torch.decompress(blob) == data
+    f = container.read_container(blob)
+    if mode == glz_tpu_torch.config.MODE_BYTE:
+        out_bytes = len(data)
+    else:
+        _, _, _, wv, nv = port_huffword.huffword_state_from_blob(f.codebook_blob)
+        out_bytes = (2 if max(wv.n, nv.n) <= 0xFFFF else 4) * f.n_symbols
+    want = -(-len(f.payload) // 4) * 4 + out_bytes
+    assert timer.totals("d2h") == {timer.D2H_BYTES: want, timer.D2H_PINNED_BYTES: want}
+    pageable_d2h()
+    assert glz_tpu_torch.compress(data, mode=mode, conf=conf, backend=backend) == blob
+    assert glz_tpu_torch.decompress(blob) == data
+
+
+def test_pinned_staging_allocates_nothing_after_a_warm_call(cuda):
+    """After one warm call of each path, 20 more of the same sizes take
+    every page-locked block from the caching host allocator."""
+    calls = [(_staged_input(mode), mode, conf, backend)
+             for mode, conf, backend in STAGED_PATHS.values()]
+
+    def run():
+        for data, mode, conf, backend in calls:
+            blob = glz_tpu_torch.compress(data, mode=mode, conf=conf, backend=backend)
+            assert glz_tpu_torch.decompress(blob) == data
+
+    run()
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    timer.reset_totals("d2h")
+    for _ in range(20):
+        run()
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+    totals = timer.totals("d2h")
+    assert totals[timer.D2H_PINNED_BYTES] == totals[timer.D2H_BYTES] > 0
+
+
+@pytest.mark.parametrize("path", ["byte-lockstep", "byte-bitstream-host", "huffword-lockstep"])
+def test_a_reused_block_leaves_what_an_earlier_call_returned(cuda, path):
+    """Call A's container and output stay as they were after call B, on
+    other data of the same size, reuses A's page-locked blocks."""
+    mode, conf, backend = STAGED_PATHS[path]
+    a, b = _staged_input(mode, seed=1), _staged_input(mode, seed=2)
+    blob_a = glz_tpu_torch.compress(a, mode=mode, conf=conf, backend=backend)
+    out_a = glz_tpu_torch.decompress(blob_a)
+    digests = hashlib.sha256(blob_a).digest(), hashlib.sha256(out_a).digest()
+    blob_b = glz_tpu_torch.compress(b, mode=mode, conf=conf, backend=backend)
+    assert glz_tpu_torch.decompress(blob_b) == b and blob_b != blob_a
+    assert (hashlib.sha256(blob_a).digest(), hashlib.sha256(out_a).digest()) == digests
+    assert out_a == a and glz_tpu_torch.decompress(blob_a) == a
+
+
+def test_host_array_stages_in_page_locked_memory(cuda, monkeypatch):
+    """From the card the array lies in page-locked memory and is counted
+    so; when none can be allocated, the pageable copy, counted as such."""
+    t = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+    timer.reset_totals("d2h")
+    got = port_model.host_array(t)
+    assert torch.from_numpy(got).is_pinned() and np.array_equal(got, t.cpu().numpy())
+    assert timer.totals("d2h") == {timer.D2H_BYTES: 4 << 20, timer.D2H_PINNED_BYTES: 4 << 20}
+    empty = torch.empty
+
+    def no_page_locked_memory(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            raise RuntimeError("CUDA error: out of memory")
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", no_page_locked_memory)
+    got = port_model.host_array(t)
+    monkeypatch.undo()
+    assert not torch.from_numpy(got).is_pinned() and np.array_equal(got, t.cpu().numpy())
+    assert timer.totals("d2h") == {timer.D2H_BYTES: 8 << 20, timer.D2H_PINNED_BYTES: 4 << 20}
+
+
+@pytest.fixture(scope="module")
+def silesia_members():
+    return list(chip_smoke.silesia_members().values())
+
+
+@pytest.mark.parametrize("preset", ["THROUGHPUT", "DEFAULT"])
+def test_silesia_batch_through_pinned_staging(cuda, silesia_members, pageable_d2h, preset):
+    """compress_batch / decompress_batch of the twelve Silesia-sized draws,
+    two files in flight on the pool's threads: exact, and the containers
+    the serial `.cpu()` path writes."""
+    conf = getattr(glz_tpu_torch.config, preset)
+    blobs = glz_tpu_torch.compress_batch(silesia_members, conf=conf)
+    assert glz_tpu_torch.decompress_batch(blobs) == silesia_members
+    pageable_d2h()
+    assert glz_tpu_torch.compress_batch(silesia_members, conf=conf, pipeline=False) == blobs
