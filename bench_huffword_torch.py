@@ -40,12 +40,14 @@ from glz_tpu_torch import config as cfg
 from glz_tpu_torch import decompress
 from glz_tpu_torch.core import container
 from glz_tpu_torch.core.codebook import build_codebook
+from glz_tpu_torch.core import lockstep
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.models import huffword as hw
-from glz_tpu_torch.models.canonical_byte import _i32_tensor, _round_up, group_tables
+from glz_tpu_torch.models.canonical_byte import group_tables
+from glz_tpu_torch.models.transfer import i32_tensor, round_up
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops.lockstep_decode import decode_groups_dual
-from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN, encode_payload_from_entries
+from glz_tpu_torch.ops.lockstep_encode import encode_payload_from_entries
 from glz_tpu_torch.ops.lut import gather_entries, map_ranks
 from glz_tpu_torch.utils import native
 from glz_tpu_torch.utils import tokenizer as tok
@@ -197,18 +199,18 @@ def _subphase_profile(data, conf, word_first, wv, nv, ids, blob, dev):
 
     calls = Launches("huffword_subphases")
     T = ids.size
-    S = hw._huffword_stream_tokens(conf)
+    S = lockstep.huffword_stream_tokens(conf)
     f = container.read_container(blob)
     rows = f.group_rows
     group_syms = rows * LANES * S
     t0 = time.perf_counter()
-    limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+    limit = lockstep.fused_length_limit(conf)
     cbs = [build_codebook(wv.counts, limit), build_codebook(nv.counts, limit)]
     t0 = tick("codebooks", t0)
     ent_tbls = [cb.left_justified_codes() | cb.lengths.astype(np.uint32) for cb in cbs]
-    padded_T = _round_up(max(T, 1), group_syms)
+    padded_T = round_up(max(T, 1), group_syms)
     n0 = max(wv.n, 1)
-    combined = _i32_tensor(np.concatenate(ent_tbls), dev)
+    combined = i32_tensor(np.concatenate(ent_tbls), dev)
     small = max(wv.n, nv.n) <= 0xFFFF
     ids_pad = np.zeros(padded_T, np.uint16 if small else np.uint32)
     ids_pad[:T] = ids.astype(ids_pad.dtype)
@@ -226,7 +228,7 @@ def _subphase_profile(data, conf, word_first, wv, nv, ids, blob, dev):
     word_first, cb_w, cb_n, wv2, nv2 = hw.huffword_state_from_blob(f.codebook_blob)
     cb_even, cb_odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
     t0 = time.perf_counter()
-    dpay = _i32_tensor(np.frombuffer(f.payload, dtype="<u4"), dev)
+    dpay = i32_tensor(np.frombuffer(f.payload, dtype="<u4"), dev)
     t0 = tick("H2D payload", t0)
     calls.decodes += 1
     starts, counts = group_tables(f.stream_bits, T, rows * LANES, S, dev)
@@ -236,7 +238,7 @@ def _subphase_profile(data, conf, word_first, wv, nv, ids, blob, dev):
                                (cb_even.max_len, cb_odd.max_len), rows)
     t0 = tick("device decode kernel", t0)
     n_even = max(cb_even.symbols.size, 1)
-    sym_cat = _i32_tensor(np.concatenate([cb_even.symbols, cb_odd.symbols]), dev)
+    sym_cat = i32_tensor(np.concatenate([cb_even.symbols, cb_odd.symbols]), dev)
     mapped = map_ranks(ranks, sym_cat, n_even, small)
     t0 = tick("device rank map", t0)
     ids2 = mapped[:T].cpu().numpy().view(np.uint16 if small else np.uint32).astype(np.int64)

@@ -63,12 +63,12 @@ from bench_huffword_torch import (Launches, Mismatch, bench_device, host_peak_mi
 from bench_huffword_torch import make_corpus as hw_corpus
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch import decompress
-from glz_tpu_torch.core import container
+from glz_tpu_torch.core import container, lockstep
 from glz_tpu_torch.core.api import compress_archive, compress_batch, decompress_batch
 from glz_tpu_torch.core.codebook import build_codebook, sampled_histogram
 from glz_tpu_torch.models import huffword as hwm
-from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, decode_tables,
-                                                 entry_table, group_tables)
+from glz_tpu_torch.models.canonical_byte import decode_tables, entry_table, group_tables
+from glz_tpu_torch.models.transfer import i32_tensor, round_up
 from glz_tpu_torch.ops.lockstep_decode import decode_groups, decode_groups_dual
 from glz_tpu_torch.ops.lockstep_encode import (MAX_FUSED_LEN, encode_payload_from_entries,
                                                encode_payload_from_symbols)
@@ -321,20 +321,20 @@ def _bench_huffword_kernels(n, blob, word_first, wv, nv, ids, conf, repeats,
     group word counts).  models/huffword's device paths minus transfers.
     Raises Mismatch unless the decode reproduces the ids."""
     T = ids.size
-    S = hwm._huffword_stream_tokens(conf)
+    S = lockstep.huffword_stream_tokens(conf)
     small = max(wv.n, nv.n) <= 0xFFFF
-    rows = min(conf.group_rows, hwm.huffword_rows_cap(S, small))
+    rows = min(conf.group_rows, lockstep.huffword_rows_cap(S, small))
     G = rows * 128
-    limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+    limit = lockstep.fused_length_limit(conf)
     cbs = [build_codebook(wv.counts, limit), build_codebook(nv.counts, limit)]
     calls = Launches("huffword_kernels")
 
     # ---- stage the encode's inputs on the card once
-    padded_T = _round_up(max(T, 1), G * S)
+    padded_T = round_up(max(T, 1), G * S)
     ids_pad = np.zeros(padded_T, np.uint16 if small else np.uint32)
     ids_pad[:T] = ids.astype(ids_pad.dtype)
     ids_d = torch.from_numpy(ids_pad.view(np.int16 if small else np.int32)).to(dev)
-    tbl_d = _i32_tensor(np.concatenate(
+    tbl_d = i32_tensor(np.concatenate(
         [cb.left_justified_codes() | cb.lengths.astype(np.uint32) for cb in cbs]), dev)
     n0 = max(wv.n, 1)
 
@@ -350,10 +350,10 @@ def _bench_huffword_kernels(n, blob, word_first, wv, nv, ids, conf, repeats,
     f = container.read_container(blob)
     cb_even, cb_odd = (cbs[0], cbs[1]) if word_first else (cbs[1], cbs[0])
     starts, counts = group_tables(f.stream_bits, T, G, S, dev)
-    payload_d = _i32_tensor(np.frombuffer(f.payload, dtype="<u4"), dev)
+    payload_d = i32_tensor(np.frombuffer(f.payload, dtype="<u4"), dev)
     fc, offsets = hwm._dual_tables(cb_even, cb_odd, dev)
     n_even = max(cb_even.symbols.size, 1)
-    sym_cat = _i32_tensor(np.concatenate(
+    sym_cat = i32_tensor(np.concatenate(
         [cb_even.symbols if cb_even.symbols.size else np.zeros(1, np.uint32),
          cb_odd.symbols if cb_odd.symbols.size else np.zeros(1, np.uint32)]), dev)
 

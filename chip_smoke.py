@@ -219,11 +219,13 @@ from glz_tpu_torch.compat import glzip_format
 from glz_tpu_torch.core import bitio, container
 from glz_tpu_torch.core.codebook import (build_codebook, codebook_from_lengths,
                                          histogram_bytes, sampled_histogram)
+from glz_tpu_torch.core import lockstep
 from glz_tpu_torch.core.lockstep import LANES
 from glz_tpu_torch.models import huffword as hw_model
 from glz_tpu_torch.models import canonical_byte as cb_model
-from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, decode_tables,
-                                                 entry_table, group_tables)
+from glz_tpu_torch.models import transfer
+from glz_tpu_torch.models.canonical_byte import decode_tables, entry_table, group_tables
+from glz_tpu_torch.models.transfer import i32_tensor, round_up
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops import decode as bd
 from glz_tpu_torch.ops import decode_table
@@ -779,7 +781,7 @@ def check_k5_random(name: str, dev: torch.device) -> None:
     fc, off = hw_model._dual_tables(even, odd, dev)
     lens = (even.min_len, odd.min_len), (even.max_len, odd.max_len)
     n_words = G * S // 3
-    words = _i32_tensor(rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32), dev)
+    words = i32_tensor(rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32), dev)
     starts = torch.tensor([0, n_words // 2], dtype=torch.int64, device=dev)
     group_counts = torch.tensor([G * S, G * S // 2 + 17], dtype=torch.int32, device=dev)
 
@@ -880,8 +882,8 @@ class BitstreamInputs(PackInputs):
         self.n_valid, self.cb = n_valid, cb
         self.arr = sym[:n_valid]
         self.sym = torch.from_numpy(sym).to(dev)
-        self.lj_tbl = _i32_tensor(cb.left_justified_codes(), dev)
-        self.len_tbl = _i32_tensor(cb.lengths.astype(np.uint32), dev)
+        self.lj_tbl = i32_tensor(cb.left_justified_codes(), dev)
+        self.len_tbl = i32_tensor(cb.lengths.astype(np.uint32), dev)
         super().__init__(*self.lookup(be.lookup_lj_lens_ref), S)
         self.tables = decode_tables(cb, dev)
 
@@ -1154,7 +1156,7 @@ def huffword_host_steps(data: bytes, blob: bytes, group: int, dev: torch.device)
     ids_d = clock(out, "H2D ids", lambda: torch.from_numpy(ids16.view(np.int16)).to(dev))
     f = clock(out, "read container", lambda: container.read_container(blob))
     words = np.frombuffer(f.payload, dtype="<u4", count=len(f.payload) // 4)
-    pay_d = clock(out, "H2D payload", lambda: _i32_tensor(words, dev))
+    pay_d = clock(out, "H2D payload", lambda: i32_tensor(words, dev))
     clock(out, "D2H payload", lambda: pay_d.cpu())
     clock(out, "D2H ids", lambda: ids_d[: ids.size].cpu())
     back = clock(out, "detokenize", lambda: tok.detokenize(ids, wf, wv, nv))
@@ -1374,13 +1376,13 @@ def bitstream_host_steps(arr: np.ndarray, blob: bytes, conf: cfg.GlzConfig,
     h2d = {}
     for lo in range(0, arr.size, (cb_model.MAX_DISPATCH_SYMBOLS // S) * S):
         chunk = arr[lo : lo + (cb_model.MAX_DISPATCH_SYMBOLS // S) * S]
-        clock(h2d, "one", lambda: cb_model._symbols_on(chunk, _round_up(chunk.size, S), dev))
+        clock(h2d, "one", lambda: transfer.symbols_on(chunk, round_up(chunk.size, S), dev))
         out["pad + H2D symbols"] = out.get("pad + H2D symbols", 0.0) + h2d["one"]
     words_d = torch.empty(len(f.payload) // 4, dtype=torch.int32, device=dev)
     words = clock(out, "D2H payload", lambda: words_d.cpu().numpy().view(np.uint32))
     clock(out, "words_to_bytes", lambda: bitio.words_to_bytes(words, 32 * words.size - 3))
     clock(out, "bytes_to_words + H2D payload",
-          lambda: _i32_tensor(bitio.bytes_to_words(f.payload), dev))
+          lambda: i32_tensor(bitio.bytes_to_words(f.payload), dev))
     sym = torch.empty(arr.size, dtype=torch.uint8, device=dev)
     clock(out, "D2H symbols", lambda: sym.cpu())
     clock(out, "crc32", lambda: zlib.crc32(arr))
@@ -1483,7 +1485,7 @@ def bitstream_kernel_times(arr: np.ndarray, blob: bytes, launches: dict,
                         OPS_PER_SYMBOL["pack_tiles"] * m, launches, card))
     pack_step_times(inp, f"byte bitstream dispatch of {m} symbols", card)
     del inp
-    words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
+    words = i32_tensor(bitio.bytes_to_words(f.payload), dev)
     sb = f.stream_bits.astype(np.int64)
     starts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
     tables = decode_tables(cb, dev)
@@ -1913,9 +1915,9 @@ def mesh_phase(card: str, arr: np.ndarray, dev: torch.device) -> dict:
 
         conf = dataclasses.replace(cfg.THROUGHPUT, histogram_budget=None)
         S, rows = conf.stream_symbols, conf.group_rows
-        cb = build_codebook(want, min(conf.length_limit or ke.MAX_FUSED_LEN, ke.MAX_FUSED_LEN))
+        cb = build_codebook(want, lockstep.fused_length_limit(conf))
         f = container.read_container(cb_model.compress_bytes_lockstep(arr, conf))
-        cont = _i32_tensor(np.frombuffer(f.payload, "<u4"), dev)
+        cont = i32_tensor(np.frombuffer(f.payload, "<u4"), dev)
         seg = np.cumsum(f.stream_bits.astype(np.int64)) - f.stream_bits.astype(np.int64)
         args = (mesh, sym, n, entry_table(cb, dev), *decode_tables(cb, dev), S, cb.min_len,
                 cb.max_len)
@@ -1950,7 +1952,7 @@ def mesh_phase(card: str, arr: np.ndarray, dev: torch.device) -> dict:
             require("too tight" in str(e), f"lockstep_codec_step: {e}")
 
         bcb = build_codebook(want, cfg.DEFAULT.length_limit)
-        tables = (_i32_tensor(bcb.left_justified_codes(), dev), _i32_tensor(bcb.lengths, dev),
+        tables = (i32_tensor(bcb.left_justified_codes(), dev), i32_tensor(bcb.lengths, dev),
                   *decode_tables(bcb, dev), bcb.min_len, bcb.max_len)
         S, step = cfg.DEFAULT.stream_symbols, cb_model.MAX_DISPATCH_SYMBOLS
         _kernels.reset_launch_counts()
@@ -2464,7 +2466,7 @@ def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob
 
     f = container.read_container(bblob)
     cb = codebook_from_lengths(container.decode_byte_codebook(f.codebook_blob))
-    words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
+    words = i32_tensor(bitio.bytes_to_words(f.payload), dev)
     sb = f.stream_bits.astype(np.int64)
     starts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
     tables = decode_tables(cb, dev)
@@ -2507,7 +2509,7 @@ def strategy_phase(card: str, arr: np.ndarray, bblob: bytes, text: bytes, hbblob
     word_first, cb_w, cb_n, _, _ = hw_model.huffword_state_from_blob(hf.codebook_blob)
     even, odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
     fc, off = hw_model._dual_tables(even, odd, dev)
-    hwords = _i32_tensor(bitio.bytes_to_words(hf.payload), dev)
+    hwords = i32_tensor(bitio.bytes_to_words(hf.payload), dev)
     sb = hf.stream_bits.astype(np.int64)
     hstarts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
     T = hf.n_symbols

@@ -43,6 +43,6 @@ from glz_tpu_torch import config  # noqa: F401
 from glz_tpu_torch.config import GlzConfig  # noqa: F401
 from glz_tpu_torch.core.api import (compress, decompress,  # noqa: F401
                                     compress_batch, decompress_batch,
-                                    compress_archive, decompress_archive)
+                                    compress_archive, decompress_archive,
+                                    compress_huffword_shared)
 from glz_tpu_torch.core.codebook import codebook_from_lengths  # noqa: F401
-from glz_tpu_torch.models.huffword import compress_huffword_shared  # noqa: F401

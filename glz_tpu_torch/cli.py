@@ -215,13 +215,13 @@ def stats_report_huffword(f, original: bytes | None = None, top: int = 20) -> st
     import numpy as np
 
     from glz_tpu_torch.core.codebook import canonical_codebook
-    from glz_tpu_torch.models.huffword import _decode_dict_blob
+    from glz_tpu_torch.models.huffword import decode_dict_blob
     from glz_tpu_torch.utils import tokenizer as tok
 
     mv = memoryview(f.codebook_blob)
     word_first = bool(mv[0])
-    wl, woff, wblob, off = _decode_dict_blob(mv, 1)
-    nl, noff, nblob, off = _decode_dict_blob(mv, off)
+    wl, woff, wblob, off = decode_dict_blob(mv, 1)
+    nl, noff, nblob, off = decode_dict_blob(mv, off)
 
     counts = [None, None]
     lines = [f"word_first={word_first}"]

@@ -13,6 +13,13 @@ as glz_tpu's does (see decompress).  Every backend and strategy runs on
 the card; device='cpu' runs the kernels' plain versions.  Every entry
 point passes `device` down to each call it makes.
 
+The front door decides, each in one place, what the models are handed:
+it parses a container once and gives the GlzFile to the decode of its mode
+and layout, picks the byte encoder (_byte_encoder) and HuffWord's layout
+(_huffword_lockstep), normalises the decoder strategy for each mode, and
+runs the shared-codebook batch of both modes.  The models import nothing of
+it.
+
 Each entry point is a root span of utils/timer.py (`compress`,
 `decompress`, `compress_batch`, `decompress_batch`; the archive goes
 through the batch), and the steps below it are its child spans.
@@ -20,35 +27,21 @@ through the batch), and the steps below it are its child spans.
 
 from __future__ import annotations
 
+import concurrent.futures
 import struct
 import time
-import zlib
 
 import numpy as np
 
 from glz_tpu_torch import config as cfg
-from glz_tpu_torch.core import container
+from glz_tpu_torch.core import container, lockstep
+from glz_tpu_torch.core.codebook import build_codebook, sampled_histogram
+from glz_tpu_torch.models import canonical_byte as cb_model
+from glz_tpu_torch.models import huffword as hw_model
+from glz_tpu_torch.models import normal_tree
+from glz_tpu_torch.models.transfer import resolve_device
 from glz_tpu_torch.utils import timer
-
-def _plan_streams(n_symbols: int, conf: cfg.GlzConfig) -> int:
-    """Pick symbols-per-stream: honor conf.stream_symbols but cap stream
-    count (size budget) and guarantee at least one stream."""
-    if n_symbols == 0:
-        return conf.stream_symbols
-    s = conf.stream_symbols
-    n_streams = -(-n_symbols // s)
-    if n_streams > conf.max_streams:
-        s = -(-n_symbols // conf.max_streams)
-    return s
-
-
-def _verify(data: bytes, f: container.GlzFile) -> bytes:
-    """crc32 integrity check when the container carries one."""
-    if f.checksum is not None:
-        with timer.span("verify"):
-            if zlib.crc32(data) & 0xFFFFFFFF != f.checksum:
-                raise ValueError("checksum mismatch: corrupt container or decoder bug")
-    return data
+from glz_tpu_torch.utils import tokenizer as tok
 
 
 def _pipelined(fn, datas, pipeline: bool) -> list:
@@ -64,8 +57,6 @@ def _pipelined(fn, datas, pipeline: bool) -> list:
             with timer.span("batch.file"):
                 return fn(d)
         return [serial(d) for d in datas]
-    import concurrent.futures
-
     batch = timer.current()
     submitted = time.perf_counter_ns()
 
@@ -77,6 +68,22 @@ def _pipelined(fn, datas, pipeline: bool) -> list:
 
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
         return list(ex.map(one, datas))
+
+
+def _byte_encoder(backend: str, conf: cfg.GlzConfig):
+    """The byte model's compress for backend and conf: a lockstep conf
+    writes the lockstep layout whatever the backend."""
+    if conf.layout == cfg.LAYOUT_LOCKSTEP:
+        return cb_model.compress_bytes_lockstep
+    if backend == "device":
+        return cb_model.compress_bytes_device
+    return cb_model.compress_bytes_host
+
+
+def _huffword_lockstep(backend: str, conf: cfg.GlzConfig) -> bool:
+    """HuffWord writes the lockstep layout when backend is "device" or
+    conf.layout is lockstep, as glz_tpu's compress_huffword does."""
+    return backend == "device" or conf.layout == cfg.LAYOUT_LOCKSTEP
 
 
 def compress(data: bytes, mode: int = cfg.MODE_BYTE, backend: str = "host",
@@ -94,19 +101,14 @@ def compress(data: bytes, mode: int = cfg.MODE_BYTE, backend: str = "host",
 
 def _compress(data, mode, backend, conf, device) -> bytes:
     if mode == cfg.MODE_HUFFWORD:
-        from glz_tpu_torch.models.huffword import compress_huffword
-        return compress_huffword(data, conf, backend=backend, device=device)
+        if _huffword_lockstep(backend, conf):
+            return hw_model.compress_huffword_lockstep(data, conf, device=device)
+        return hw_model.compress_huffword_bitstream(data, conf, device=device)
     if mode == cfg.MODE_NORMAL_TREE:
-        from glz_tpu_torch.models.normal_tree import compress_normal_tree
-        return compress_normal_tree(data, conf, device=device)
+        return normal_tree.compress_normal_tree(data, conf, device=device)
     if mode != cfg.MODE_BYTE:
         raise ValueError(f"unsupported mode {mode}")
-    from glz_tpu_torch.models import canonical_byte as cb_model
-    if conf.layout == cfg.LAYOUT_LOCKSTEP:
-        return cb_model.compress_bytes_lockstep(data, conf, device=device)
-    if backend == "device":
-        return cb_model.compress_bytes_device(data, conf, device=device)
-    return cb_model.compress_bytes_host(data, conf, device=device)
+    return _byte_encoder(backend, conf)(data, conf, device=device)
 
 
 def decompress(blob: bytes, backend: str = "host", variant: str = cfg.DECODER_TABLE,
@@ -127,20 +129,20 @@ def decompress(blob: bytes, backend: str = "host", variant: str = cfg.DECODER_TA
 
 
 def _decompress(blob, backend, variant, device) -> bytes:
-    from glz_tpu_torch.models.canonical_byte import decompress_bytes_device, resolve_device
-    from glz_tpu_torch.models.huffword import decompress_huffword
-
     resolve_device(device)
     f = container.read_container(blob)
     if f.mode == cfg.MODE_HUFFWORD:
-        return decompress_huffword(blob, device=device, variant=variant)
+        if variant not in (cfg.DECODER_BITWALK, cfg.DECODER_FAST):
+            variant = cfg.DECODER_TABLE
+        return hw_model.decompress_huffword(f, device=device, variant=variant)
     if f.mode == cfg.MODE_BYTE:
+        if f.layout == container.LAYOUT_LOCKSTEP:
+            return cb_model.decompress_bytes_lockstep(f, device=device)
         if backend == "device" or variant == cfg.DECODER_DEVICE:
             variant = cfg.DECODER_TABLE
-        return decompress_bytes_device(blob, device=device, variant=variant)
+        return cb_model.decompress_bytes_device(f, device=device, variant=variant)
     if f.mode == cfg.MODE_NORMAL_TREE:
-        from glz_tpu_torch.models.normal_tree import decompress_normal_tree
-        return decompress_normal_tree(blob, device=device)
+        return normal_tree.decompress_normal_tree(f, device=device)
     raise ValueError(f"unsupported container mode {f.mode}")
 
 
@@ -173,29 +175,77 @@ def compress_batch(datas: list[bytes], mode: int = cfg.MODE_BYTE, backend: str =
 
 def _compress_batch_shared(datas, mode, backend, conf, pipeline, device) -> list[bytes]:
     if mode == cfg.MODE_HUFFWORD:
-        from glz_tpu_torch.models.huffword import compress_huffword_shared
         return compress_huffword_shared(datas, conf, backend=backend, pipeline=pipeline,
                                         device=device)
     if mode != cfg.MODE_BYTE:
         raise ValueError("shared_codebook supports byte and huffword modes")
-    from glz_tpu_torch.core.codebook import build_codebook, sampled_histogram
-    from glz_tpu_torch.models import canonical_byte as cb_model
-
     hist = np.zeros(256, np.int64)
     for d in datas:
         with timer.span("histogram"):
             hist += sampled_histogram(np.frombuffer(d, np.uint8), conf.histogram_budget)
-    if conf.layout == cfg.LAYOUT_LOCKSTEP:
-        from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN
-        encode = cb_model.compress_bytes_lockstep
-        limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
-    else:
-        encode = (cb_model.compress_bytes_device if backend == "device"
-                  else cb_model.compress_bytes_host)
-        limit = conf.length_limit
+    limit = (lockstep.fused_length_limit(conf) if conf.layout == cfg.LAYOUT_LOCKSTEP
+             else conf.length_limit)
     with timer.span("codebook"):
         cb = build_codebook(hist, limit)
+    encode = _byte_encoder(backend, conf)
     return _pipelined(lambda d: encode(d, conf, codebook=cb, device=device), datas, pipeline)
+
+
+def compress_huffword_shared(datas: list[bytes], conf: cfg.GlzConfig = cfg.DEFAULT,
+                             backend: str = "host", pipeline: bool = True,
+                             device=None) -> list[bytes]:
+    """Compress a multi-file corpus with ONE shared dual codebook.
+
+    Each file's vocabularies are built independently, merged with
+    tokenizer.merge_vocab_parts, and every file's token ids are remapped
+    into the union before encoding.  Every returned container embeds the
+    full shared codebook and decodes independently.  With pipeline=True two
+    files are in flight at once on a thread pool.  conf.layout and backend
+    select the container as in compress()."""
+    rows = lockstep.group_rows(conf)
+    is_lockstep = _huffword_lockstep(backend, conf)
+    dev = resolve_device(device)
+    per = [tok.build_vocabs(d) for d in datas]
+
+    union_vocabs = []
+    id_maps = []
+    for cls in (3, 4):  # wv, nv of build_vocabs' return tuple
+        parts = [(np.frombuffer(p[cls].blob, np.uint8),
+                  np.diff(p[cls].offsets), p[cls].counts) for p in per]
+        union, maps = tok.merge_vocab_parts(
+            [b for b, _, _ in parts], [l for _, l, _ in parts],
+            [c for _, _, c in parts])
+        union_vocabs.append(union)
+        id_maps.append(maps)
+    uwv, unv = union_vocabs
+
+    if is_lockstep:
+        S = lockstep.huffword_stream_tokens(conf)
+        rows = lockstep.capped_rows(rows, S, max(uwv.n, unv.n) <= 0xFFFF)
+        limit = lockstep.fused_length_limit(conf)
+    else:
+        limit = conf.length_limit
+    with timer.span("codebook"):
+        cbs = [build_codebook(uwv.counts, limit), build_codebook(unv.counts, limit)]
+
+    def one(args):
+        data, (_, _, word_first, wv, nv, ids), k = args
+        T = ids.size
+        if T:
+            is_word = (np.arange(T) % 2 == 0) == word_first
+            gids = np.where(
+                is_word,
+                id_maps[0][k][np.minimum(ids, max(wv.n - 1, 0))] if wv.n else 0,
+                id_maps[1][k][np.minimum(ids, max(nv.n - 1, 0))] if nv.n else 0)
+        else:
+            gids = np.zeros(0, np.int64)
+        if is_lockstep:
+            return hw_model.lockstep_container(data, conf, word_first, uwv, unv, gids, cbs,
+                                               S, rows, dev)
+        return hw_model.bitstream_container(data, conf, word_first, uwv, unv, gids, cbs, dev)
+
+    jobs = [(d, p, k) for k, (d, p) in enumerate(zip(datas, per))]
+    return _pipelined(one, jobs, pipeline)
 
 
 def decompress_batch(blobs: list[bytes], backend: str = "host", pipeline: bool = True,

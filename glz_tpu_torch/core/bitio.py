@@ -1,7 +1,9 @@
 """MSB-first bit streams as bytes and u32 words (host numpy).
 
 A copy of glz_tpu/core/bitio.py's packing half (pack_codes_msb and
-BitWriter, which the .crs writer uses) and its serialisation half.  Codes
+BitWriter, which the .crs writer uses) and its serialisation half, and of
+glz_tpu/core/api.py's _plan_streams (plan_streams: how a bitstream
+container splits its symbols into streams).  Codes
 are emitted most-significant bit first; a word w covers stream bits
 [32w, 32w + 32), and its bytes are stored big-endian.  A bitstream payload
 that ends inside a byte pads that byte with 1s (the reference codec's
@@ -23,6 +25,18 @@ from glz_tpu_torch.utils import timer
 
 _U64 = np.uint64
 _U32 = np.uint32
+
+
+def plan_streams(n_symbols: int, conf) -> int:
+    """Pick symbols-per-stream: honor conf.stream_symbols but cap stream
+    count (size budget) and guarantee at least one stream."""
+    if n_symbols == 0:
+        return conf.stream_symbols
+    s = conf.stream_symbols
+    n_streams = -(-n_symbols // s)
+    if n_streams > conf.max_streams:
+        s = -(-n_symbols // conf.max_streams)
+    return s
 
 
 def pack_codes_msb(codes: np.ndarray, lens: np.ndarray) -> tuple[np.ndarray, int]:

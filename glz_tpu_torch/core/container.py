@@ -37,6 +37,9 @@ Layout (little-endian):
 Byte-mode codebook blob: u8 max_len; if max_len <= 15, 128 B of packed
 nibbles (symbol 2i in the high nibble), else 256 B of u8 lengths.
 
+checksum_of and verify are the trailing crc32's two ends, each a `verify`
+span: the crc is taken on the caller's buffer, with no copy.
+
 write_container and read_container are the `container.write` and
 `container.read` spans of utils/timer.py, each counting the bytes it copies
 as `host_copy_bytes`.  write_container copies each section once, into the
@@ -52,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import zlib
 
 import numpy as np
 
@@ -121,6 +125,23 @@ class GlzFile:
     @property
     def n_streams(self) -> int:
         return int(self.stream_bits.shape[0])
+
+
+def checksum_of(data, conf) -> int | None:
+    """crc32 of the original data when conf.checksum is set, else None."""
+    if not conf.checksum:
+        return None
+    with timer.span("verify"):
+        return zlib.crc32(np.ascontiguousarray(data) if isinstance(data, np.ndarray) else data)
+
+
+def verify(data: bytes, f: GlzFile) -> bytes:
+    """`data`, after checking it against f's crc32 when f carries one."""
+    if f.checksum is not None:
+        with timer.span("verify"):
+            if zlib.crc32(data) & 0xFFFFFFFF != f.checksum:
+                raise ValueError("checksum mismatch: corrupt container or decoder bug")
+    return data
 
 
 def write_container(f: GlzFile) -> bytes:

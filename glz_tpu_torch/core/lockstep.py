@@ -20,10 +20,102 @@ id (row*128 + column) within a step.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
+
+from glz_tpu_torch import config as cfg
 
 ROWS = 8      # default group rows; containers record their own (byte 7)
 LANES = 128   # streams per group row
+GROUP_ROWS = (8, 16, 32, 64)  # the group widths both packages decode
+LEN_BITS = 6  # the encode kernels' entry word is lj | len, the length in LEN_BITS bits,
+MAX_FUSED_LEN = 32 - LEN_BITS  # so a lockstep code is at most 26 bits long
+
+# stream_symbols values of the byte-oriented presets: for huffword they mean
+# "no token-count preference was expressed", not an explicit request.
+_BYTE_PRESET_S = {cfg.DEFAULT.stream_symbols, cfg.THROUGHPUT.stream_symbols,
+                  cfg.RATIO.stream_symbols}
+_HUFFWORD_DEFAULT_S = 512
+
+
+def _is_stream_symbols(S: int) -> bool:
+    """A lockstep stream's symbol count: a power of two in [64, 8192]."""
+    return S & (S - 1) == 0 and 64 <= S <= 8192
+
+
+def stream_symbols(conf: cfg.GlzConfig) -> int:
+    """conf.stream_symbols for the byte lockstep layout, after checking it."""
+    S = conf.stream_symbols
+    if not _is_stream_symbols(S):
+        raise ValueError(
+            f"lockstep layout needs stream_symbols a power of two in "
+            f"[64, 8192], got {S}; use cfg.THROUGHPUT or set it explicitly")
+    return S
+
+
+def group_rows(conf: cfg.GlzConfig) -> int:
+    """conf.group_rows, after checking that it is a supported group width."""
+    rows = conf.group_rows
+    if rows not in GROUP_ROWS:
+        raise ValueError(f"group_rows must be 8, 16, 32 or 64, got {rows}")
+    return rows
+
+
+def fused_length_limit(conf: cfg.GlzConfig) -> int:
+    """The code-length cap of a lockstep encode: conf.length_limit (none:
+    MAX_FUSED_LEN), at most MAX_FUSED_LEN, so the fused entry word applies."""
+    return min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+
+
+def group_streams(f) -> int:
+    """Streams a group (rows x 128) of lockstep container f, after checking
+    its stream_symbols and that its group table covers its symbols."""
+    S = f.stream_symbols
+    if not _is_stream_symbols(S):
+        raise ValueError(f"corrupt .glz container: lockstep stream_symbols {S}")
+    G = f.group_rows * LANES
+    if f.n_streams * G * S < f.n_symbols:
+        raise ValueError("corrupt .glz container: group table too short")
+    return G
+
+
+def huffword_rows_cap(S: int, pack2: bool) -> int:
+    """The container's group_rows bound for the dual decode.  It comes from
+    the JAX package's TPU kernel (its u32 rank output block, (S//2 with
+    pack2 else S) * rows * 512 B, must stay <= 4 MiB), and it decides the
+    container's group_rows, so both packages apply it."""
+    return max(8, ((1 << 14) if pack2 else (1 << 13)) // S)
+
+
+def capped_rows(rows: int, S: int, pack2: bool) -> int:
+    """Apply huffword_rows_cap, with a warning when it lowers the request
+    (attributed to the caller's caller)."""
+    cap = huffword_rows_cap(S, pack2)
+    if rows > cap:
+        warnings.warn(
+            f"huffword lockstep group_rows={rows} exceeds the dual kernel's "
+            f"VMEM budget at stream_symbols={S} "
+            f"({'pack2' if pack2 else 'u32-rank'} path); using group_rows="
+            f"{cap} — lower stream_symbols to use wider groups",
+            stacklevel=3)
+        rows = cap
+    return rows
+
+
+def huffword_stream_tokens(conf: cfg.GlzConfig) -> int:
+    """Tokens per HuffWord lockstep stream, a power of two in [64, 1024].
+
+    An explicitly configured stream_symbols outside that range raises;
+    the byte presets' defaults carry no huffword intent and select 512."""
+    S = conf.stream_symbols
+    if S & (S - 1) == 0 and 64 <= S <= 1024:
+        return S
+    if S in _BYTE_PRESET_S:
+        return _HUFFWORD_DEFAULT_S
+    raise ValueError(
+        f"huffword device layout needs stream_symbols a power of two in "
+        f"[64, 1024], got {S}")
 
 
 def refill_masks(lens_mat: np.ndarray) -> np.ndarray:

@@ -26,35 +26,32 @@ its first token, odd when S is odd) and K6's rank -> id gather.  The JAX
 package writes this layout on the host; the port runs the same codec on the
 card.  All kernel index math is 64-bit.
 
-backend="device" writes a lockstep container even under a bitstream conf,
-as the JAX package's compress_huffword does.
+The front door (core/api.py) picks the layout: lockstep when backend is
+"device" or conf.layout is lockstep, as the JAX package's compress_huffword
+does.
 
 The steps are spans of utils/timer.py, as in canonical_byte.py (`vocab` and
 `detokenize` in utils/tokenizer.py), and the host copies count their bytes
-as `host_copy_bytes`.
+as `host_copy_bytes`; every copy between host and card goes through
+models/transfer.py.
 """
 
 from __future__ import annotations
 
 import struct
-import zlib
 
 import numpy as np
 import torch
 
 from glz_tpu_torch import config as cfg
-from glz_tpu_torch.core import bitio, container
-from glz_tpu_torch.core.api import _pipelined, _verify
+from glz_tpu_torch.core import bitio, container, lockstep
 from glz_tpu_torch.core.codebook import Codebook, build_codebook, canonical_codebook
-from glz_tpu_torch.core.lockstep import LANES
-from glz_tpu_torch.models.canonical_byte import (_i32_tensor, _round_up, bitstream_words,
-                                                 group_tables, host_array,
-                                                 payload_words_on, resolve_device,
-                                                 words_buffer)
+from glz_tpu_torch.models import transfer
+from glz_tpu_torch.models.canonical_byte import group_tables, stream_starts
 from glz_tpu_torch.ops.decode import decode_streams_dual
 from glz_tpu_torch.ops.encode import pack_codes
 from glz_tpu_torch.ops.lockstep_decode import decode_groups_dual
-from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN, encode_payload_from_entries
+from glz_tpu_torch.ops.lockstep_encode import encode_payload_from_entries
 from glz_tpu_torch.ops.lut import gather_entries, map_ranks
 from glz_tpu_torch.utils import timer
 from glz_tpu_torch.utils import tokenizer as tok
@@ -75,7 +72,7 @@ def _corrupt(what: str):
     raise ValueError(f"corrupt .glz container: huffword codebook blob {what}")
 
 
-def _decode_dict_blob(mv: memoryview, off: int):
+def decode_dict_blob(mv: memoryview, off: int):
     """Parse one dictionary's (lengths, token-length, token-text) section.
 
     Every count is validated against the blob size before use, so a corrupt
@@ -123,68 +120,13 @@ def huffword_state_from_blob(codebook_blob: bytes):
         if len(mv) < 1:
             _corrupt("truncated before word_first")
         word_first = bool(mv[0])
-        wl, woff, wblob, off = _decode_dict_blob(mv, 1)
-        nl, noff, nblob, off = _decode_dict_blob(mv, off)
+        wl, woff, wblob, off = decode_dict_blob(mv, 1)
+        nl, noff, nblob, off = decode_dict_blob(mv, off)
         timer.count(timer.HOST_COPY_BYTES, len(wblob) + len(nblob))
         wv = tok.TokenVocab.from_parts(wblob, np.diff(woff), None)
         nv = tok.TokenVocab.from_parts(nblob, np.diff(noff), None)
     with timer.span("codebook"):
         return word_first, canonical_codebook(wl), canonical_codebook(nl), wv, nv
-
-
-# ---- geometry: stream tokens and group rows --------------------------------
-
-# stream_symbols values of the byte-oriented presets: for huffword they mean
-# "no token-count preference was expressed", not an explicit request.
-_BYTE_PRESET_S = {cfg.DEFAULT.stream_symbols, cfg.THROUGHPUT.stream_symbols,
-                  cfg.RATIO.stream_symbols}
-_HUFFWORD_DEFAULT_S = 512
-
-
-def huffword_rows_cap(S: int, pack2: bool) -> int:
-    """The container's group_rows bound for the dual decode.  It comes from
-    the JAX package's TPU kernel (its u32 rank output block, (S//2 with
-    pack2 else S) * rows * 512 B, must stay <= 4 MiB), and it decides the
-    container's group_rows, so both packages apply it."""
-    return max(8, ((1 << 14) if pack2 else (1 << 13)) // S)
-
-
-def _capped_rows(rows: int, S: int, pack2: bool) -> int:
-    """Apply huffword_rows_cap, with a warning when it lowers the request."""
-    cap = huffword_rows_cap(S, pack2)
-    if rows > cap:
-        import warnings
-        warnings.warn(
-            f"huffword lockstep group_rows={rows} exceeds the dual kernel's "
-            f"VMEM budget at stream_symbols={S} "
-            f"({'pack2' if pack2 else 'u32-rank'} path); using group_rows="
-            f"{cap} — lower stream_symbols to use wider groups",
-            stacklevel=3)
-        rows = cap
-    return rows
-
-
-def _huffword_stream_tokens(conf: cfg.GlzConfig) -> int:
-    """Tokens per lockstep stream, a power of two in [64, 1024].
-
-    An explicitly configured stream_symbols outside that range raises;
-    the byte presets' defaults carry no huffword intent and select 512."""
-    S = conf.stream_symbols
-    if S & (S - 1) == 0 and 64 <= S <= 1024:
-        return S
-    if S in _BYTE_PRESET_S:
-        return _HUFFWORD_DEFAULT_S
-    raise ValueError(
-        f"huffword device layout needs stream_symbols a power of two in "
-        f"[64, 1024], got {S}")
-
-
-def _check_rows(conf: cfg.GlzConfig) -> int:
-    """conf.group_rows, after checking that it is a supported group width."""
-    rows = conf.group_rows
-    if rows not in (8, 16, 32, 64):
-        raise ValueError(f"group_rows must be 8, 16, 32 or 64, got {rows}")
-    return rows
 
 
 # ---- compress ---------------------------------------------------------------
@@ -200,70 +142,73 @@ def encode_lockstep_tokens(ids: np.ndarray, T: int, word_first: bool,
     parity dictionary (0 past T), then the entry-word lane totals and K4
     write the consumption-order payload.  Streams hold S tokens with S even,
     so token parity == step parity."""
-    dev = resolve_device(device)
-    group_syms = rows * LANES * S
-    padded_T = _round_up(max(T, 1), group_syms)
+    dev = transfer.resolve_device(device)
+    padded_T = transfer.round_up(max(T, 1), rows * lockstep.LANES * S)
     n0 = max(n_word, 1)
     with timer.span("tables"):
         ent_tbls = [cb.left_justified_codes() | cb.lengths.astype(np.uint32)
                     for cb in cbs]
-        combined_tbl = _i32_tensor(np.concatenate(
+        combined_tbl = transfer.i32_tensor(np.concatenate(
             [ent_tbls[0] if n_word else np.zeros(1, np.uint32),
              ent_tbls[1] if n_nonword else np.zeros(1, np.uint32)]), dev)
     small = max(n_word, n_nonword) <= 0xFFFF
-    ids_d = _ids_on(ids, T, padded_T, small, dev)
+    ids_d = transfer.ids_on(ids, T, padded_T, small, dev)
     with timer.span("encode"):
         ent = gather_entries(ids_d, combined_tbl, 0, n0, T, bool(word_first))
         del ids_d
         payload, group_counts = encode_payload_from_entries(ent, S, rows)
     with timer.span("d2h"):
-        return host_array(payload).view(np.uint32), group_counts
+        return transfer.host_array(payload).view(np.uint32), group_counts
 
 
-def _ids_on(ids: np.ndarray, T: int, padded: int, small: bool,
-            dev: torch.device) -> torch.Tensor:
-    """Token ids as u16 (`small`) or u32 bit patterns on `dev`, zero-padded
-    to `padded`: the padded host copy (`pad`), then the copy to `dev`
-    (`h2d`)."""
-    with timer.span("pad"):
-        ids_pad = np.zeros(padded, np.uint16 if small else np.uint32)
-        ids_pad[:T] = ids.astype(ids_pad.dtype)
-        timer.count(timer.HOST_COPY_BYTES, 2 * T * ids_pad.itemsize)
-    with timer.span("h2d"):
-        return torch.from_numpy(ids_pad.view(np.int16 if small else np.int32)).to(dev)
-
-
-def _lockstep_container(data, conf: cfg.GlzConfig, T: int, S: int, rows: int,
-                        group_counts: np.ndarray, cb_blob: bytes,
-                        payload: np.ndarray) -> bytes:
+def lockstep_container(data, conf: cfg.GlzConfig, word_first: bool, wv, nv,
+                       ids: np.ndarray, cbs: list[Codebook], S: int, rows: int,
+                       device=None) -> bytes:
+    """The layout-2 HuffWord container of class-local token ids,
+    vocabularies and codebooks (code lengths <= 26), S tokens a stream in
+    groups of `rows` rows (shared by the compress and the shared-codebook
+    batch)."""
+    T = ids.size
+    payload, group_counts = encode_lockstep_tokens(
+        ids, T, word_first, cbs, wv.n, nv.n, S, rows=rows, device=device)
     return container.write_container(container.GlzFile(
         mode=cfg.MODE_HUFFWORD,
         n_symbols=T,
         stream_symbols=S,
         stream_bits=group_counts,
-        codebook_blob=cb_blob,
-        payload=words_buffer(payload),
+        codebook_blob=huffword_cb_blob(word_first, wv, nv, cbs),
+        payload=transfer.words_buffer(payload),
         layout=container.LAYOUT_LOCKSTEP,
-        checksum=zlib.crc32(data) if conf.checksum else None,
+        checksum=container.checksum_of(data, conf),
         group_rows=rows,
     ))
 
 
 def _compress_huffword_device(data, conf: cfg.GlzConfig, word_first: bool,
                               wv, nv, ids, device=None) -> bytes:
-    """The HuffWord lockstep container of tokenized data (conf checked by
-    _check_rows)."""
-    T = ids.size
-    S = _huffword_stream_tokens(conf)
-    small = max(wv.n, nv.n) <= 0xFFFF
-    rows = _capped_rows(conf.group_rows, S, small)
-    limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+    """The HuffWord lockstep container of tokenized data (conf.group_rows
+    checked by lockstep.group_rows)."""
+    S = lockstep.huffword_stream_tokens(conf)
+    rows = lockstep.capped_rows(conf.group_rows, S, max(wv.n, nv.n) <= 0xFFFF)
+    limit = lockstep.fused_length_limit(conf)
     with timer.span("codebook"):
         cbs = [build_codebook(wv.counts, limit), build_codebook(nv.counts, limit)]
-    payload, group_counts = encode_lockstep_tokens(
-        ids, T, word_first, cbs, wv.n, nv.n, S, rows=rows, device=device)
-    return _lockstep_container(data, conf, T, S, rows, group_counts,
-                               huffword_cb_blob(word_first, wv, nv, cbs), payload)
+    return lockstep_container(data, conf, word_first, wv, nv, ids, cbs, S, rows, device)
+
+
+def compress_huffword_lockstep(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAULT,
+                               device=None) -> bytes:
+    """HuffWord compression into the lockstep layout, on the card
+    (device=None) or, with device='cpu', through the kernels' plain
+    versions: glz_tpu's compress_huffword container when its backend is
+    "device" or conf.layout is lockstep.  Code lengths are capped at 26 (the
+    fused lj|len entry word); conf.stream_symbols of a byte preset selects
+    512 tokens per stream, and group_rows is capped by
+    lockstep.huffword_rows_cap with a warning."""
+    lockstep.group_rows(conf)
+    dev = transfer.resolve_device(device)
+    _, _, word_first, wv, nv, ids = tok.build_vocabs(data)
+    return _compress_huffword_device(data, conf, word_first, wv, nv, ids, dev)
 
 
 def bitstream_tables(cbs: list[Codebook], n_word: int, n_nonword: int,
@@ -271,7 +216,7 @@ def bitstream_tables(cbs: list[Codebook], n_word: int, n_nonword: int,
     """(lj, length) int32 tables of the two dictionaries concatenated, the
     word dictionary's first (one zero entry for an empty dictionary)."""
     def table(column) -> torch.Tensor:
-        return _i32_tensor(np.concatenate(
+        return transfer.i32_tensor(np.concatenate(
             [column(cbs[0]) if n_word else np.zeros(1, np.uint32),
              column(cbs[1]) if n_nonword else np.zeros(1, np.uint32)]), dev)
 
@@ -291,9 +236,9 @@ def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
     length, from its parity dictionary (0 past T); the bit pack (its scan
     and its pack) follows.  The payload is the words' big-endian
     bytes up to the last code bit, the last partial byte padded with 1s."""
-    dev = resolve_device(device)
+    dev = transfer.resolve_device(device)
     small = max(n_word, n_nonword) <= 0xFFFF
-    ids_d = _ids_on(ids, T, n_streams * stream_tokens, small, dev)
+    ids_d = transfer.ids_on(ids, T, n_streams * stream_tokens, small, dev)
     n0 = max(n_word, 1)
     lj_tbl, len_tbl = bitstream_tables(cbs, n_word, n_nonword, dev)
     with timer.span("encode"):
@@ -302,18 +247,19 @@ def encode_bitstream_tokens(ids: np.ndarray, T: int, word_first: bool,
         del ids_d
         words, total_bits, stream_bits = pack_codes(lj, lens, stream_tokens)
     with timer.span("d2h"):
-        words, stream_bits = host_array(words), stream_bits.cpu().numpy()
+        words, stream_bits = transfer.host_array(words), stream_bits.cpu().numpy()
     with timer.span("serialize"):
         payload = bitio.words_to_bytes(words.view(np.uint32), total_bits)
     return payload, stream_bits
 
 
-def _bitstream_container(data, conf: cfg.GlzConfig, T: int, word_first: bool, wv, nv,
-                         ids: np.ndarray, cbs: list[Codebook], device=None) -> bytes:
+def bitstream_container(data, conf: cfg.GlzConfig, word_first: bool, wv, nv,
+                        ids: np.ndarray, cbs: list[Codebook], device=None) -> bytes:
     """The layout-0 HuffWord container of class-local token ids, vocabularies
-    and codebooks (shared by compress_huffword and the shared-codebook
-    batch).  Streams hold min(stream_symbols, 2^14) tokens, more when
+    and codebooks (shared by the compress and the shared-codebook batch).
+    Streams hold min(stream_symbols, 2^14) tokens, more when
     conf.max_streams would be exceeded."""
+    T = ids.size
     stream_tokens = min(conf.stream_symbols, 1 << 14)
     n_streams = max(1, -(-T // stream_tokens)) if T else 1
     if n_streams > conf.max_streams:
@@ -331,92 +277,23 @@ def _bitstream_container(data, conf: cfg.GlzConfig, T: int, word_first: bool, wv
         stream_bits=stream_bits.astype(np.uint64),
         codebook_blob=huffword_cb_blob(word_first, wv, nv, cbs),
         payload=payload,
-        checksum=zlib.crc32(data) if conf.checksum else None,
+        checksum=container.checksum_of(data, conf),
     ))
 
 
-def compress_huffword(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAULT,
-                      backend: str = "host", device=None) -> bytes:
-    """HuffWord compression on the card (device=None) or, with
-    device='cpu', through the kernels' plain versions, into the container
-    glz_tpu's compress_huffword writes for the same arguments: lockstep when
-    backend is "device" or conf.layout is lockstep, else bitstream.
-
-    Lockstep: code lengths are capped at 26 (the fused lj|len entry word);
-    conf.stream_symbols of a byte preset selects 512 tokens per stream, and
-    group_rows is capped by huffword_rows_cap with a warning.  Bitstream:
-    code lengths are capped at conf.length_limit (up to 32)."""
-    lockstep = backend == "device" or conf.layout == cfg.LAYOUT_LOCKSTEP
-    if lockstep:
-        _check_rows(conf)
-    dev = resolve_device(device)
+def compress_huffword_bitstream(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFAULT,
+                                device=None) -> bytes:
+    """HuffWord compression into the bitstream layout, on the card
+    (device=None) or, with device='cpu', through the kernels' plain
+    versions: glz_tpu's compress_huffword container under its backend
+    "host" and a bitstream conf.  Code lengths are capped at
+    conf.length_limit (up to 32)."""
+    dev = transfer.resolve_device(device)
     _, _, word_first, wv, nv, ids = tok.build_vocabs(data)
-    if lockstep:
-        return _compress_huffword_device(data, conf, word_first, wv, nv, ids, dev)
     with timer.span("codebook"):
         cbs = [build_codebook(v.counts if v.n else np.zeros(1, np.int64), conf.length_limit)
                for v in (wv, nv)]
-    return _bitstream_container(data, conf, ids.size, word_first, wv, nv, ids, cbs, dev)
-
-
-def compress_huffword_shared(datas: list[bytes], conf: cfg.GlzConfig = cfg.DEFAULT,
-                             backend: str = "host", pipeline: bool = True,
-                             device=None) -> list[bytes]:
-    """Compress a multi-file corpus with ONE shared dual codebook.
-
-    Each file's vocabularies are built independently, merged with
-    tokenizer.merge_vocab_parts, and every file's token ids are remapped
-    into the union before encoding.  Every returned container embeds the
-    full shared codebook and decodes independently.  With pipeline=True two
-    files are in flight at once on a thread pool.  conf.layout and backend
-    select the container as in compress_huffword."""
-    rows = _check_rows(conf)
-    lockstep = backend == "device" or conf.layout == cfg.LAYOUT_LOCKSTEP
-    dev = resolve_device(device)
-    per = [tok.build_vocabs(d) for d in datas]
-
-    union_vocabs = []
-    id_maps = []
-    for cls in (3, 4):  # wv, nv of build_vocabs' return tuple
-        parts = [(np.frombuffer(p[cls].blob, np.uint8),
-                  np.diff(p[cls].offsets), p[cls].counts) for p in per]
-        union, maps = tok.merge_vocab_parts(
-            [b for b, _, _ in parts], [l for _, l, _ in parts],
-            [c for _, _, c in parts])
-        union_vocabs.append(union)
-        id_maps.append(maps)
-    uwv, unv = union_vocabs
-
-    small = max(uwv.n, unv.n) <= 0xFFFF
-    if lockstep:
-        S = _huffword_stream_tokens(conf)
-        rows = _capped_rows(rows, S, small)
-        limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
-    else:
-        limit = conf.length_limit
-    with timer.span("codebook"):
-        cbs = [build_codebook(uwv.counts, limit), build_codebook(unv.counts, limit)]
-
-    def one(args):
-        data, (starts, lengths, word_first, wv, nv, ids), k = args
-        T = ids.size
-        if T:
-            is_word = (np.arange(T) % 2 == 0) == word_first
-            gids = np.where(
-                is_word,
-                id_maps[0][k][np.minimum(ids, max(wv.n - 1, 0))] if wv.n else 0,
-                id_maps[1][k][np.minimum(ids, max(nv.n - 1, 0))] if nv.n else 0)
-        else:
-            gids = np.zeros(0, np.int64)
-        if not lockstep:
-            return _bitstream_container(data, conf, T, word_first, uwv, unv, gids, cbs, dev)
-        payload, group_counts = encode_lockstep_tokens(
-            gids, T, word_first, cbs, uwv.n, unv.n, S, rows=rows, device=dev)
-        return _lockstep_container(data, conf, T, S, rows, group_counts,
-                                   huffword_cb_blob(word_first, uwv, unv, cbs), payload)
-
-    jobs = [(d, p, k) for k, (d, p) in enumerate(zip(datas, per))]
-    return _pipelined(one, jobs, pipeline)
+    return bitstream_container(data, conf, word_first, wv, nv, ids, cbs, dev)
 
 
 # ---- decompress -------------------------------------------------------------
@@ -428,14 +305,14 @@ def _ranks_to_ids(ranks: torch.Tensor, cb_even: Codebook, cb_odd: Codebook, smal
     token instead of 4)."""
     n_even = max(cb_even.symbols.size, 1)
     with timer.span("tables"):
-        sym_cat = _i32_tensor(np.concatenate(
+        sym_cat = transfer.i32_tensor(np.concatenate(
             [cb_even.symbols if cb_even.symbols.size else np.zeros(1, np.uint32),
              cb_odd.symbols if cb_odd.symbols.size else np.zeros(1, np.uint32)]), dev)
     with timer.span("decode"):
         ids = map_ranks(ranks, sym_cat, n_even, small)
         del ranks
     with timer.span("d2h"):
-        ids = host_array(ids[:T]).view(np.uint16 if small else np.uint32)
+        ids = transfer.host_array(ids[:T]).view(np.uint16 if small else np.uint32)
     with timer.span("serialize"):
         ids = ids.astype(np.int64)
         timer.count(timer.HOST_COPY_BYTES, ids.nbytes)
@@ -449,17 +326,15 @@ def _dual_tables(cb_even: Codebook, cb_odd: Codebook, dev: torch.device):
         fc = np.stack([cb_even.first_code_left_justified(),
                        cb_odd.first_code_left_justified()])
         offsets = np.stack([cb_even.decode_offsets(), cb_odd.decode_offsets()])
-        return _i32_tensor(fc, dev), _i32_tensor(offsets, dev)
+        return transfer.i32_tensor(fc, dev), transfer.i32_tensor(offsets, dev)
 
 
-def _decompress_huffword_device(f: container.GlzFile, device=None,
-                                variant: str = cfg.DECODER_TABLE):
+def _decompress_huffword_device(f: container.GlzFile, dev: torch.device, variant: str):
     """Decode a HuffWord container's tokens on the card: the lockstep dual
     decode (K5) or the bitstream dual stream decode of the decoder strategy
-    `variant` ("bitwalk" or "fast"; any other string the table, as glz_tpu
-    takes it), then K6.  Returns (ids np.int64 [T], word_first, word_vocab,
-    nonword_vocab); detokenizing happens upstream."""
-    dev = resolve_device(device)
+    `variant` ("table", "bitwalk" or "fast"), then K6.  Returns (ids
+    np.int64 [T], word_first, word_vocab, nonword_vocab); detokenizing
+    happens upstream."""
     word_first, cb_w, cb_n, wv, nv = huffword_state_from_blob(f.codebook_blob)
     # dictionary of token i: the first one when (i even) == word_first
     cb_even, cb_odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
@@ -469,42 +344,30 @@ def _decompress_huffword_device(f: container.GlzFile, device=None,
     T = f.n_symbols
     S = f.stream_symbols
     if f.layout == container.LAYOUT_LOCKSTEP:
-        rows = f.group_rows
-        if S & (S - 1) or not 64 <= S <= 8192:
-            raise ValueError(f"corrupt .glz container: lockstep stream_symbols {S}")
-        G = rows * LANES
-        if f.n_streams * G * S < T:
-            raise ValueError("corrupt .glz container: group table too short")
+        G = lockstep.group_streams(f)
         starts, counts = group_tables(f.stream_bits, T, G, S, dev)
-        payload = payload_words_on(f.payload, dev)
+        payload = transfer.payload_words_on(f.payload, dev)
         with timer.span("decode"):
-            ranks = decode_groups_dual(payload, starts, counts, fc, offsets, S, *lens, rows)
+            ranks = decode_groups_dual(payload, starts, counts, fc, offsets, S, *lens,
+                                       f.group_rows)
     else:
-        if S < 1 or f.n_streams * S < T:
-            raise ValueError("corrupt .glz container: stream table too short")
-        with timer.span("tables"):
-            sbits = f.stream_bits.astype(np.int64)
-            starts = torch.from_numpy(np.cumsum(sbits) - sbits).to(dev)
-        strategy = variant if variant in (cfg.DECODER_BITWALK, cfg.DECODER_FAST) \
-            else cfg.DECODER_TABLE
-        payload = payload_words_on(bitstream_words(f.payload), dev)
+        starts = stream_starts(f, dev)
+        payload = transfer.payload_words_on(transfer.bitstream_words(f.payload), dev)
         with timer.span("decode"):
             ranks = decode_streams_dual(payload, starts, T, S, fc, offsets, *lens,
-                                        variant=strategy,
+                                        variant=variant,
                                         n_codes=(cb_even.symbols.size, cb_odd.symbols.size))
     small = max(wv.n, nv.n) <= 0xFFFF
     return _ranks_to_ids(ranks, cb_even, cb_odd, small, T, dev), word_first, wv, nv
 
 
-def decompress_huffword(blob: bytes, device=None, variant: str = cfg.DECODER_TABLE) -> bytes:
-    """Decode a HuffWord container of either layout (on the card, then
-    detokenize on the host); `variant` picks a bitstream container's
-    decoder strategy (see _decompress_huffword_device)."""
-    f = container.read_container(blob)
-    if f.mode != cfg.MODE_HUFFWORD:
-        raise ValueError("not a huffword container")
-    dev = resolve_device(device)
+def decompress_huffword(f: container.GlzFile, device=None,
+                        variant: str = cfg.DECODER_TABLE) -> bytes:
+    """Decode a parsed HuffWord container of either layout (on the card,
+    then detokenize on the host); `variant` ("table", "bitwalk" or "fast")
+    picks a bitstream container's decoder strategy."""
+    dev = transfer.resolve_device(device)
     if f.n_symbols == 0:
-        return b"" if f.layout == container.LAYOUT_LOCKSTEP else _verify(b"", f)
+        return b"" if f.layout == container.LAYOUT_LOCKSTEP else container.verify(b"", f)
     ids, word_first, wv, nv = _decompress_huffword_device(f, dev, variant)
-    return _verify(tok.detokenize(ids, word_first, wv, nv), f)
+    return container.verify(tok.detokenize(ids, word_first, wv, nv), f)

@@ -10,15 +10,12 @@ code here.  `device` is only validated, as every entry point's is.
 
 from __future__ import annotations
 
-import zlib
-
 import numpy as np
 
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.compat import glzip_format
 from glz_tpu_torch.core import container
-from glz_tpu_torch.core.api import _verify
-from glz_tpu_torch.models.canonical_byte import resolve_device
+from glz_tpu_torch.models.transfer import resolve_device
 
 
 def compress_normal_tree(data: bytes, conf: cfg.GlzConfig = cfg.DEFAULT,
@@ -32,14 +29,12 @@ def compress_normal_tree(data: bytes, conf: cfg.GlzConfig = cfg.DEFAULT,
         stream_bits=np.zeros(0, np.uint64),
         codebook_blob=b"",  # the .crs payload carries its own serialized tree
         payload=crs,
-        checksum=zlib.crc32(data) if conf.checksum else None,
+        checksum=container.checksum_of(data, conf),
     )
     return container.write_container(f)
 
 
-def decompress_normal_tree(blob: bytes, device=None) -> bytes:
+def decompress_normal_tree(f: container.GlzFile, device=None) -> bytes:
+    """Decode a parsed normal-tree container."""
     resolve_device(device)
-    f = container.read_container(blob)
-    if f.mode != cfg.MODE_NORMAL_TREE:
-        raise ValueError("not a normal-tree container")
-    return _verify(glzip_format.read_crs(f.payload), f)
+    return container.verify(glzip_format.read_crs(f.payload), f)

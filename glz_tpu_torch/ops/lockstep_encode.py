@@ -23,13 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from glz_tpu_torch.core.lockstep import LANES
+from glz_tpu_torch.core.lockstep import LANES, LEN_BITS, MAX_FUSED_LEN  # noqa: F401
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.utils import timer
 
-LEN_BITS = 6          # entry word = lj | len; needs max_len <= 32 - LEN_BITS
 LEN_MASK = (1 << LEN_BITS) - 1
-MAX_FUSED_LEN = 32 - LEN_BITS
 U32 = 0xFFFFFFFF
 # The smallest S the lockstep kernels take (the mesh's dry run uses it;
 # containers need S >= 64, as the JAX package's do).

@@ -26,8 +26,8 @@ import torch
 
 from glz_tpu_torch.core.codebook import build_codebook
 from glz_tpu_torch.core.lockstep import LANES
-from glz_tpu_torch.models.canonical_byte import (_i32_tensor, decode_tables, entry_table,
-                                                 resolve_device)
+from glz_tpu_torch.models.canonical_byte import decode_tables, entry_table
+from glz_tpu_torch.models.transfer import i32_tensor, resolve_device
 from glz_tpu_torch.ops.encode import encode_block_fast
 from glz_tpu_torch.parallel import mesh as pmesh
 from glz_tpu_torch.parallel import ranks
@@ -43,7 +43,7 @@ def entry(device=None):
     rng = np.random.default_rng(0)
     sym = torch.from_numpy(rng.integers(0, 256, size=n, dtype=np.uint8)).to(dev)
     n_valid = n - 100
-    lj_tbl = _i32_tensor(np.arange(256, dtype=np.uint32) << 24, dev)
+    lj_tbl = i32_tensor(np.arange(256, dtype=np.uint32) << 24, dev)
     len_tbl = torch.full((256,), 8, dtype=torch.int32, device=dev)
 
     def fn(sym, n_valid, lj_tbl, len_tbl):
@@ -76,8 +76,8 @@ def _rank_step(n_devices: int, device_type: str) -> dict:
     hist[0] -= n - n_valid
     cb = build_codebook(hist)
     words, total_bits, stream_bits, out = pmesh.codec_step(
-        mesh, local, n_valid, _i32_tensor(cb.left_justified_codes(), dev),
-        _i32_tensor(cb.lengths, dev), *decode_tables(cb, dev), cb.min_len, cb.max_len, S)
+        mesh, local, n_valid, i32_tensor(cb.left_justified_codes(), dev),
+        i32_tensor(cb.lengths, dev), *decode_tables(cb, dev), cb.min_len, cb.max_len, S)
     want = data[idx * local_n : min((idx + 1) * local_n, n_valid)]
     if not np.array_equal(out.cpu().numpy(), want):
         raise AssertionError(f"multi-device round trip mismatch (layout 0) on rank {idx}")

@@ -33,7 +33,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from glz_tpu_torch.core.lockstep import LANES
-from glz_tpu_torch.models.canonical_byte import resolve_device
+from glz_tpu_torch.models.transfer import resolve_device
 from glz_tpu_torch.ops.decode import decode_streams
 from glz_tpu_torch.ops.encode import encode_block_fast
 from glz_tpu_torch.ops.histogram import histogram

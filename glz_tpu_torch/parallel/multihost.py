@@ -37,24 +37,20 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import zlib
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from glz_tpu_torch import config as cfg
-from glz_tpu_torch.core import container
+from glz_tpu_torch.core import container, lockstep
 from glz_tpu_torch.core.api import compress
 from glz_tpu_torch.core.codebook import build_codebook, histogram_bytes
 from glz_tpu_torch.core.lockstep import LANES
-from glz_tpu_torch.models.canonical_byte import (_lockstep_stream_symbols,
-                                                 compress_bytes_host, compress_bytes_lockstep,
+from glz_tpu_torch.models.canonical_byte import (compress_bytes_host, compress_bytes_lockstep,
                                                  decompress_bytes_lockstep)
-from glz_tpu_torch.models.huffword import (_capped_rows, _huffword_stream_tokens,
-                                           decompress_huffword, encode_lockstep_tokens,
+from glz_tpu_torch.models.huffword import (decompress_huffword, encode_lockstep_tokens,
                                            huffword_cb_blob)
-from glz_tpu_torch.ops.lockstep_encode import MAX_FUSED_LEN
 from glz_tpu_torch.parallel import mesh as pmesh
 from glz_tpu_torch.utils import crc
 from glz_tpu_torch.utils import tokenizer as tok
@@ -147,9 +143,10 @@ def _stitched_checksum(local_data: bytes, conf) -> int | None:
     """Whole-file crc32 from per-shard crc32s (every process computes and
     gathers; process 0 uses the combined value); None when conf.checksum
     is off."""
-    if not getattr(conf, "checksum", False):
+    local = container.checksum_of(local_data, conf)
+    if local is None:
         return None
-    meta = _allgather([zlib.crc32(local_data) & 0xFFFFFFFF, len(local_data)])
+    meta = _allgather([local & 0xFFFFFFFF, len(local_data)])
     return crc.crc32_concat(meta[:, 0], meta[:, 1])
 
 
@@ -227,7 +224,7 @@ def _compress_bytes_lockstep_multihost(local_data: bytes, conf, device):
     """Group segments are self-contained runs of consumption-ordered words
     whose lengths the group table records, so process 0's stitch is a
     concatenation."""
-    S = _lockstep_stream_symbols(conf)
+    S = lockstep.stream_symbols(conf)
     group_syms = conf.group_rows * LANES * S
     # group g covers symbols [g*G*S, (g+1)*G*S) of the FILE, so every
     # non-last shard must hold whole groups
@@ -235,8 +232,7 @@ def _compress_bytes_lockstep_multihost(local_data: bytes, conf, device):
                      f"lockstep group (group_rows*128*stream_symbols="
                      f"{group_syms} bytes)")
 
-    limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
-    cb = _shared_byte_codebook(local_data, limit)
+    cb = _shared_byte_codebook(local_data, lockstep.fused_length_limit(conf))
     checksum = _stitched_checksum(local_data, conf)
     local_blob = compress_bytes_lockstep(local_data, dataclasses.replace(conf, checksum=False),
                                          codebook=cb, device=device)
@@ -272,25 +268,16 @@ def _group_range(f) -> tuple[int, int, int, int]:
     return g0, g1, g0 * gs, max(0, min(f.n_symbols, g1 * gs) - g0 * gs)
 
 
-def _sub_container(f, g0: int, g1: int, n_local: int) -> bytes:
-    """Groups [g0, g1) of lockstep container f as a container of their own
-    (their segments are self-contained)."""
-    words = np.frombuffer(f.payload, "<u4")
+def _sub_file(f, g0: int, g1: int, n_local: int) -> container.GlzFile:
+    """Groups [g0, g1) of lockstep container f as a GlzFile of their own
+    (their segments are self-contained), its payload a view of f's.  It
+    keeps f's codebook (HuffWord: word_first is token 0's class, and groups
+    start at even tokens) and no checksum, which covers the whole file."""
     gw = f.stream_bits.astype(np.int64)
-    starts = np.cumsum(gw) - gw
-    lo_w = int(starts[g0])
-    hi_w = int(starts[g1 - 1] + gw[g1 - 1])
-    return container.write_container(container.GlzFile(
-        mode=f.mode,
-        n_symbols=n_local,
-        stream_symbols=f.stream_symbols,
-        stream_bits=f.stream_bits[g0:g1],
-        codebook_blob=f.codebook_blob,  # HuffWord: word_first is token 0's
-                                        # class, and groups start at even tokens
-        payload=words[lo_w:hi_w].tobytes(),
-        layout=container.LAYOUT_LOCKSTEP,
-        group_rows=f.group_rows,
-    ))
+    lo_w = int(gw[:g0].sum())
+    hi_w = lo_w + int(gw[g0:g1].sum())
+    return dataclasses.replace(f, n_symbols=n_local, stream_bits=f.stream_bits[g0:g1],
+                               payload=f.payload[4 * lo_w : 4 * hi_w], checksum=None)
 
 
 def decompress_bytes_multihost(blob: bytes, device=None):
@@ -308,7 +295,7 @@ def decompress_bytes_multihost(blob: bytes, device=None):
     g0, g1, byte0, n_local = _group_range(f)
     if n_local == 0:
         return b"", byte0
-    return decompress_bytes_lockstep(_sub_container(f, g0, g1, n_local), device=device), byte0
+    return decompress_bytes_lockstep(_sub_file(f, g0, g1, n_local), device=device), byte0
 
 
 def decompress_huffword_multihost(blob: bytes, device=None):
@@ -323,7 +310,7 @@ def decompress_huffword_multihost(blob: bytes, device=None):
             "multihost decompress supports lockstep huffword containers; "
             "decode other containers in one process via glz_tpu_torch.decompress")
     g0, g1, _, n_local = _group_range(f)
-    local = (decompress_huffword(_sub_container(f, g0, g1, n_local), device=device)
+    local = (decompress_huffword(_sub_file(f, g0, g1, n_local), device=device)
              if n_local else b"")
     sizes = _allgather([len(local)])[:, 0]
     return local, int(sizes[: process_index()].sum())
@@ -335,7 +322,8 @@ def huffword_multihost_rows(conf) -> int:
     """Group rows of the HuffWord multi-process path: conf.group_rows capped,
     with a warning, by the dual decode's non-pack2 bound (known before the
     vocabulary union)."""
-    return _capped_rows(conf.group_rows, _huffword_stream_tokens(conf), pack2=False)
+    return lockstep.capped_rows(conf.group_rows, lockstep.huffword_stream_tokens(conf),
+                                pack2=False)
 
 
 def split_huffword_shards(data: bytes, nproc: int, conf=None) -> list[int]:
@@ -349,7 +337,7 @@ def split_huffword_shards(data: bytes, nproc: int, conf=None) -> list[int]:
     from glz_tpu_torch.utils import native
 
     conf = conf or cfg.GlzConfig()
-    S = _huffword_stream_tokens(conf)
+    S = lockstep.huffword_stream_tokens(conf)
     rows = huffword_multihost_rows(conf)
 
     arr = np.frombuffer(data, np.uint8)
@@ -397,7 +385,7 @@ def compress_huffword_multihost(local_data: bytes, conf=None, device=None):
         return compress(local_data, mode=cfg.MODE_HUFFWORD, backend="device", conf=conf,
                         device=device)
 
-    S = _huffword_stream_tokens(conf)
+    S = lockstep.huffword_stream_tokens(conf)
     rows = huffword_multihost_rows(conf)
     group_syms = rows * LANES * S
     starts, lengths, word_first, wv, nv, ids = tok.build_vocabs(local_data)
@@ -438,7 +426,7 @@ def compress_huffword_multihost(local_data: bytes, conf=None, device=None):
         id_maps.append(maps[pid])
     uwv, unv = union_vocabs
 
-    limit = min(conf.length_limit or MAX_FUSED_LEN, MAX_FUSED_LEN)
+    limit = lockstep.fused_length_limit(conf)
     cbs = [build_codebook(uwv.counts, limit), build_codebook(unv.counts, limit)]
 
     # local ids -> union ids, then the shard's encode.  Shard token offsets

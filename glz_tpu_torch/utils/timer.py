@@ -124,7 +124,7 @@ SPAN_PREFIX = "glz."  # the record_function name of a recorded span, under a pro
 # copying (zero-fill not counted).
 HOST_COPY_BYTES = "host_copy_bytes"
 # The bytes a payload-sized copy brings back from the card, and those of them
-# that landed in page-locked staging (models/canonical_byte.py host_array).
+# that landed in page-locked staging (models/transfer.py host_array).
 D2H_BYTES = "d2h_bytes"
 D2H_PINNED_BYTES = "d2h_pinned_bytes"
 

@@ -36,7 +36,8 @@ import chip_smoke
 from test_torch_host import TABLE_CODEBOOKS, table_codebook_lengths
 from glz_tpu_torch.core.codebook import build_codebook, codebook_from_lengths, histogram_bytes
 from glz_tpu_torch.models import huffword as port_hw
-from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables
+from glz_tpu_torch.models.canonical_byte import decode_tables
+from glz_tpu_torch.models.transfer import i32_tensor
 from glz_tpu_torch.ops import decode as bd
 from glz_tpu_torch.ops import decode_table as dt
 from glz_tpu_torch.ops import encode as be
@@ -68,8 +69,8 @@ def byte_case(name: str, realtext: bytes):
 
 
 def tables(cb):
-    return (_i32_tensor(cb.left_justified_codes(), CPU),
-            _i32_tensor(cb.lengths.astype(np.uint32), CPU))
+    return (i32_tensor(cb.left_justified_codes(), CPU),
+            i32_tensor(cb.lengths.astype(np.uint32), CPU))
 
 
 @pytest.mark.parametrize("name", ["text", "deep32"])
@@ -204,7 +205,7 @@ def _decode_both(words: np.ndarray, sbits: np.ndarray, n: int, S: int, cb):
     """The port's plain stream decode and the XLA decode_block (with
     assemble) of one payload."""
     starts = (np.cumsum(sbits) - sbits).astype(np.int64)
-    got = bd.decode_streams(_i32_tensor(words, CPU), torch.from_numpy(starts), n, S,
+    got = bd.decode_streams(i32_tensor(words, CPU), torch.from_numpy(starts), n, S,
                             *decode_tables(cb, CPU), cb.min_len, cb.max_len).numpy()
     lut, fc_lj, sp, syms = tpu_canonical(cb.lengths).decode_luts(16)
     out = tpu_decode.decode_block(
@@ -320,7 +321,7 @@ def test_decode_dual_matches_host(realtext, name, stream_tokens):
     even, odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
     fc, offs = port_hw._dual_tables(even, odd, CPU)
     starts = torch.from_numpy(np.cumsum(sbits) - sbits)
-    ranks = bd.decode_streams_dual(_i32_tensor(tpu_bitio.bytes_to_words(payload), CPU),
+    ranks = bd.decode_streams_dual(i32_tensor(tpu_bitio.bytes_to_words(payload), CPU),
                                    starts, T, stream_tokens, fc, offs,
                                    (even.min_len, odd.min_len), (even.max_len, odd.max_len))
     got = port_hw._ranks_to_ids(ranks, even, odd, max(wv.n, nv.n) <= 0xFFFF, T, CPU)
@@ -463,7 +464,7 @@ def test_subsequences_host_encoder(realtext):
     words = tpu_bitio.bytes_to_words(tpu_bitio.words_to_bytes(words, total_bits))
     sbits = sbits.astype(np.int64)
     starts = torch.from_numpy(np.cumsum(sbits) - sbits)
-    _check_subsequences(_i32_tensor(words, CPU), starts, arr.size, S, cb, 256)
+    _check_subsequences(i32_tensor(words, CPU), starts, arr.size, S, cb, 256)
 
 
 # ---- the dual kernel's steps: its tables and its subsequence table ----------
@@ -540,7 +541,7 @@ def _dual_payload(name: str, realtext: bytes, stream_tokens: int):
     cb_w, cb_n = (codebook_from_lengths(l) for l in lengths)
     even, odd = (cb_w, cb_n) if word_first else (cb_n, cb_w)
     fc, offs = port_hw._dual_tables(even, odd, CPU)
-    words = _i32_tensor(tpu_bitio.bytes_to_words(payload), CPU)
+    words = i32_tensor(tpu_bitio.bytes_to_words(payload), CPU)
     return (words, torch.from_numpy(np.cumsum(sbits) - sbits), T, fc, offs,
             (even.min_len, odd.min_len), (even.max_len, odd.max_len))
 

@@ -1,5 +1,5 @@
 """The model layer's payload-sized copies from the device
-(models/canonical_byte.py host_array), on the CPU: every such copy of each
+(models/transfer.py host_array), on the CPU: every such copy of each
 path goes through host_array, and on a CPU tensor host_array is `.cpu()`:
 the tensor's own storage, no copy and nothing counted (`d2h_bytes`,
 `d2h_pinned_bytes` and `host_copy_bytes` count only what the card sends).
@@ -12,7 +12,7 @@ import torch
 import glz_tpu_torch as gt
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container
-from glz_tpu_torch.models import canonical_byte, huffword
+from glz_tpu_torch.models import transfer
 from glz_tpu_torch.utils import timer
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -46,7 +46,7 @@ def test_host_array_on_the_cpu_is_cpus_own_storage(make):
     t = make()
     before = timer.totals()
     with timer.recording() as spans, timer.span("d2h"):
-        got = canonical_byte.host_array(t)
+        got = transfer.host_array(t)
     want = t.cpu().numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     assert got.__array_interface__["data"] == want.__array_interface__["data"]
@@ -58,16 +58,16 @@ def test_host_array_on_the_cpu_is_cpus_own_storage(make):
 
 @pytest.fixture
 def d2h_calls(monkeypatch):
-    """Every host_array call of the model layer, as (dtype, bytes)."""
+    """Every host_array call of the model layer, as (dtype, bytes): one
+    patch of the transfer module sees them all."""
     calls = []
-    real = canonical_byte.host_array
+    real = transfer.host_array
 
     def recorded(t):
         calls.append((t.dtype, t.numel() * t.element_size()))
         return real(t)
 
-    monkeypatch.setattr(canonical_byte, "host_array", recorded)
-    monkeypatch.setattr(huffword, "host_array", recorded)
+    monkeypatch.setattr(transfer, "host_array", recorded)
     return calls
 
 

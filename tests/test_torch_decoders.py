@@ -36,7 +36,8 @@ from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container
 from glz_tpu_torch.core.codebook import codebook_from_lengths
 from glz_tpu_torch.models import huffword as port_hw
-from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables
+from glz_tpu_torch.models.canonical_byte import decode_tables
+from glz_tpu_torch.models.transfer import i32_tensor
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.ops import decode as bd
 from glz_tpu_torch.ops import decode_table as dt
@@ -80,7 +81,7 @@ def port_byte_decode(words: np.ndarray, sbits: np.ndarray, n: int, S: int, lengt
                      variant: str) -> np.ndarray:
     cb = codebook_from_lengths(lengths)
     starts = torch.from_numpy(np.cumsum(sbits.astype(np.int64)) - sbits.astype(np.int64))
-    out = bd.decode_streams(_i32_tensor(words, CPU), starts, n, S, *decode_tables(cb, CPU),
+    out = bd.decode_streams(i32_tensor(words, CPU), starts, n, S, *decode_tables(cb, CPU),
                             cb.min_len, cb.max_len, variant=variant, n_codes=cb.symbols.size)
     return out.numpy()
 
@@ -449,7 +450,7 @@ def test_dual_strategy_matches_glz_tpu(name, variant):
     even, odd = port_dicts if word_first else port_dicts[::-1]
     fc, offs = port_hw._dual_tables(even, odd, CPU)
     sb = f.stream_bits.astype(np.int64)
-    ranks = bd.decode_streams_dual(_i32_tensor(words, CPU), torch.from_numpy(np.cumsum(sb) - sb),
+    ranks = bd.decode_streams_dual(i32_tensor(words, CPU), torch.from_numpy(np.cumsum(sb) - sb),
                                    T, f.stream_symbols, fc, offs, (even.min_len, odd.min_len),
                                    (even.max_len, odd.max_len), variant=variant,
                                    n_codes=(even.symbols.size, odd.symbols.size)).numpy()
@@ -560,7 +561,7 @@ def test_no_codeword_raises(variant):
     port_cb = codebook_from_lengths(cb.lengths)
     fc, offs = port_hw._dual_tables(port_cb, port_cb, CPU)
     with pytest.raises(ValueError, match="no codeword matched"):
-        bd.decode_streams_dual(_i32_tensor(words, CPU), torch.zeros(1, dtype=torch.int64), 100,
+        bd.decode_streams_dual(i32_tensor(words, CPU), torch.zeros(1, dtype=torch.int64), 100,
                                128, fc, offs, (1, 1), (1, 1), variant=variant, n_codes=(1, 1))
 
 

@@ -19,6 +19,7 @@ import glz_tpu_torch
 from glz_tpu_torch.core import container
 from glz_tpu_torch.models import canonical_byte as port_model
 from glz_tpu_torch.models import huffword as port_huffword
+from glz_tpu_torch.models import transfer
 from glz_tpu_torch.ops import _kernels
 from glz_tpu_torch.utils import timer
 
@@ -319,7 +320,7 @@ def test_mesh_at_world_size_1(cuda):
     import torch.distributed as dist
 
     from glz_tpu_torch.core.codebook import build_codebook
-    from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables, entry_table
+    from glz_tpu_torch.models.canonical_byte import decode_tables, entry_table
     from glz_tpu_torch.ops import lockstep_encode as ke
     from glz_tpu_torch.parallel import mesh as pmesh
     from glz_tpu_torch.parallel import ranks
@@ -343,8 +344,8 @@ def test_mesh_at_world_size_1(cuda):
                                    64, 8)
         assert torch.equal(gw_all.cpu(), gw)
         *_, out = pmesh.codec_step(mesh, sym, n_valid,
-                                   _i32_tensor(cb.left_justified_codes(), cuda),
-                                   _i32_tensor(cb.lengths, cuda), *decode_tables(cb, cuda),
+                                   transfer.i32_tensor(cb.left_justified_codes(), cuda),
+                                   transfer.i32_tensor(cb.lengths, cuda), *decode_tables(cb, cuda),
                                    cb.min_len, cb.max_len, 4096)
         assert np.array_equal(out.cpu().numpy(), arr[:n_valid])
         counts = _kernels.launch_counts()
@@ -408,7 +409,7 @@ def test_bench_on_the_card(cuda):
     assert "device: " + torch.cuda.get_device_name(0) in stderr
 
 
-# ---- payload-sized D2H into page-locked staging (canonical_byte.host_array) ----
+# ---- payload-sized D2H into page-locked staging (transfer.host_array) ----
 
 # name: (mode, conf, backend)
 STAGED_PATHS = {
@@ -438,8 +439,7 @@ def _pageable(t):
 def pageable_d2h(monkeypatch):
     """Turns every payload-sized D2H back into the pageable `.cpu()`."""
     def on():
-        monkeypatch.setattr(port_model, "host_array", _pageable)
-        monkeypatch.setattr(port_huffword, "host_array", _pageable)
+        monkeypatch.setattr(transfer, "host_array", _pageable)
     return on
 
 
@@ -507,7 +507,7 @@ def test_host_array_stages_in_page_locked_memory(cuda, monkeypatch):
     so; when none can be allocated, the pageable copy, counted as such."""
     t = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
     timer.reset_totals("d2h")
-    got = port_model.host_array(t)
+    got = transfer.host_array(t)
     assert torch.from_numpy(got).is_pinned() and np.array_equal(got, t.cpu().numpy())
     assert timer.totals("d2h") == {timer.D2H_BYTES: 4 << 20, timer.D2H_PINNED_BYTES: 4 << 20}
     empty = torch.empty
@@ -518,7 +518,7 @@ def test_host_array_stages_in_page_locked_memory(cuda, monkeypatch):
         return empty(*args, **kwargs)
 
     monkeypatch.setattr(torch, "empty", no_page_locked_memory)
-    got = port_model.host_array(t)
+    got = transfer.host_array(t)
     monkeypatch.undo()
     assert not torch.from_numpy(got).is_pinned() and np.array_equal(got, t.cpu().numpy())
     assert timer.totals("d2h") == {timer.D2H_BYTES: 8 << 20, timer.D2H_PINNED_BYTES: 4 << 20}

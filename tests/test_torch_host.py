@@ -16,7 +16,6 @@ from glz_tpu.core import container as tpu_container
 from glz_tpu.utils import crc as tpu_crc
 
 from glz_tpu_torch import config as cfg
-from glz_tpu_torch.core import api as port_api
 from glz_tpu_torch.core import bitio as port_bitio
 from glz_tpu_torch.core import codebook as port_codebook
 from glz_tpu_torch.core import container as port_container
@@ -147,8 +146,8 @@ def test_plan_streams_matches_reference(n, preset):
         kw = {} if max_streams is None else {"max_streams": max_streams}
         port_conf = dataclasses.replace(getattr(cfg, preset), **kw)
         tpu_conf = dataclasses.replace(getattr(tpu_cfg, preset), **kw)
-        assert port_api._plan_streams(n, port_conf) == tpu_api._plan_streams(n, tpu_conf)
-    assert port_api._plan_streams(512 << 20, cfg.RATIO) == 2_796_203
+        assert port_bitio.plan_streams(n, port_conf) == tpu_api._plan_streams(n, tpu_conf)
+    assert port_bitio.plan_streams(512 << 20, cfg.RATIO) == 2_796_203
 
 
 def table_codebook_lengths(name: str) -> np.ndarray:

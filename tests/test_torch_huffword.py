@@ -25,6 +25,7 @@ import chip_smoke
 import glz_tpu_torch
 from glz_tpu_torch import config as cfg
 from glz_tpu_torch.core import container as port_container
+from glz_tpu_torch.core import lockstep as port_lockstep
 from glz_tpu_torch.core.codebook import codebook_from_lengths
 from glz_tpu_torch.models import huffword as port_hw
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -138,8 +139,8 @@ def test_rows_cap_warns_like_reference(text_100kb):
         got = _port_compress(text_100kb, port_conf)
     assert got == want
     assert port_container.read_container(got).group_rows == 32
-    assert port_hw.huffword_rows_cap(512, True) == tpu_hw.huffword_rows_cap(512, True) == 32
-    assert port_hw.huffword_rows_cap(128, False) == tpu_hw.huffword_rows_cap(128, False) == 64
+    assert port_lockstep.huffword_rows_cap(512, True) == tpu_hw.huffword_rows_cap(512, True) == 32
+    assert port_lockstep.huffword_rows_cap(128, False) == tpu_hw.huffword_rows_cap(128, False) == 64
 
 
 @pytest.mark.parametrize("preset", ["THROUGHPUT", "RATIO", "DEFAULT"])

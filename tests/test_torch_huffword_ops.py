@@ -24,6 +24,7 @@ from glz_tpu.models import huffword as tpu_hw
 from glz_tpu.ops import pallas_decode as pd
 from glz_tpu.ops import pallas_encode as pe
 
+from glz_tpu_torch.core import container
 from glz_tpu_torch.core.codebook import codebook_from_lengths
 from glz_tpu_torch.models import huffword as port_hw
 from glz_tpu_torch.models.canonical_byte import group_tables
@@ -247,8 +248,8 @@ def test_cpu_wrappers_launch_nothing(realtext):
     _kernels.reset_launch_counts()
     conf = port_hw.cfg.GlzConfig(stream_symbols=S, layout="lockstep")
     data = realtext[:50_000]
-    blob = port_hw.compress_huffword(data, conf, device="cpu")
-    assert port_hw.decompress_huffword(blob, device="cpu") == data
+    blob = port_hw.compress_huffword_lockstep(data, conf, device="cpu")
+    assert port_hw.decompress_huffword(container.read_container(blob), device="cpu") == data
     assert not any(_kernels.launch_counts().values())
 
 

@@ -457,7 +457,7 @@ def test_multihost_bitstream_checksum(runs):
 def test_multihost_huffword_disjoint_vocabs(runs):
     """Shards with disjoint vocabularies: the stitched dictionaries are the
     true union, the remapped ids decode exactly, glz_tpu's bytes."""
-    from glz_tpu_torch.models.huffword import _decode_dict_blob
+    from glz_tpu_torch.models.huffword import decode_dict_blob as _decode_dict_blob
 
     data = runs[0]["disjoint"]
     blob = _blob(runs, "hw_disjoint")

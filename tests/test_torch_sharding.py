@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from glz_tpu_torch.core.codebook import build_codebook
-from glz_tpu_torch.models.canonical_byte import (_i32_tensor, decode_tables, entry_table)
+from glz_tpu_torch.models.canonical_byte import decode_tables, entry_table
+from glz_tpu_torch.models.transfer import i32_tensor
 from glz_tpu_torch.ops import histogram as hist_ops
 from glz_tpu_torch.ops import lockstep_encode as ke
 from glz_tpu_torch.parallel import dryrun, mesh as pmesh, multihost, ranks
@@ -69,12 +70,12 @@ def _rank_cases() -> dict:
         data, cb = _setup(N_DEV * 2 * S, seed)
         mesh = meshes[axes]
         res[name] = _np(*pmesh.codec_step(
-            mesh, _shard(mesh, data), data.size, _i32_tensor(cb.left_justified_codes(), CPU),
-            _i32_tensor(cb.lengths, CPU), *decode_tables(cb, CPU), cb.min_len, cb.max_len, S))
+            mesh, _shard(mesh, data), data.size, i32_tensor(cb.left_justified_codes(), CPU),
+            i32_tensor(cb.lengths, CPU), *decode_tables(cb, CPU), cb.min_len, cb.max_len, S))
     data, cb = _setup(N_DEV * 2 * 512, seed=3)
     res["encode"] = _np(*pmesh.sharded_encode(
         meshes[1], _shard(meshes[1], data), data.size,
-        _i32_tensor(cb.left_justified_codes(), CPU), _i32_tensor(cb.lengths, CPU), 512))
+        i32_tensor(cb.left_justified_codes(), CPU), i32_tensor(cb.lengths, CPU), 512))
     for name, (S, seed, axes) in LOCKSTEP.items():
         data, cb = _setup(N_DEV * 1024 * S, seed)
         mesh = meshes[axes]

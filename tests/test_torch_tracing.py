@@ -64,9 +64,8 @@ def test_a_lockstep_round_trip_records_each_step_under_its_root(round_trip):
             want = "encode" if r.name.startswith("sync.") else direction
             assert by_id[r.parent].name == want, r
             assert root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
-    # the decompress reads the container three times: the front door, the
-    # byte model, the lockstep decode
-    assert len(by_name["container.read"]) == 3
+    # the decompress reads the container once, at the front door
+    assert len(by_name["container.read"]) == 1
     assert len({r.thread for r in spans}) == 1
 
 
@@ -80,16 +79,16 @@ def test_host_copy_bytes_is_what_the_sizes_give(round_trip):
     mine = {d: [r for r in spans if r.root == roots[d]] for d in roots}
     # compress: the input's copy into the (CPU) device buffer, the container
     assert copied(mine["compress"]) == len(data) + len(blob)
-    # decompress: three reads of the codebook alone, the payload's copy into
+    # decompress: one read of the codebook alone, the payload's copy into
     # the (CPU) device buffer, the output's bytes
-    assert copied(mine["decompress"]) == 3 * cb_size + payload + len(data)
+    assert copied(mine["decompress"]) == cb_size + payload + len(data)
     by_name, _ = tree(spans)
     h2d = {d: [r.counts for r in by_name["h2d"] if r.root == roots[d]] for d in roots}
     assert h2d["compress"] == [{timer.HOST_COPY_BYTES: len(data)}]
     assert h2d["decompress"] == [{timer.HOST_COPY_BYTES: payload}]
     # on the card the h2d spans copy nothing on the host: each byte once a call
     assert copied([r for r in mine["compress"] if r.name != "h2d"]) == len(blob)
-    assert copied([r for r in mine["decompress"] if r.name != "h2d"]) == 3 * cb_size + len(data)
+    assert copied([r for r in mine["decompress"] if r.name != "h2d"]) == cb_size + len(data)
     assert all(r.counts == {} for r in by_name["pad"] + by_name["encode"] + by_name["decode"])
     # the parse's payload is a view of the blob, not a copy
     f = container.read_container(blob)
@@ -106,7 +105,7 @@ def test_a_checksum_is_a_verify_span_each_way():
     verify = [r for r in spans if r.name == "verify"]
     roots = {r.id: r.name for r in spans if r.parent is None}
     assert sorted(roots[r.root] for r in verify) == ["compress", "decompress"]
-    assert sorted(copied([r]) for r in verify) == [0, len(data)]  # arr.tobytes(), crc alone
+    assert sorted(copied([r]) for r in verify) == [0, 0]  # the crc, on the caller's buffer
 
 
 def test_the_batch_spans_take_the_batch_as_parent_across_threads():
@@ -220,8 +219,35 @@ def test_bitio_counts_every_payload_sized_buffer_it_writes(default_round_trip):
     mine = {d: [r for r in spans if r.root == roots[d]] for d in roots}
     # compress: the input into the (CPU) device buffer, the container
     assert copied(mine["compress"]) == len(data) + len(blob)
-    # decompress: two reads of the codebook alone, bitio's copy, the words
+    # decompress: one read of the codebook alone, bitio's copy, the words
     # into the (CPU) device buffer, the output's bytes
-    assert copied(mine["decompress"]) == 2 * cb_size + to_words + 4 * words + len(data)
+    assert copied(mine["decompress"]) == cb_size + to_words + 4 * words + len(data)
     serialize = [r for r in by_name["serialize"] if r.root == roots["compress"]]
     assert [r.counts for r in serialize] == [{}]  # one dispatch: no words joined
+
+
+@pytest.mark.parametrize("mode, conf, backend", [
+    (cfg.MODE_BYTE, LOCKSTEP, "host"), (cfg.MODE_BYTE, cfg.DEFAULT, "host"),
+    (cfg.MODE_BYTE, cfg.DEFAULT, "device"), (cfg.MODE_HUFFWORD, LOCKSTEP, "host"),
+    (cfg.MODE_HUFFWORD, cfg.DEFAULT, "host"), (cfg.MODE_NORMAL_TREE, cfg.DEFAULT, "host")],
+    ids=["byte-lockstep", "byte-bitstream-host", "byte-bitstream-device", "huffword-lockstep",
+         "huffword-bitstream", "normal-tree"])
+def test_a_decompress_parses_its_container_once(monkeypatch, mode, conf, backend):
+    """The front door parses the container and hands the models the
+    GlzFile: one parse a call, whatever imports the parser."""
+    data = (b"the cat-sat on its mat. " * 999) if mode == cfg.MODE_HUFFWORD else corpus(70000)
+    blob = gt.compress(data, mode=mode, conf=conf, backend=backend, device="cpu")
+    parsed = []
+    parse = container._read_container
+
+    def counted(b):
+        parsed.append(len(b))
+        return parse(b)
+
+    monkeypatch.setattr(container, "_read_container", counted)
+    with timer.recording() as spans:
+        assert gt.decompress(blob, device="cpu") == data
+    assert parsed == [len(blob)]
+    reads = [r for r in spans if r.name == "container.read"]
+    # HuffWord's codebook section is a second `container.read`: its dictionaries
+    assert len(reads) == (2 if mode == cfg.MODE_HUFFWORD else 1)

@@ -39,7 +39,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from glz_tpu_torch import config as cfg  # noqa: E402
 from glz_tpu_torch.core.codebook import build_codebook, histogram_bytes  # noqa: E402
-from glz_tpu_torch.models.canonical_byte import MAX_DISPATCH_SYMBOLS, _i32_tensor  # noqa: E402
+from glz_tpu_torch.models.canonical_byte import MAX_DISPATCH_SYMBOLS  # noqa: E402
+from glz_tpu_torch.models.transfer import i32_tensor  # noqa: E402
 from glz_tpu_torch.ops import _kernels  # noqa: E402
 from glz_tpu_torch.ops import encode as be  # noqa: E402
 
@@ -134,8 +135,8 @@ def dispatch_codes(dev: torch.device):
     chunk = arr[: (MAX_DISPATCH_SYMBOLS // S) * S]
     cb = build_codebook(histogram_bytes(arr), cfg.DEFAULT.length_limit)
     sym = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev)
-    lj, lens = be.lookup_lj_lens_ref(sym, sym.numel(), _i32_tensor(cb.left_justified_codes(), dev),
-                                     _i32_tensor(cb.lengths.astype(np.uint32), dev))
+    lj, lens = be.lookup_lj_lens_ref(sym, sym.numel(), i32_tensor(cb.left_justified_codes(), dev),
+                                     i32_tensor(cb.lengths.astype(np.uint32), dev))
     return lj, lens, S
 
 

@@ -90,7 +90,8 @@ import glz_tpu_torch as gt  # noqa: E402
 from glz_tpu_torch import config as cfg  # noqa: E402
 from glz_tpu_torch.core import bitio, container  # noqa: E402
 from glz_tpu_torch.core.codebook import codebook_from_lengths  # noqa: E402
-from glz_tpu_torch.models.canonical_byte import _i32_tensor, decode_tables  # noqa: E402
+from glz_tpu_torch.models.canonical_byte import decode_tables  # noqa: E402
+from glz_tpu_torch.models.transfer import i32_tensor  # noqa: E402
 from glz_tpu_torch.core.codebook import build_codebook  # noqa: E402
 from glz_tpu_torch.ops import _kernels  # noqa: E402
 from glz_tpu_torch.ops import decode as bd  # noqa: E402
@@ -510,7 +511,7 @@ def byte_main_inputs(dev: torch.device):
     arr = chip_smoke.make_corpus(chip_smoke.MAIN_BYTES)
     f = container.read_container(gt.compress(arr, conf=cfg.DEFAULT))
     cb = codebook_from_lengths(container.decode_byte_codebook(f.codebook_blob))
-    words = _i32_tensor(bitio.bytes_to_words(f.payload), dev)
+    words = i32_tensor(bitio.bytes_to_words(f.payload), dev)
     sb = f.stream_bits.astype(np.int64)
     starts = torch.from_numpy(np.cumsum(sb) - sb).to(dev)
     return arr, f, cb, words, starts, decode_tables(cb, dev)
