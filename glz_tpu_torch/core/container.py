@@ -44,7 +44,10 @@ write_container and read_container are the `container.write` and
 `container.read` spans of utils/timer.py, each counting the bytes it copies
 as `host_copy_bytes`.  write_container copies each section once, into the
 one container it returns (the payload may be any buffer, such as the
-D2H'd words' memoryview: it is not copied before the join).  read_container
+D2H'd words' memoryview: it is not copied before), made by
+utils/fill.py fresh_bytes; write_container_into writes into fresh
+bytes that the caller started as soon as it knew the container's size
+(container_size), so that their pages are in place by then.  read_container
 copies only the codebook section (129-257 B in byte mode): GlzFile.payload
 is a read-only memoryview of the caller's blob, so a parse costs
 microseconds whatever the payload's size, and the GlzFile keeps the blob
@@ -59,7 +62,7 @@ import zlib
 
 import numpy as np
 
-from glz_tpu_torch.utils import timer
+from glz_tpu_torch.utils import fill, timer
 
 
 MAGIC = b"GLZ1"
@@ -144,14 +147,30 @@ def verify(data: bytes, f: GlzFile) -> bytes:
     return data
 
 
+def container_size(codebook_bytes: int, n_streams: int, payload_bytes: int,
+                   checksum: bool) -> int:
+    """The bytes of a container with these sections."""
+    return HEADER_SIZE + codebook_bytes + 4 * n_streams + payload_bytes + (4 if checksum else 0)
+
+
 def write_container(f: GlzFile) -> bytes:
+    """f's container, in bytes whose pages are put in place from here."""
+    size = container_size(len(f.codebook_blob), f.n_streams, memoryview(f.payload).nbytes,
+                          f.checksum is not None)
+    with fill.fresh_bytes(size) as dest:
+        return write_container_into(f, dest)
+
+
+def write_container_into(f: GlzFile, dest: fill.FreshBytes) -> bytes:
+    """f's container, written into `dest`: the fresh bytes of its size that
+    the caller started as soon as it knew the size."""
     with timer.span("container.write"):
-        out = _write_container(f)
+        out = dest.fill(_sections(f))
         timer.count(timer.HOST_COPY_BYTES, len(out))
         return out
 
 
-def _write_container(f: GlzFile) -> bytes:
+def _sections(f: GlzFile) -> tuple:
     flags = f.layout | (FLAG_CHECKSUM if f.checksum is not None else 0)
     wide = f.layout == LAYOUT_LOCKSTEP and f.group_rows != 8
     header = struct.pack(
@@ -169,7 +188,7 @@ def _write_container(f: GlzFile) -> bytes:
     )
     table = np.asarray(f.stream_bits, dtype=np.uint32).astype("<u4").tobytes()
     tail = struct.pack("<I", f.checksum & 0xFFFFFFFF) if f.checksum is not None else b""
-    return b"".join((header, f.codebook_blob, table, f.payload, tail))
+    return header, f.codebook_blob, table, f.payload, tail
 
 
 def is_glz(blob: bytes | memoryview) -> bool:

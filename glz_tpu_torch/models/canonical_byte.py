@@ -28,10 +28,19 @@ Each step is a span of utils/timer.py (`histogram`, `codebook`, `tables`,
 models/transfer.py, the container's and `verify` in core/container.py, the
 bit streams' in core/bitio.py).  Every copy between host and card goes
 through models/transfer.py.  The front door (core/api.py) parses a
-container once and hands the GlzFile to the decode of its layout.
+container once and hands the GlzFile to the decode of its layout.  Each
+call starts the bytes it returns (fill.fresh_bytes) as soon as their
+size is known, so that their pages are put in place beside the card's
+work: a decompress right before the payload's H2D (after the host work
+that allocates, which the population's page faults would slow); a
+lockstep or host-encoder compress after its last encode, before the
+payload's D2H (compress_bytes_device's serialize allocates, so its
+container starts in write_container).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -45,7 +54,7 @@ from glz_tpu_torch.ops.decode import decode_streams
 from glz_tpu_torch.ops.encode import encode_block_fast
 from glz_tpu_torch.ops.lockstep_decode import decode_groups
 from glz_tpu_torch.ops.lockstep_encode import encode_payload_from_symbols
-from glz_tpu_torch.utils import timer
+from glz_tpu_torch.utils import fill, timer
 
 # Symbols per bitstream dispatch (rounded down to whole streams).  Not a
 # knob: it decides where the device container's word-alignment pads go, so
@@ -157,20 +166,23 @@ def compress_bytes_lockstep(data: bytes | np.ndarray,
     sym = transfer.symbols_on(arr, transfer.round_up(n, rows * lockstep.LANES * S), dev)
     with timer.span("encode"):
         payload, group_counts = encode_payload_from_symbols(sym, n, tbl, S, rows)
-    with timer.span("d2h"):
-        words = transfer.host_array(payload)
-    f = container.GlzFile(
-        mode=cfg.MODE_BYTE,
-        n_symbols=n,
-        stream_symbols=S,
-        stream_bits=group_counts,
-        codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
-        payload=transfer.words_buffer(words),
-        layout=container.LAYOUT_LOCKSTEP,
-        checksum=container.checksum_of(arr, conf),
-        group_rows=rows,
-    )
-    return container.write_container(f)
+    codebook_blob = container.encode_byte_codebook(cb.lengths.astype(np.uint8))
+    with fill.fresh_bytes(container.container_size(
+            len(codebook_blob), group_counts.size, 4 * payload.numel(), conf.checksum)) as dest:
+        with timer.span("d2h"):
+            words = transfer.host_array(payload)
+        f = container.GlzFile(
+            mode=cfg.MODE_BYTE,
+            n_symbols=n,
+            stream_symbols=S,
+            stream_bits=group_counts,
+            codebook_blob=codebook_blob,
+            payload=transfer.words_buffer(words),
+            layout=container.LAYOUT_LOCKSTEP,
+            checksum=container.checksum_of(arr, conf),
+            group_rows=rows,
+        )
+        return container.write_container_into(f, dest)
 
 
 def decompress_bytes_lockstep(f: container.GlzFile, device=None) -> bytes:
@@ -182,11 +194,13 @@ def decompress_bytes_lockstep(f: container.GlzFile, device=None) -> bytes:
     G = lockstep.group_streams(f)
     starts, counts = group_tables(f.stream_bits, f.n_symbols, G, f.stream_symbols, dev)
     tables = decode_tables(cb, dev)
-    payload = transfer.payload_words_on(f.payload, dev)
-    with timer.span("decode"):
-        out = decode_groups(payload, starts, counts, *tables, f.stream_symbols, cb.min_len,
-                            cb.max_len, f.group_rows)
-    return container.verify(transfer.host_bytes(out[: f.n_symbols]), f)
+    with fill.fresh_bytes(f.n_symbols) as dest:
+        payload = transfer.payload_words_on(f.payload, dev)
+        with timer.span("decode"):
+            out = decode_groups(payload, starts, counts, *tables, f.stream_symbols, cb.min_len,
+                                cb.max_len, f.group_rows)
+        data = transfer.host_bytes(out[: f.n_symbols], dest)
+    return container.verify(data, f)
 
 
 # ---- bitstream layout (layout 0) ---------------------------------------------
@@ -270,46 +284,52 @@ def compress_bytes_host(data: bytes | np.ndarray, conf: cfg.GlzConfig = cfg.DEFA
     dispatch = max((MAX_DISPATCH_SYMBOLS // S) * S, S)
     cb = codebook if codebook is not None else _byte_codebook(arr, None, conf.length_limit)
     lj_tbl, len_tbl = _lj_len_tables(cb, dev)
+    codebook_blob = container.encode_byte_codebook(cb.lengths.astype(np.uint8))
 
     word_parts: list[np.ndarray] = []
     stream_bits_parts: list[np.ndarray] = []
     pos = 0                # bits so far
     carry = None           # the last, partial word so far (1 word, on the card)
-    for lo in range(0, n, dispatch):
-        n_valid = min(n, lo + dispatch) - lo
-        sym = transfer.symbols_on(arr[lo : lo + n_valid], transfer.round_up(n_valid, S), dev)
-        with timer.span("encode"):
-            words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl, len_tbl,
-                                                               S, bit_offset=pos)
-            del sym
-            if carry is not None:
-                words[:1].bitwise_or_(carry)
-        pos += total_bits
-        last = lo + n_valid == n
-        whole = words.numel() - (1 if pos & 31 and not last else 0)
-        carry = words[whole:] if whole < words.numel() else None
-        with timer.span("d2h"):
-            word_parts.append(transfer.host_array(words[:whole]).view(np.uint32))
-            stream_bits_parts.append(stream_bits[: -(-n_valid // S)].cpu().numpy())
-        del words
+    with contextlib.ExitStack() as held:
+        for lo in range(0, n, dispatch):
+            n_valid = min(n, lo + dispatch) - lo
+            sym = transfer.symbols_on(arr[lo : lo + n_valid], transfer.round_up(n_valid, S),
+                                      dev)
+            with timer.span("encode"):
+                words, total_bits, stream_bits = encode_block_fast(sym, n_valid, lj_tbl,
+                                                                   len_tbl, S, bit_offset=pos)
+                del sym
+                if carry is not None:
+                    words[:1].bitwise_or_(carry)
+            pos += total_bits
+            last = lo + n_valid == n
+            if last:  # the container's size is known
+                dest = held.enter_context(fill.fresh_bytes(container.container_size(
+                    len(codebook_blob), -(-n // S), (pos + 7) >> 3, conf.checksum)))
+            whole = words.numel() - (1 if pos & 31 and not last else 0)
+            carry = words[whole:] if whole < words.numel() else None
+            with timer.span("d2h"):
+                word_parts.append(transfer.host_array(words[:whole]).view(np.uint32))
+                stream_bits_parts.append(stream_bits[: -(-n_valid // S)].cpu().numpy())
+            del words
 
-    with timer.span("serialize"):
-        if len(word_parts) == 1:
-            words = word_parts[0]
-        else:
-            words = np.concatenate(word_parts)
-            timer.count(timer.HOST_COPY_BYTES, words.nbytes)
-        payload = bitio.words_to_payload(words, pos)
-    f = container.GlzFile(
-        mode=cfg.MODE_BYTE,
-        n_symbols=n,
-        stream_symbols=S,
-        stream_bits=np.concatenate(stream_bits_parts).astype(np.uint64),
-        codebook_blob=container.encode_byte_codebook(cb.lengths.astype(np.uint8)),
-        payload=payload,
-        checksum=container.checksum_of(arr, conf),
-    )
-    return container.write_container(f)
+        with timer.span("serialize"):
+            if len(word_parts) == 1:
+                words = word_parts[0]
+            else:
+                words = np.concatenate(word_parts)
+                timer.count(timer.HOST_COPY_BYTES, words.nbytes)
+            payload = bitio.words_to_payload(words, pos)
+        f = container.GlzFile(
+            mode=cfg.MODE_BYTE,
+            n_symbols=n,
+            stream_symbols=S,
+            stream_bits=np.concatenate(stream_bits_parts).astype(np.uint64),
+            codebook_blob=codebook_blob,
+            payload=payload,
+            checksum=container.checksum_of(arr, conf),
+        )
+        return container.write_container_into(f, dest)
 
 
 def decompress_bytes_device(f: container.GlzFile, device=None,
@@ -327,11 +347,14 @@ def decompress_bytes_device(f: container.GlzFile, device=None,
         raise ValueError("corrupt .glz container: no byte has a code")
     starts = stream_starts(f, dev)
     tables = decode_tables(cb, dev)
-    payload = transfer.payload_words_on(transfer.bitstream_words(f.payload), dev)
-    with timer.span("decode"):
-        out = decode_streams(payload, starts, f.n_symbols, f.stream_symbols, *tables,
-                             cb.min_len, cb.max_len, variant=variant, n_codes=cb.symbols.size)
-    return container.verify(transfer.host_bytes(out), f)
+    words = transfer.bitstream_words(f.payload)
+    with fill.fresh_bytes(f.n_symbols) as dest:
+        payload = transfer.payload_words_on(words, dev)
+        with timer.span("decode"):
+            out = decode_streams(payload, starts, f.n_symbols, f.stream_symbols, *tables,
+                                 cb.min_len, cb.max_len, variant=variant, n_codes=cb.symbols.size)
+        data = transfer.host_bytes(out, dest)
+    return container.verify(data, f)
 
 
 def _lj_len_tables(cb: Codebook, dev: torch.device):

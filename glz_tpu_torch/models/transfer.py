@@ -25,6 +25,12 @@ pageable tensor, and counts `d2h_bytes` and `d2h_pinned_bytes`.  Callers
 reach it as `transfer.host_array`, so that one patch of this module's
 attribute sees every such copy.  The small copies (stream bit counts, group
 counts) stay plain `.cpu()` copies.
+
+The bytes a call returns, a decompress's output (host_bytes) and a
+compress's container (core/container.py), are made by utils/fill.py
+fresh_bytes as soon as their size is known, and their pages are put in
+place on a small pool of threads while the call goes on; the one copy fills
+them once that is done.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from glz_tpu_torch.core import bitio
-from glz_tpu_torch.utils import timer
+from glz_tpu_torch.utils import fill, timer
 
 
 def resolve_device(device) -> torch.device:
@@ -133,15 +139,16 @@ def host_array(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
-def host_bytes(out: torch.Tensor) -> bytes:
+def host_bytes(out: torch.Tensor, dest: fill.FreshBytes) -> bytes:
     """A decoded u8 tensor as bytes: the copy to the host (`d2h`, which
     waits for the kernels ahead of it; from the card into a page-locked
-    block, host_array), then into a bytes object (`serialize`), the call's
-    one host copy of the output, after which the block is released."""
+    block, host_array), then into `dest`, the fresh bytes of its size that
+    the caller started (`serialize`), the call's one host copy of the
+    output, after which the block is released."""
     with timer.span("d2h"):
         host = host_array(out)
     with timer.span("serialize"):
-        data = host.tobytes()
+        data = dest.fill((host,))
         timer.count(timer.HOST_COPY_BYTES, len(data))
     return data
 

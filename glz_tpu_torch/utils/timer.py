@@ -127,6 +127,10 @@ HOST_COPY_BYTES = "host_copy_bytes"
 # that landed in page-locked staging (models/transfer.py host_array).
 D2H_BYTES = "d2h_bytes"
 D2H_PINNED_BYTES = "d2h_pinned_bytes"
+# The bytes of a result whose pages were populated in bulk before its one
+# copy (utils/fill.py fresh_bytes), on the `serialize` and
+# `container.write` spans.
+POPULATED_BYTES = "populated_bytes"
 
 
 class SpanRecord(NamedTuple):

@@ -21,7 +21,7 @@ from glz_tpu_torch.models import canonical_byte as port_model
 from glz_tpu_torch.models import huffword as port_huffword
 from glz_tpu_torch.models import transfer
 from glz_tpu_torch.ops import _kernels
-from glz_tpu_torch.utils import timer
+from glz_tpu_torch.utils import fill, timer
 
 pytestmark = pytest.mark.gpu
 
@@ -539,3 +539,35 @@ def test_silesia_batch_through_pinned_staging(cuda, silesia_members, pageable_d2
     assert glz_tpu_torch.decompress_batch(blobs) == silesia_members
     pageable_d2h()
     assert glz_tpu_torch.compress_batch(silesia_members, conf=conf, pipeline=False) == blobs
+
+
+# name: (input bytes, conf, backend)
+FRESH_PATHS = {
+    "byte-lockstep-1e8": (100_000_000, glz_tpu_torch.config.THROUGHPUT, "host"),
+    "byte-bitstream-51MB": (51_220_480, glz_tpu_torch.config.DEFAULT, "host"),
+}
+
+
+@pytest.mark.parametrize("path", list(FRESH_PATHS))
+def test_fresh_pages_write_the_plain_bytes(cuda, monkeypatch, path):
+    """A 10^8-B lockstep and a 51 MB bitstream round trip on the card: the
+    container and the output are the bytes the plain join and tobytes
+    write, and each was populated in bulk, whole (`populated_bytes` on
+    `container.write` and `serialize`)."""
+    n, conf, backend = FRESH_PATHS[path]
+    data = chip_smoke.make_corpus(n, seed=0xF1).tobytes()
+    with timer.recording() as spans:
+        blob = glz_tpu_torch.compress(data, conf=conf, backend=backend)
+        out = glz_tpu_torch.decompress(blob)
+    assert out == data
+    populated = {}
+    for r in spans:
+        if timer.POPULATED_BYTES in r.counts:
+            populated[r.name] = populated.get(r.name, 0) + r.counts[timer.POPULATED_BYTES]
+    assert populated == {"container.write": len(blob), "serialize": n}
+    del out
+    monkeypatch.setattr(fill, "BULK_FLOOR", 1 << 62)
+    timer.reset_totals(timer.POPULATED_BYTES)
+    assert glz_tpu_torch.compress(data, conf=conf, backend=backend) == blob
+    assert glz_tpu_torch.decompress(blob) == data
+    assert timer.totals(timer.POPULATED_BYTES).get(timer.POPULATED_BYTES, 0) == 0
