@@ -5,8 +5,10 @@ cell's own size: `python3 -m glzbench.control --workload <cell> --seeds
 For each seed the cell's files are made once; then the sound program and
 each broken path of glzbench/faults.py run one short window of the cell's
 own traffic, and the numbers `correct` compares are read as a run reads
-them.  One JSON line a (seed, path).  The benchmark's own runs never run
-this.
+them.  One JSON line a (seed, path).  A cell of several processes runs
+the paths of faults.SHARDED on one launch of its ranks (spmd.control): a
+path that ends the ranks reads as not correct, with the number of ranks
+that failed.  The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import json
 import sys
 import time
 
-from glzbench import faults, harness, traffic
+from glzbench import faults, harness, spmd, traffic
 
 
 def readings(cell: harness.Cell, entry, files: list, seconds: float,
@@ -32,7 +34,7 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=3.0)
-    ap.add_argument("--paths", nargs="+", default=["sound", *faults.FAULTS])
+    ap.add_argument("--paths", nargs="+")
     args = ap.parse_args(argv)
     import torch
 
@@ -40,6 +42,12 @@ def main(argv: list[str]) -> int:
         print("glzbench.control: no CUDA card", file=sys.stderr)
         return 2
     cell = harness.load_cell(args.workload)
+    if cell.config.get("processes", 1) > 1:
+        for reading in spmd.control(cell, args.seeds, args.seconds,
+                                    args.paths or ["sound", *faults.SHARDED]):
+            print(json.dumps(reading), flush=True)
+        return 0
+    args.paths = args.paths or ["sound", *faults.FAULTS]
     for seed in args.seeds:
         files = traffic.make_files(cell.traffic, seed)
         for path in args.paths:

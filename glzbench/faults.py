@@ -14,15 +14,28 @@ catch.  Each wraps the program's entry points and breaks what they give.
                    (its first, its third, ...): one input no longer gives
                    one container;
   raises           every compress call raises: an answer that never comes.
-The cells run on one card, so no fault leaves out an exchange between
-cards.
+
+A cell of several processes (glzbench/spmd.py) has SHARDED in their place,
+each on every rank: the same six, each where the ranks' path produces it
+(control: every rank's slice altered; unchanged: rank 0's "container" is
+its shard and each slice the container at offset 0; half: each shard cut
+to its first half in whole groups; flip_container and unstable: rank 0's
+stitched container; raises: the last rank's compress raises, the others
+wait in the exchange), and two that leave out part of the exchange:
+  local_codebook   each rank codes its shard with its own histogram's
+                   code: the histograms' all-gather left out;
+  shard_dropped    the last rank's payload and group table left out of
+                   process 0's stitch.
 """
 
 from __future__ import annotations
 
 import struct
 
+import numpy as np
+
 from glzbench.harness import Entry
+from glzbench.spmd import ShardEntry, group_bytes
 
 
 def _flip_byte(data: bytes) -> bytes:
@@ -116,3 +129,87 @@ class Raises(Entry):
 
 FAULTS = {"control": Control, "unchanged": Unchanged, "half": Half,
           "flip_container": FlipContainer, "unstable": Unstable, "raises": Raises}
+
+
+class ShardControl(ShardEntry):
+    def decompress(self, blob):
+        out, offset = super().decompress(blob)
+        return _flip_byte(out), offset
+
+
+class ShardUnchanged(ShardEntry):
+    def compress(self, shard):
+        return shard if self.rank == 0 else None
+
+    def decompress(self, blob):
+        return bytes(blob), 0
+
+
+class ShardHalf(ShardEntry):
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self.group = group_bytes(config)
+
+    def compress(self, shard):
+        return super().compress(shard[: max(1, len(shard) // 2 // self.group) * self.group])
+
+
+class ShardFlipContainer(ShardEntry):
+    def compress(self, shard):
+        blob = super().compress(shard)
+        return None if blob is None else _flip_payload_bit(blob)
+
+
+class ShardUnstable(ShardEntry):
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self.calls = 0
+
+    def compress(self, shard):
+        blob = super().compress(shard)
+        self.calls += 1
+        return _flip_payload_bit(blob) if blob is not None and self.calls % 2 else blob
+
+
+class ShardRaises(ShardEntry):
+    def compress(self, shard):
+        if self.rank == self.world - 1:
+            raise RuntimeError("a broken compress on the last rank")
+        return super().compress(shard)
+
+
+class _Patched(ShardEntry):
+    """An entry that replaces one function of the program's multihost module
+    while it lives (`close` puts the program's back)."""
+    ATTR = ""
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self.saved = getattr(self.mh, self.ATTR)
+        setattr(self.mh, self.ATTR, self.broken)
+
+    def close(self):
+        setattr(self.mh, self.ATTR, self.saved)
+
+
+class LocalCodebook(_Patched):
+    ATTR = "_shared_byte_codebook"
+
+    def broken(self, local_data, limit):
+        from glz_tpu_torch.core.codebook import build_codebook, histogram_bytes
+
+        return build_codebook(histogram_bytes(np.frombuffer(local_data, np.uint8)), limit)
+
+
+class ShardDropped(_Patched):
+    ATTR = "_gather_ragged"
+
+    def broken(self, arr):
+        parts = self.saved(arr)
+        return parts[:-1] if self.rank == 0 else parts
+
+
+SHARDED = {"control": ShardControl, "unchanged": ShardUnchanged, "half": ShardHalf,
+           "flip_container": ShardFlipContainer, "unstable": ShardUnstable,
+           "local_codebook": LocalCodebook, "shard_dropped": ShardDropped,
+           "raises": ShardRaises}

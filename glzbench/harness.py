@@ -19,6 +19,10 @@ and the configuration.  With `--trace 1` the window runs under
 torch.profiler, and the functions the per-layer metrics name are wrapped
 in spans.
 
+A configuration whose `processes` is over 1 runs one process a card,
+each with its shard of every file, through the program's multi-process
+entry points: glzbench/spmd.py.
+
 The last line of standard output is the result, a JSON object; the
 numbers compared, each with its limit, end standard error.
 """
@@ -350,7 +354,12 @@ def read_metrics(run: Run, specs: list) -> dict:
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t0: float,
              device=None, scale: float = 1.0) -> tuple[int, dict | None]:
     """(exit code, result) of one run; the result is None where the run
-    must print none."""
+    must print none.  A configuration of several `processes` runs one rank
+    a card (glzbench/spmd.py)."""
+    if cell.config.get("processes", 1) > 1:
+        from glzbench import spmd
+
+        return spmd.run_cell(cell, seed, seconds, trace, t0, device, scale)
     import torch
 
     log(t0, "torch imported")

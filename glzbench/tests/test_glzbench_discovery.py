@@ -39,8 +39,11 @@ def test_the_file_keeps_to_its_format():
     assert len({(w["config"], w["traffic"]) for w in BENCH["workloads"]}) == len(cells)
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert NAME.match(w["name"]) and w["config"] in configs and w["chips"] == 1
+        assert NAME.match(w["name"]) and w["config"] in configs and w["chips"] in (1, 4)
         assert line(w["why"])
+        body = json.loads((harness.ROOT / configs[w["config"]]["file"]).read_text())
+        assert body.get("processes", 1) in (1, w["chips"])  # one process, or one a card
+    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(cells) // 4)
     assert {w["config"] for w in BENCH["workloads"]} == set(configs)
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25

@@ -13,26 +13,26 @@ CELLS = [w["name"] for w in json.loads((harness.ROOT / "BENCHMARK.json").read_te
     "workloads"]]
 
 
-def card():
+def card(n: int = 1):
     import torch
 
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA card(s)")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("trace", [0, 1])
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_run_prints_its_result(workload, trace):
-    card()
+    cell = harness.load_cell(workload)
+    card(cell.chips)
     out = subprocess.run([sys.executable, "-m", "glzbench", "--workload", workload, "--seed",
                           str(2**31 + 77), "--seconds", "2", "--trace", str(trace)],
                          cwd=harness.ROOT, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     result = json.loads(out.stdout.strip().split("\n")[-1])
     assert result["correct"] and result["failed"] == 0
-    assert result["device"]["platform"] == "gpu" and result["device"]["count"] == 1
-    cell = harness.load_cell(workload)
+    assert result["device"]["platform"] == "gpu" and result["device"]["count"] == cell.chips
     want = {m["name"] for m in (cell.per_layer if trace else cell.end_to_end)}
     if not trace:
         want.discard("decompress_p95_ms")  # 2 s hold too few calls

@@ -63,6 +63,15 @@ def test_the_compress_tail_and_the_per_cell_readers_read_as_their_bases():
         assert mine.read(run) == theirs.read(run)
 
 
+
+def test_the_sharded_compress_rate_reads_as_compress_GBps():
+    run = make_run([call("compress", 10 * k, 10 * k + k + 1) for k in range(20)])
+    mine, theirs = harness.metric_reader("compress_GBps.sharded"), harness.metric_reader(
+        "compress_GBps")
+    assert getattr(mine, "SPANS", {}) == getattr(theirs, "SPANS", {})
+    assert mine.read(run) == theirs.read(run) > 0
+    assert mine.read(make_run([])) is None
+
 def trace_run():
     calls = [call("compress", 0, 100, data=1000 * 10**6, payload=600 * 10**6),
              call("decompress", 100, 200, data=1000 * 10**6, payload=600 * 10**6)]

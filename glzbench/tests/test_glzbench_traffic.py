@@ -6,7 +6,7 @@ import pytest
 
 from glzbench import traffic
 
-NAMES = ("and3-100MB", "words-10MB", "silesia-sizes", "silesia-sizes-batch")
+NAMES = ("and3-100MB", "words-10MB", "silesia-sizes", "silesia-sizes-batch", "enwik9")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -24,6 +24,22 @@ def test_any_whole_number_seeds():
     spec = traffic.load("and3-100MB")
     for seed in (0, -1, 2**31 + 3, 2**63 + 5):
         assert len(traffic.make_files(spec, seed, scale=1e-5)[0][1]) == 1000
+
+
+def test_a_file_is_one_generator_unless_it_names_blocks():
+    """A file without block_bytes is one generator's draw, as it always was;
+    one with it is drawn block by block, each block its own generator's,
+    whatever the threads."""
+    spec = traffic.load("and3-100MB")
+    law = spec["laws"]["and3"]
+    data = traffic.make_files(spec, 2**31 + 5, scale=1e-3)[0][1]
+    assert data == traffic._and(traffic._rng(2**31 + 5, 0), 100_000, law).tobytes()
+    blocked = dict(spec, files=[dict(spec["files"][0], block_bytes=30_000)])
+    data = traffic.make_files(blocked, 2**31 + 5, scale=1e-3)[0][1]
+    blocks = [traffic._and(np.random.default_rng(np.random.SeedSequence([2**31 + 5, 0, b])),
+                           min(30_000, 100_000 - 30_000 * b), law).tobytes() for b in range(4)]
+    assert data == b"".join(blocks)
+    assert traffic.load("enwik9")["files"][0]["block_bytes"] == 1 << 24
 
 
 def test_the_and_law_sets_each_bit_one_time_in_eight():

@@ -114,13 +114,25 @@ LAWS = {"and": _and, "dirichlet": _dirichlet, "words": _words}
 def make_files(spec: dict, seed: int, scale: float = 1.0) -> list[tuple[str, bytes]]:
     """The traffic's files as (name, bytes), in the file's order, from
     `seed`, made on four threads (each file has a generator of its own, so
-    the bytes do not depend on the threads).  `scale` shrinks every size
-    (the tests' CPU runs); 1 is the benchmark."""
-    def one(k: int) -> tuple[str, bytes]:
-        f = spec["files"][k]
-        law = spec["laws"][f["law"]]
+    the bytes do not depend on the threads).  A file with `block_bytes` is
+    drawn in blocks of that many bytes, block b from a generator of its own,
+    so that the threads make one large file together.  `scale` shrinks every
+    size (the tests' CPU runs); 1 is the benchmark."""
+    jobs = []  # (file, block or None, bytes)
+    for k, f in enumerate(spec["files"]):
         n = max(1, int(f["bytes"] * scale))
-        return f["name"], LAWS[law["kind"]](_rng(seed, k), n, law).tobytes()
+        step = f.get("block_bytes")
+        jobs += ([(k, None, n)] if step is None else
+                 [(k, b, min(step, n - b * step)) for b in range(-(-n // step))])
+
+    def one(job: tuple) -> np.ndarray:
+        k, b, n = job
+        law = spec["laws"][spec["files"][k]["law"]]
+        rng = _rng(seed, k) if b is None else np.random.default_rng(
+            np.random.SeedSequence([seed % (1 << 64), k, b]))
+        return LAWS[law["kind"]](rng, n, law)
 
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
-        return list(ex.map(one, range(len(spec["files"]))))
+        parts = list(ex.map(one, jobs))
+    return [(f["name"], b"".join(p for (j, _, _), p in zip(jobs, parts) if j == k))
+            for k, f in enumerate(spec["files"])]
